@@ -1,0 +1,341 @@
+"""Strip-ordered bitmask SpMM — the aggregation kernel of the main path.
+
+``out = A^T h`` for a 0/1 adjacency tiled into (BD=256 dst x BS=2048 src)
+bitmask tiles (format: ``spmm_block``), plus an ELLPACK straggler
+(``spmm_fast``) for the edges of sparse tiles. The backward pass runs the
+same kernel on the pre-built REVERSE layout (the reference aggregating
+gradients on its ``bwd_graph``, ``AdaQP/model/ops.py:83-95``).
+
+Host side: :func:`strip_layout` packs the dense tiles exactly as the JAX
+package's ``strip_layout`` does (masks in destination-block-major order).
+The JAX package also builds a step schedule for its accelerator's
+sequential grid and window ring (``w_ord``, ``out_idx``, ``sub``,
+``flags``, ``mask_idx``, ``win_src``); the CUDA kernel needs only each
+destination block's tile range, :func:`block_pointers`, so the schedule
+is not built here.
+
+Device side: :func:`strip_spmm` is the kernel wrapper. On a CUDA tensor it
+launches the hand-written kernel (``csrc/spmm_strip.cu``), on a CPU tensor
+it runs the plain PyTorch version :func:`_run_strip_torch`; there is no
+fallback from one to the other. Numerics: both sum in f32 and round once to
+``h.dtype``, so for bf16 ``h`` they differ only in summation order, and for
+f32 ``h`` both are exact f32 sums. (The JAX package's accelerator kernel
+also rounds f32 windows to bf16 before its matrix product; the port
+follows the JAX package's portable twin there.)
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..common.backend import DeviceLike, resolve_device
+from .spmm_block import BD, BS, WORDS, _dedup
+from .spmm_fast import EllDevice, EllLayout, _run_ell, ell_from_csr
+
+SB = 8             # dst blocks per strip
+STRIP = SB * BD    # 2048 dst rows: output rows are padded to this multiple
+MIN_EDGES = 192
+STRIP_SCHEME = 1   # cache-format version
+# tiles expanded at once by the plain version (a [chunk, 256, 2048] f32 tile)
+_PLAIN_TILES = 16
+
+
+@dataclass
+class StripLayout:
+    """Host-side dense bitmask tiles + ELL straggler."""
+
+    n: int
+    n_pad: int        # out rows, STRIP multiple
+    n_src_pad: int    # h rows, BS multiple
+    masks: np.ndarray     # int16 [max(T, 1), BD, WORDS] (one zero row if T=0)
+    tile_src: np.ndarray  # int32 [T] tile window start row (BS multiple)
+    tile_dst: np.ndarray  # int32 [T] tile dst block, ascending
+    straggler: Optional[EllLayout]
+
+    def to_device(self, device: DeviceLike = None) -> "StripDevice":
+        dev = resolve_device(device)
+        return StripDevice(
+            self.n, self.n_pad, self.n_src_pad,
+            torch.as_tensor(self.masks, device=dev),
+            torch.as_tensor(self.tile_src, device=dev),
+            torch.as_tensor(block_pointers(self.tile_dst, self.n_pad), device=dev),
+            self.straggler.to_device(dev) if self.straggler else None,
+        )
+
+
+@dataclass
+class StripDevice:
+    """A strip layout's tensors on one device. Tiles ``blk_ptr[b]`` ..
+    ``blk_ptr[b + 1]`` of ``masks``/``tile_src`` belong to destination
+    block ``b``; rows of ``masks`` past ``blk_ptr[-1]`` are padding."""
+
+    n: int
+    n_pad: int
+    n_src_pad: int
+    masks: torch.Tensor     # int16 [T', BD, WORDS], T' >= blk_ptr[-1]
+    tile_src: torch.Tensor  # int32 [T'']
+    blk_ptr: torch.Tensor   # int32 [n_pad // BD + 1]
+    straggler: Optional[EllDevice]
+
+    def to(self, device: DeviceLike) -> "StripDevice":
+        return StripDevice(
+            self.n, self.n_pad, self.n_src_pad, self.masks.to(device),
+            self.tile_src.to(device), self.blk_ptr.to(device),
+            self.straggler.to(device) if self.straggler else None,
+        )
+
+
+def block_pointers(tile_dst: np.ndarray, n_pad: int) -> np.ndarray:
+    """int32 [n_pad // BD + 1] tile range per destination block, from the
+    (ascending) per-tile destination blocks of one unpadded layout."""
+    tile_dst = np.asarray(tile_dst)
+    if len(tile_dst) and (np.any(np.diff(tile_dst) < 0) or tile_dst[-1] >= n_pad // BD):
+        raise ValueError("tile_dst must be ascending and below n_pad // BD")
+    return np.searchsorted(
+        tile_dst, np.arange(n_pad // BD + 1), side="left"
+    ).astype(np.int32)
+
+
+def strip_layout(
+    src: np.ndarray,
+    dst: np.ndarray,
+    n: int,
+    min_edges: int = MIN_EDGES,
+    cache_key: Optional[str] = None,
+    dedup: bool = True,
+    n_src: Optional[int] = None,
+) -> StripLayout:
+    """Build the dense-tile layout for edges src -> dst: ``n`` destination
+    rows, ``n_src`` source rows (defaults to ``n``; halo groups are
+    rectangular)."""
+    from .spmm_fast import ell_cache_ok, ell_load_npz, ell_save_npz
+
+    if cache_key and os.path.exists(cache_key + ".npz"):
+        z = np.load(cache_key + ".npz")
+        if (
+            int(z.get("strip_scheme", 0)) == STRIP_SCHEME
+            and ell_cache_ok(z)
+            and int(z.get("min_edges", -1)) == min_edges
+            and int(z["n"]) == n
+        ):
+            return StripLayout(
+                int(z["n"]), int(z["n_pad"]), int(z["n_src_pad"]), z["masks"],
+                z["tile_src"], z["tile_dst"], ell_load_npz(z),
+            )
+
+    if n_src is None:
+        n_src = n
+    if dedup:
+        nn = max(n, n_src)
+        src, dst = _dedup(src, dst, nn)
+    elif len(src) and len(np.unique(src.astype(np.int64) * n + dst)) != len(src):
+        raise ValueError(
+            "strip layout requires a simple graph (duplicate edges found); "
+            "deduplicate upstream or pass dedup=True"
+        )
+    n_pad = -(-n // STRIP) * STRIP
+    n_src_pad = -(-n_src // BS) * BS
+
+    tb = dst.astype(np.int64) // BD
+    sb = src.astype(np.int64) // BS
+    tile_key = tb * (n_src_pad // BS) + sb
+    order = np.argsort(tile_key, kind="stable")
+    tile_key_s = tile_key[order]
+    src_s, dst_s = src[order], dst[order]
+    uniq_tiles, tile_ptr = np.unique(tile_key_s, return_index=True)
+    tile_ptr = np.append(tile_ptr, len(tile_key_s))
+    counts = np.diff(tile_ptr)
+    dense = counts >= min_edges
+
+    straggler = None
+    str_mask = np.zeros(len(src_s), bool)
+    for ti in np.where(~dense)[0]:
+        str_mask[tile_ptr[ti] : tile_ptr[ti + 1]] = True
+    if str_mask.any():
+        straggler = ell_from_csr(src_s[str_mask], dst_s[str_mask], n_pad)
+
+    # pack dense tile masks in tile_key order: dst block major, window minor
+    sel = np.where(dense)[0]
+    t_sb = np.empty(len(sel), np.int64)
+    t_tb = np.empty(len(sel), np.int64)
+    masks_list = []
+    for oi, ti in enumerate(sel):
+        key = uniq_tiles[ti]
+        b_dst = int(key // (n_src_pad // BS))
+        b_src = int(key % (n_src_pad // BS))
+        sl = slice(tile_ptr[ti], tile_ptr[ti + 1])
+        i = (dst_s[sl] - b_dst * BD).astype(np.int64)
+        j = (src_s[sl] - b_src * BS).astype(np.int64)
+        m = np.zeros(BD * WORDS, np.uint16)
+        np.bitwise_or.at(
+            m, i * WORDS + j % WORDS, np.uint16(1) << (j // WORDS).astype(np.uint16)
+        )
+        masks_list.append(m.reshape(BD, WORDS))
+        t_sb[oi] = b_src
+        t_tb[oi] = b_dst
+    if not masks_list:  # keep the mask array non-empty, like the reference's
+        masks_list.append(np.zeros((BD, WORDS), np.uint16))
+    masks = np.stack(masks_list).view(np.int16)
+    tile_src = (t_sb * BS).astype(np.int32)
+    tile_dst = t_tb.astype(np.int32)
+
+    lay = StripLayout(n, n_pad, n_src_pad, masks, tile_src, tile_dst, straggler)
+    if cache_key:
+        os.makedirs(os.path.dirname(cache_key) or ".", exist_ok=True)
+        save = dict(
+            n=n, n_pad=n_pad, n_src_pad=n_src_pad, masks=masks,
+            tile_src=tile_src, tile_dst=tile_dst,
+            min_edges=min_edges, strip_scheme=STRIP_SCHEME,
+        )
+        ell_save_npz(save, straggler)
+        np.savez(cache_key + ".npz", **save)
+    return lay
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch version
+# ---------------------------------------------------------------------------
+
+
+def _run_strip_torch(layout: StripDevice, h: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: expand each tile's bits to a
+    0/1 f32 [256, 2048] matrix, multiply it with its source window in f32,
+    ``index_add_`` into the f32 output, and round once to ``h.dtype``.
+    Tiles go ``_PLAIN_TILES`` at a time, so all T masks are never expanded
+    at once; a layout with no tiles gives zeros."""
+    f = h.shape[1]
+    if h.shape[0] != layout.n_src_pad:
+        raise ValueError(f"h has {h.shape[0]} rows, layout wants {layout.n_src_pad}")
+    dev = h.device
+    out = torch.zeros((layout.n_pad, f), dtype=torch.float32, device=dev)
+    blk_ptr = layout.blk_ptr.to(dev, torch.int64)
+    t = int(blk_ptr[-1])
+    tile_dst = torch.repeat_interleave(
+        torch.arange(blk_ptr.numel() - 1, device=dev), blk_ptr.diff()
+    )
+    shifts = torch.arange(16, dtype=torch.int32, device=dev)
+    win = torch.arange(BS, device=dev)
+    rows = torch.arange(BD, device=dev)
+    for s in range(0, t, _PLAIN_TILES):
+        e = min(s + _PLAIN_TILES, t)
+        words = layout.masks[s:e].to(dev, torch.int32) & 0xFFFF
+        bits = (words[..., None] >> shifts) & 1  # [c, BD, WORDS, 16]
+        # column j = bit * WORDS + halfword
+        a = bits.transpose(2, 3).reshape(e - s, BD, BS).to(torch.float32)
+        src_rows = layout.tile_src[s:e].to(dev, torch.int64)[:, None] + win
+        tile_out = torch.bmm(a, h[src_rows].to(torch.float32))  # [c, BD, F]
+        dst_rows = (tile_dst[s:e, None] * BD + rows).reshape(-1)
+        out.index_add_(0, dst_rows, tile_out.reshape(-1, f))
+    return out.to(h.dtype)
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernel
+# ---------------------------------------------------------------------------
+
+
+def _lib() -> ctypes.CDLL:
+    from ..utils.cuda_build import load_library
+
+    lib = load_library("spmm_strip")
+    if lib.adaqp_strip_spmm.argtypes is None:
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.adaqp_strip_spmm.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
+        lib.adaqp_strip_spmm.restype = ci
+        lib.adaqp_cuda_error_string.argtypes = [ci]
+        lib.adaqp_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _run_strip_cuda(layout: StripDevice, h: torch.Tensor) -> torch.Tensor:
+    """Launch the CUDA kernel on ``h``'s device and current stream."""
+    if h.dim() != 2 or h.shape[0] != layout.n_src_pad:
+        raise ValueError(
+            f"h must be [{layout.n_src_pad}, F], got {tuple(h.shape)}"
+        )
+    if h.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"h must be bfloat16 or float32, got {h.dtype}")
+    f = h.shape[1]
+    vec = 8 if h.dtype == torch.bfloat16 else 4  # values per 16-byte load
+    if f % vec or not h.is_contiguous() or h.data_ptr() % 16:
+        raise ValueError(
+            f"h must be contiguous, 16-byte aligned, with F % {vec} == 0 "
+            f"(F={f})"
+        )
+    n_blocks = layout.n_pad // BD
+    for name, x, dt in (("masks", layout.masks, torch.int16),
+                        ("tile_src", layout.tile_src, torch.int32),
+                        ("blk_ptr", layout.blk_ptr, torch.int32)):
+        if x.device != h.device or x.dtype != dt or not x.is_contiguous():
+            raise ValueError(
+                f"layout {name} must be contiguous {dt} on {h.device}, "
+                f"got {x.dtype} on {x.device}"
+            )
+    if layout.blk_ptr.numel() != n_blocks + 1 or tuple(layout.masks.shape[1:]) != (BD, WORDS):
+        raise ValueError("layout shapes do not match n_pad")
+    out = torch.empty((layout.n_pad, f), dtype=h.dtype, device=h.device)
+    lib = _lib()
+    rc = lib.adaqp_strip_spmm(
+        layout.masks.data_ptr(), layout.tile_src.data_ptr(),
+        layout.blk_ptr.data_ptr(), h.data_ptr(), out.data_ptr(),
+        n_blocks, f, int(h.dtype == torch.bfloat16), h.device.index,
+        torch.cuda.current_stream(h.device).cuda_stream,
+    )
+    if rc:
+        raise RuntimeError(
+            f"strip SpMM launch failed: {lib.adaqp_cuda_error_string(rc).decode()}"
+        )
+    strip_spmm.launches += 1
+    return out
+
+
+def strip_spmm(layout: StripDevice, h: torch.Tensor) -> torch.Tensor:
+    """Kernel wrapper: the dense-tile part of ``A^T h`` in ``h.dtype``.
+
+    CUDA ``h``: the hand-written kernel (each launch adds one to
+    ``strip_spmm.launches``). CPU ``h``: the plain PyTorch version."""
+    if h.device.type == "cuda":
+        return _run_strip_cuda(layout, h)
+    if h.device.type == "cpu":
+        return _run_strip_torch(layout, h)
+    raise ValueError(f"no strip SpMM for device {h.device}")
+
+
+strip_spmm.launches = 0
+
+
+def run_strip(layout: StripDevice, h: torch.Tensor) -> torch.Tensor:
+    """out = A^T h in ``h.dtype``: the dense tiles plus the ELL straggler,
+    which is accumulated in f32 and added in ``h.dtype``."""
+    out = strip_spmm(layout, h)
+    if layout.straggler is not None:
+        ell = _run_ell(layout.straggler, h, acc_dtype=torch.float32)
+        out = out + ell.to(h.dtype)
+    return out
+
+
+class SpmmStrip(torch.autograd.Function):
+    """A^T h with strip bitmask tiles; the backward runs the reverse layout
+    through the same kernel and returns the gradient in ``h``'s dtype."""
+
+    @staticmethod
+    def forward(ctx, h: torch.Tensor, layout_fwd: StripDevice, reverse: StripDevice):
+        ctx.reverse = reverse
+        ctx.h_dtype = h.dtype
+        return run_strip(layout_fwd, h)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        gh = run_strip(ctx.reverse, g.to(ctx.h_dtype).contiguous())
+        return gh.to(ctx.h_dtype), None, None
+
+
+def spmm_strip(layout_fwd: StripDevice, h: torch.Tensor, reverse: StripDevice) -> torch.Tensor:
+    """A^T h through :class:`SpmmStrip` (argument order of the JAX package's
+    ``spmm_strip``)."""
+    return SpmmStrip.apply(h, layout_fwd, reverse)

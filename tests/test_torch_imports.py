@@ -1,0 +1,82 @@
+"""The port stands alone: no JAX, no JAX package, and no silent CPU runs."""
+import pathlib
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import adaqp_tpu_torch
+from adaqp_tpu_torch.ops import spmm_strip
+from adaqp_tpu_torch.trainer import RunConfig, Trainer
+
+PKG = pathlib.Path(adaqp_tpu_torch.__file__).parent
+
+
+def test_import_leaves_jax_out():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import adaqp_tpu_torch\n"
+        "for m in pkgutil.walk_packages(adaqp_tpu_torch.__path__, 'adaqp_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
+        "             or k == 'adaqp_tpu' or k.startswith('adaqp_tpu.'))\n"
+        "print(len([k for k in sys.modules if k.startswith('adaqp_tpu_torch.')]), bad)\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, check=True,
+        cwd=PKG.parent,
+    ).stdout.split()
+    assert int(out[0]) >= 20 and out[1] == "[]", out
+
+
+def test_sources_never_name_the_jax_package():
+    pattern = re.compile(r"\badaqp_tpu\b")
+    files = [p for p in PKG.rglob("*") if p.is_file() and p.suffix in (".py", ".cu", ".yaml")]
+    assert any(p.suffix == ".cu" for p in files)
+    hits = [f"{p}:{i}" for p in files
+            for i, line in enumerate(p.read_text().splitlines(), 1)
+            if pattern.search(line)]
+    assert hits == []
+
+
+def test_entry_points_need_a_card_unless_cpu_is_asked(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the no-card behaviour cannot show")
+    cfg = RunConfig.from_yaml("sbm", {
+        "num_parts": 1, "num_epochs": 1, "hidden_dim": 8,
+        "synth_kwargs": {"n": 100, "num_feats": 8},
+        "partition_dir": str(tmp_path / "p"), "exp_path": str(tmp_path / "e"),
+        "mode": "Vanilla",
+    })
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(cfg)
+    assert Trainer(cfg, device="cpu").device.type == "cpu"
+
+    e = np.zeros(0, np.int32)
+    lay = spmm_strip.strip_layout(e, e, 100)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lay.to_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lay.to_device("cuda")
+    before = spmm_strip.strip_spmm.launches
+    out = spmm_strip.strip_spmm(lay.to_device("cpu"), torch.ones(lay.n_src_pad, 8))
+    assert not out.any() and spmm_strip.strip_spmm.launches == before  # plain version
+    with pytest.raises(ValueError, match="no strip SpMM"):
+        spmm_strip.strip_spmm(lay.to_device("cpu"), torch.ones(lay.n_src_pad, 8, device="meta"))
+
+
+@pytest.mark.parametrize("over,what", [
+    ({"num_parts": 2}, "num_parts=2"),
+    ({"mode": "AdaQP"}, "mode=AdaQP"),
+    ({"spmm_impl": "block"}, "spmm_impl=block"),
+    ({"ckpt_every": 5}, "checkpointing"),
+])
+def test_unported_options_raise(tmp_path, over, what):
+    cfg = RunConfig.from_yaml("sbm", {
+        "num_parts": 1, "mode": "Vanilla", "partition_dir": str(tmp_path), **over,
+    })
+    with pytest.raises(NotImplementedError, match=what):
+        Trainer(cfg, device="cpu")
