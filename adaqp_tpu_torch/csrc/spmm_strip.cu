@@ -19,8 +19,9 @@
 // (under 1% of a tile's bits are set) that dense product is over a hundred
 // times the useful work, so this kernel walks the set bits instead: the
 // work is one F-wide row add per edge, and the least time is the larger of
-// (mask + h + out bytes) / 3.35 TB/s and (2 * edges * F) / 67 TFLOP/s of
-// f32 adds; at the smoke and benchmark shapes the adds bound it.
+// (mask + h + out bytes) / 3.35 TB/s and (2 * edges * F) / 989 TFLOP/s (the
+// card's bf16 rate with f32 accumulation); at the smoke and benchmark
+// shapes the bytes bound it, most of them the masks.
 //
 // The design, simple first: a grid of (destination block, 32-lane column
 // chunk), one warp per destination row (8 warps take every 8th row of the
