@@ -9,8 +9,11 @@ Hopper (``csrc/``), built with ``nvcc`` at first use and bound with
 ``ctypes``. Every kernel wrapper runs the kernel on a CUDA tensor and its
 plain PyTorch version on a CPU tensor.
 
-Ported so far: the single-partition (K=1) training path — layouts, the
-strip bitmask SpMM kernel with its ELL straggler, GCN/SAGE, the Trainer.
+Ported so far: training on K partitions, one ``torch.distributed`` rank
+each — layouts, the strip bitmask SpMM kernel with its ELL straggler, the
+exact-size ragged exchange with the quantize-pack and unpack-dequantize
+kernels, the assigner, GCN/SAGE, the Trainer and its command line
+(``python -m adaqp_tpu_torch``).
 """
 
 __version__ = "0.1.0"

@@ -1,8 +1,8 @@
-"""Boundary-message exchange — only the variance proxy is ported so far.
+"""The variance proxy of boundary messages.
 
-The exchange itself (fp32 and quantized wires over ``torch.distributed``)
-belongs to the K>1 slices. :func:`variance_proxy` is here because the
-aggregation returns the forward variance trace at every K.
+The exchange itself is ``exchange_ragged.py`` (the exact-size ragged
+wire); the JAX package's padded dense wire, which also lives in its
+``comm/exchange.py``, is not ported.
 """
 from __future__ import annotations
 

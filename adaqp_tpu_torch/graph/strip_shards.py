@@ -3,7 +3,8 @@
 Lowers a PartitionLayout's four per-partition edge groups to strip layouts
 stacked on a leading ``[K, ...]`` axis, like the JAX package's
 ``StripShards``, so that shard ``p``'s four operators are
-``devices(p)``:
+``devices(p)``. A rank keeps only its own shard (``select(rank)``) before
+moving the layouts to its device:
 
 - ``fwd_local``: local rows -> local rows (``l_max`` x ``l_max``);
 - ``bwd_local``: its transpose, or None when the graph is bidirected (the
@@ -53,10 +54,12 @@ class StripShards:
     ell_widths: Tuple[Tuple[int, ...], ...]
     # per group: (dense tiles, ELL edges) summed over shards
     counts: Tuple[Tuple[int, int], ...] = ()
+    # the one shard kept by select(), or None while all K are stacked
+    selected: Optional[int] = None
 
-    def to(self, device: DeviceLike) -> "StripShards":
+    def _map(self, fn) -> "StripShards":
         def mv(group):
-            return None if group is None else tuple(x.to(device) for x in group)
+            return None if group is None else tuple(fn(x) for x in group)
 
         return dataclasses.replace(
             self,
@@ -65,9 +68,30 @@ class StripShards:
             ells=tuple(tuple(mv(s) for s in stacks) for stacks in self.ells),
         )
 
-    def devices(self, rank: int = 0):
+    def to(self, device: DeviceLike) -> "StripShards":
+        return self._map(lambda x: x.to(device))
+
+    def select(self, rank: int) -> "StripShards":
+        """Only shard ``rank``'s arrays (a leading axis of one), so that a
+        rank moves its own masks to its device and not all K shards'.
+        ``devices(rank)`` gives the same operators before and after."""
+        if self.selected is not None:
+            raise ValueError(f"already reduced to shard {self.selected}")
+        out = self._map(lambda x: x[rank:rank + 1].clone())
+        return dataclasses.replace(out, selected=rank)
+
+    def devices(self, rank: Optional[int] = None):
         """Shard ``rank``'s StripDevice objects:
-        (fwd_local, bwd_local, fwd_halo, bwd_halo)."""
+        (fwd_local, bwd_local, fwd_halo, bwd_halo). ``rank`` defaults to the
+        selected shard, or shard 0 while all are stacked."""
+        if rank is None:
+            rank = 0 if self.selected is None else self.selected
+        if self.selected is not None:
+            if rank != self.selected:
+                raise ValueError(
+                    f"shard {rank} asked of shards reduced to {self.selected}"
+                )
+            rank = 0
 
         def dev(i, grp, n_pad, n_src_pad):
             masks, tile_src, blk_ptr = grp

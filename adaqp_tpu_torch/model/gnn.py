@@ -17,7 +17,7 @@ unchanged (:func:`params_from_numpy`).
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -82,10 +82,17 @@ def apply_gnn(
     train: bool,
     blocks,
     dropout_gen: Optional[torch.Generator] = None,
+    wires: Optional[Sequence] = None,
+    keys: Optional[Sequence[Tuple[int, int]]] = None,
+    sinks: Optional[Sequence[Optional[torch.Tensor]]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Forward pass for one partition.
 
     ``dropout_gen`` draws the dropout masks (train mode with dropout > 0).
+    At K>1, per layer: ``wires[i]`` the ``(fwd, bwd)`` wire plans,
+    ``keys[i]`` the (forward, backward) generator keys of the quantized
+    buckets, ``sinks[i]`` a ``[r_pad]`` leaf for the backward variance
+    trace or None.
     Returns (logits [L, classes] f32, fwd_traces [num_layers, K, S])."""
     h = sh.feats
     traces = []
@@ -97,7 +104,12 @@ def apply_gnn(
         # layer 0 consumes zero-padded input features; deeper layers run at
         # exact hidden width (the variance range must ignore pad columns)
         ft = cfg.f_true if (i == 0 and cfg.f_true) else h.shape[1]
-        agg, tr = dist_aggregate(h, sh, cfg, blocks, f_true=ft)
+        agg, tr = dist_aggregate(
+            h, sh, cfg, blocks, f_true=ft,
+            wire=None if wires is None else wires[i],
+            keys=(0, 0) if keys is None else keys[i],
+            sink=None if sinks is None else sinks[i],
+        )
         if dt is not None:
             agg = agg.to(dt)
 

@@ -4,10 +4,12 @@
 YAML sections mirror the reference (``AdaQP/config/*.yaml``):
 ``data`` / ``model`` / ``runtime`` / ``assignment``. The field set is the
 JAX package's, so one config describes a run of either package. Of the
-fields for paths this port does not run yet, the Trainer rejects the ones
-that change the result (``num_parts`` > 1, the quantized modes, other
-``spmm_impl`` values, checkpointing); the wire, assignment and memory
-fields (``wire_impl``, ``remat``, ``log_hbm``, ...) have no effect at K=1.
+fields for paths this port does not run yet, the Trainer rejects the ones that change the result (other ``spmm_impl``
+values, ``wire_impl=padded``, checkpointing). Fields that tune the JAX
+package's compiler or TPU memory have no effect here: ``static_wire``
+(PyTorch runs eagerly, so exact wire shapes cost no recompile),
+``remat``, ``log_hbm``, ``edge_chunk``, the compact-kernel knobs, and
+``measure_breakdown`` (the breakdown probe is not ported).
 """
 from __future__ import annotations
 
@@ -61,7 +63,7 @@ class RunConfig:
     # boundary-exchange wire: "ragged" = exact per-pair sizes; "padded" =
     # dense all-to-all at worst-channel capacity
     wire_impl: str = "ragged"
-    # pow2-bracket wire capacities so reassignments keep shapes stable
+    # pow2-bracket wire capacities (JAX jit caches); no effect in the port
     static_wire: Optional[bool] = None
     agg_dtype: str = "float32"  # aggregation compute dtype
     # rematerialize GNN layers in backward

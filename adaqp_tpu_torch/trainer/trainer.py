@@ -2,19 +2,49 @@
 
 Reference: ``AdaQP/trainer/trainer.py`` + ``runtime_util.py``; the JAX
 package's ``Trainer`` is the port's reference. Externally visible behaviour
-(loss normalization, metric definitions, artifact formats) matches it.
+(modes, schemes, loss normalization, metric definitions, the reassignment
+cadence, artifact formats) matches it.
 
-This slice trains one partition (K=1) on one device: the strip bitmask
-SpMM (``spmm_impl`` ``strip``, or ``auto``, which resolves to it) in mode
-Vanilla or AdaQP-p, which run the same math when no messages cross
-partitions. Everything else raises ``NotImplementedError`` naming its
-ROADMAP item.
+One process trains one partition. At K=1 there is no process group. At
+K>1 every rank of a ``torch.distributed`` group of ``num_parts`` ranks
+builds a Trainer (``comm/distributed.py::spawn`` or ``python -m
+adaqp_tpu_torch`` start them):
+
+- rank 0 partitions the graph and writes the partition, layout and strip
+  caches; the other ranks load them after a barrier (the JAX package
+  writes from process 0 only, ``trainer.py:340``). Each rank keeps its own
+  shard's arrays and strip layouts on its device;
+- parameters start identical on every rank (drawn on a CPU generator from
+  ``seed``); each rank's loss is its masked sum over the GLOBAL train
+  count, the gradients are all-reduced with SUM before ``Adam.step`` (the
+  reference's ``average_gradients``), so parameters stay identical;
+- boundary rows travel on the exact-size ragged wire: the fp wire in
+  Vanilla and AdaQP-p and in every evaluation, the quantized wire (from
+  the current :class:`~adaqp_tpu_torch.assigner.Assignment`) in AdaQP and
+  AdaQP-q training;
+- schemes: ``uniform`` keeps ``assign_bits``; ``random`` draws new widths
+  and ``adaptive`` solves the variance-vs-time MILP at every epoch with
+  ``epoch % assign_cycle == 1`` except the first (``trainer.py:813-819``).
+  For ``adaptive`` the ranks accumulate forward and backward variance
+  traces, all-gather them to rank 0, which solves and broadcasts the
+  assignment, so no two ranks can hold different plans; the cost model
+  comes from timing the transport at start-up (``assigner/profile.py``).
+
+Random streams, all derived from ``seed`` with
+``ops/quant_cuda.py::stream_key``, so that a run is reproducible and a
+card run draws what a CPU run draws:
+
+- dropout masks of epoch ``e`` on rank ``r``: a generator seeded with
+  ``stream_key(seed, e, r, 0)``;
+- quantized bucket ``b`` of layer ``l`` in direction ``d`` (1 forward,
+  2 backward), epoch ``e``, rank ``r``: the kernel's generator key
+  ``stream_key(stream_key(seed, e, r, l, d), b)``.
 
 Numerics: float32 matrix products run in full f32 (TF32 is switched off
 for both matmul and cuDNN), so an f32 run on the card can be compared with
 the CPU. Under ``agg_dtype=bfloat16`` features are stored in bf16 and the
 aggregation, the dense transforms and the activations run in bf16, with
-f32 accumulation, LayerNorm statistics and logits.
+f32 accumulation, LayerNorm statistics, logits and wire rows.
 """
 from __future__ import annotations
 
@@ -22,13 +52,18 @@ import dataclasses
 import logging
 import os
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from ..assigner import Assigner, AssignerConfig, Assignment, random_assignment
+from ..assigner.profile import fit_cost_model, profile_cost_model
+from ..comm.distributed import resolve_backend
+from ..comm.wire import wire_fp, wire_from_assignment
 from ..common.backend import DeviceLike, resolve_device
-from ..common.types import AggregatorType, GNNType, Mode, Scheme
+from ..common.types import BITS_SET, WIRE_BITS_SET, AggregatorType, GNNType, Mode, Scheme
 from ..graph import build_layout, partition_graph
 from ..graph.device import shard_arrays_from_layout, static_from_layout
 from ..graph.layout import load_layout, save_layout
@@ -36,6 +71,7 @@ from ..graph.strip_shards import build_strip_shards
 from ..helper.dataset import GraphData, load_dataset
 from ..model.gnn import apply_gnn, init_params, params_from_numpy
 from ..model.loss import correct_count, f1_pieces, masked_loss_sum
+from ..ops.quant_cuda import stream_key
 from ..utils import Recorder, Timer
 from .config import RunConfig
 
@@ -59,29 +95,48 @@ def setup_logger(level: str = "INFO", logfile: Optional[str] = "trainer.log"):
 
 
 def _check_supported(cfg: RunConfig) -> RunConfig:
-    """Reject what this slice does not run; resolve ``spmm_impl=auto``."""
-    if cfg.num_parts != 1:
-        raise NotImplementedError(
-            f"num_parts={cfg.num_parts}: K>1 needs the boundary exchange "
-            "(ROADMAP Queue 1, 'Exchange')"
-        )
-    if Mode.from_str(cfg.mode) not in (Mode.VANILLA, Mode.ADAQP_P):
-        raise NotImplementedError(
-            f"mode={cfg.mode}: quantized modes need the quantized wire and "
-            "the assigner (ROADMAP Queue 1, 'Quantization', 'Exchange', "
-            "'Assigner'; Queue 2, the quant kernels)"
-        )
+    """Reject what the port does not run; resolve ``spmm_impl=auto``."""
     if cfg.spmm_impl not in ("auto", "strip"):
         raise NotImplementedError(
             f"spmm_impl={cfg.spmm_impl}: only the strip kernel is ported "
             "(ROADMAP Queue 1, 'Segment SpMM' and 'Block and compact host "
             "sides'; Queue 2, the block and compact kernels)"
         )
+    if cfg.wire_impl != "ragged":
+        raise NotImplementedError(
+            f"wire_impl={cfg.wire_impl}: only the exact-size ragged wire is "
+            "ported (ROADMAP Queue 1 item 11, the padded dense wire)"
+        )
     if cfg.ckpt_every or cfg.resume:
         raise NotImplementedError(
             "checkpointing is not ported (ROADMAP Queue 1, 'Trainer')"
         )
     return dataclasses.replace(cfg, spmm_impl="strip")
+
+
+def _process_group(cfg: RunConfig, device: torch.device) -> Tuple[int, int]:
+    """(rank, world) of this Trainer; K>1 needs the process group."""
+    if cfg.num_parts == 1:
+        return 0, 1
+    if not dist.is_initialized():
+        raise RuntimeError(
+            f"num_parts={cfg.num_parts} runs one torch.distributed rank per "
+            "partition: start the ranks with `python -m adaqp_tpu_torch` or "
+            "adaqp_tpu_torch.comm.distributed.spawn"
+        )
+    if dist.get_world_size() != cfg.num_parts:
+        raise ValueError(
+            f"num_parts={cfg.num_parts} but the process group has "
+            f"{dist.get_world_size()} ranks"
+        )
+    local = int(os.environ.get("LOCAL_WORLD_SIZE", cfg.num_parts))
+    if dist.get_backend() == "nccl" and resolve_backend(local, device) != "nccl":
+        raise ValueError(
+            f"an nccl process group needs one CUDA card per rank ({local} ranks "
+            f"on this host, device {device}); ranks that share a card or run on "
+            "the CPU join a gloo group"
+        )
+    return dist.get_rank(), dist.get_world_size()
 
 
 class Trainer:
@@ -92,16 +147,128 @@ class Trainer:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         cfg = self.cfg = _check_supported(cfg)
+        self.rank, self.world = _process_group(cfg, self.device)
+        # gloo carries CUDA tensors on the exchange's hot path; the small
+        # control collectives (gradients, counts, traces) go through the CPU
+        self._comm_dev = (self.device if self.world > 1 and dist.get_backend() == "nccl"
+                          else torch.device("cpu"))
         self.mode = Mode.from_str(cfg.mode)
         self.scheme = Scheme.from_str(cfg.assign_scheme)
         self.model_type = GNNType.GCN if cfg.model_name == "gcn" else GNNType.SAGE
         self.timer = Timer()
         t0 = time.perf_counter()
 
-        # ---- data + partition + layout ----
+        # ---- data + partition + layout: rank 0 builds, the others load ----
         self.graph = graph if graph is not None else load_dataset(
             cfg.dataset, cfg.raw_dir, **cfg.synth_kwargs
         )
+        if self.rank != 0:
+            dist.barrier()
+        shards = self._host_setup()
+        if self.world > 1 and self.rank == 0:
+            dist.barrier()
+        self.k = self.layout.k
+        if self.k != self.world:
+            raise ValueError(f"the layout has {self.k} partitions for {self.world} ranks")
+        sh = shard_arrays_from_layout(self.layout, rank=self.rank)
+        if cfg.agg_dtype == "bfloat16":
+            # features feed layer 0 in the aggregation dtype anyway; storing
+            # them bf16 halves the largest resident
+            sh = dataclasses.replace(sh, feats=sh.feats.to(torch.bfloat16))
+        self.sh = sh.to(self.device)
+        self.blocks = shards.select(self.rank).to(self.device)
+        self.static = static_from_layout(
+            self.layout,
+            model=self.model_type,
+            agg_type=AggregatorType(cfg.aggregator_type),
+            mode=self.mode,
+            num_layers=cfg.num_layers,
+            hidden=cfg.hidden_dim,
+            dropout=cfg.dropout_rate,
+            use_norm=cfg.use_norm,
+            spmm=cfg.spmm_impl,
+            agg_dtype=cfg.agg_dtype,
+        )
+        # global counts from the layout: every node lies in one partition
+        lay = self.layout
+        self.train_count = float(lay.train_mask.sum())
+        self.val_count = float(lay.val_mask.sum())
+        self.test_count = float(lay.test_mask.sum())
+
+        # ---- model + optimizer ----
+        self.params = init_params(
+            torch.Generator().manual_seed(cfg.seed), self.static, self.device
+        )
+        # optax.chain(add_decayed_weights(wd), adam(lr)) adds wd * p to the
+        # gradient before the moments: torch's Adam weight_decay, not AdamW
+        self.opt = torch.optim.Adam(
+            [p for layer in self.params for p in layer.values()],
+            lr=cfg.learning_rate, weight_decay=cfg.weight_decay,
+        )
+        self.dropout_gen = torch.Generator(device=self.device)
+
+        # ---- wires: TRUE message widths per layer (features, then hidden)
+        # drive the wire layouts and the assigner's byte model ----
+        plan = lay.plan_fwd
+        self.layer_dims = [lay.f_true] + [cfg.hidden_dim] * (cfg.num_layers - 1)
+        self.wire_fp = self.wire_q = None
+        if self.k > 1:
+            self.wire_fp = self._local_wires(wire_fp(plan, self.layer_dims, cfg.num_layers))
+
+        # ---- assigner (quantized modes; at K=1 nothing crosses) ----
+        self.assignment: Optional[Assignment] = None
+        self.assigner: Optional[Assigner] = None
+        self.profile_s = 0.0
+        self.assign_s: List[float] = []
+        if self.mode.quantized and self.k > 1:
+            acfg = AssignerConfig(
+                group_size=cfg.group_size,
+                coe_lambda=cfg.coe_lambda,
+                assign_bits=cfg.assign_bits,
+                wire_feats=lay.f_true,
+                normal_mode=cfg.normal_mode,
+                bits_options=self._bits_options(),
+            )
+            cost_model = (1.0, 0.1)
+            if self.scheme is Scheme.ADAPTIVE:
+                tp = time.perf_counter()
+                sizes, times = profile_cost_model(
+                    max_bytes_per_pair=plan.s_pad * (self.static.f_pad + 4),
+                    num_sizes=cfg.profile_data_length, mode=cfg.profile_mode,
+                    device=self.device,
+                )
+                cost_model = fit_cost_model(sizes, times)
+                self.profile_s = time.perf_counter() - tp
+                a = np.asarray(cost_model[0])
+                nz = a[a > 0]
+                logger.info(
+                    "profiled per-channel cost model in %.2fs: alpha %.4f-%.4f "
+                    "ms/MB, beta mean %.4f ms", self.profile_s,
+                    float(nz.min()) if nz.size else 0.0,
+                    float(nz.max()) if nz.size else 0.0,
+                    float(np.asarray(cost_model[1]).mean()),
+                )
+            self.assigner = Assigner(plan, cfg.num_layers, acfg, cost_model)
+            # bootstrap: uniform assign_bits (reference trainer.py:63-66)
+            if self.scheme is Scheme.RANDOM:
+                self.assignment = random_assignment(plan, cfg.num_layers, cfg.seed)
+            else:
+                self.assignment = self.assigner.bootstrap()
+            self._lower_assignment()
+        self._reset_traces()
+        self.recorder = Recorder(cfg.num_epochs)
+        self.overhead_s = time.perf_counter() - t0
+        logger.info(
+            "Trainer ready: %s %s mode=%s scheme=%s K=%d rank=%d Lmax=%d R=%d S=%d on %s",
+            cfg.dataset, cfg.model_name, self.mode.value, self.scheme.value, self.k,
+            self.rank, lay.l_max, plan.r_pad, plan.s_pad, self.device,
+        )
+
+    # ------------------------------------------------------------------
+    def _host_setup(self):
+        """Partition, layout and strip shards, each from its cache when one
+        exists (rank 0 runs this first and writes them)."""
+        cfg = self.cfg
         part_id = self._load_or_partition()
         lay_cache = os.path.join(
             cfg.partition_dir,
@@ -117,56 +284,13 @@ class Trainer:
             save_layout(lay_cache, self.layout)
         else:
             logger.info("loaded layout cache %s", lay_cache)
-        self.k = self.layout.k
-        sh = shard_arrays_from_layout(self.layout, rank=0)
-        if cfg.agg_dtype == "bfloat16":
-            # features feed layer 0 in the aggregation dtype anyway; storing
-            # them bf16 halves the largest resident
-            sh = dataclasses.replace(sh, feats=sh.feats.to(torch.bfloat16))
-        self.sh = sh.to(self.device)
-        self.blocks = build_strip_shards(
+        return build_strip_shards(
             self.layout, min_edges=cfg.block_min_edges,
             # the JAX package caches its strip layouts under "_stp" in
             # another format
             cache_prefix=lay_cache + "_stc",
-        ).to(self.device)
-        self.static = static_from_layout(
-            self.layout,
-            model=self.model_type,
-            agg_type=AggregatorType(cfg.aggregator_type),
-            mode=self.mode,
-            num_layers=cfg.num_layers,
-            hidden=cfg.hidden_dim,
-            dropout=cfg.dropout_rate,
-            use_norm=cfg.use_norm,
-            spmm=cfg.spmm_impl,
-            agg_dtype=cfg.agg_dtype,
-        )
-        self.train_count = float(self.graph.train_mask.sum())
-        self.val_count = float(self.graph.val_mask.sum())
-        self.test_count = float(self.graph.test_mask.sum())
-
-        # ---- model + optimizer ----
-        self.params = init_params(
-            torch.Generator().manual_seed(cfg.seed), self.static, self.device
-        )
-        # optax.chain(add_decayed_weights(wd), adam(lr)) adds wd * p to the
-        # gradient before the moments: torch's Adam weight_decay, not AdamW
-        self.opt = torch.optim.Adam(
-            [p for layer in self.params for p in layer.values()],
-            lr=cfg.learning_rate, weight_decay=cfg.weight_decay,
-        )
-        self.dropout_gen = torch.Generator(device=self.device)
-        self.recorder = Recorder(cfg.num_epochs)
-        self.overhead_s = time.perf_counter() - t0
-        plan = self.layout.plan_fwd
-        logger.info(
-            "Trainer ready: %s %s mode=%s K=%d Lmax=%d R=%d S=%d on %s",
-            cfg.dataset, cfg.model_name, self.mode.value, self.k,
-            self.layout.l_max, plan.r_pad, plan.s_pad, self.device,
         )
 
-    # ------------------------------------------------------------------
     def _load_or_partition(self) -> np.ndarray:
         cfg = self.cfg
         cache = os.path.join(
@@ -183,6 +307,34 @@ class Trainer:
         np.save(cache, part)
         return part
 
+    def _bits_options(self):
+        """Widths the assigner may choose and the wire carries (with
+        ``fp32_lanes``, raw f32 lanes too)."""
+        return WIRE_BITS_SET if self.cfg.fp32_lanes else BITS_SET
+
+    def _local_wires(self, plans):
+        """All-rank wire plans -> this rank's (fwd, bwd) LocalWires."""
+        st = self.layout
+        return [
+            (f.local(self.rank, st.plan_fwd.r_pad, self.device),
+             None if b is None else b.local(self.rank, st.l_max, self.device))
+            for f, b in plans
+        ]
+
+    def _lower_assignment(self):
+        """Assignment -> this rank's quantized wire plans (the reference's
+        train-buffer regeneration, ``buffer.py:176-248``)."""
+        self.wire_q = self._local_wires(wire_from_assignment(
+            self.layout.plan_fwd, self.assignment, self.layer_dims,
+            bits_set=self._bits_options(),
+        ))
+
+    def _reset_traces(self):
+        plan = self.layout.plan_fwd
+        L = self.cfg.num_layers
+        self.trace_fwd = torch.zeros((L, self.k, plan.s_pad), device=self.device)
+        self.trace_bwd = torch.zeros((L, plan.r_pad), device=self.device)
+
     def load_params(self, params) -> None:
         """Overwrite the parameters in place with numpy ones of the same
         structure (e.g. the JAX package's initial parameters)."""
@@ -194,44 +346,162 @@ class Trainer:
                 for name, p in layer.items():
                     p.copy_(src[name])
 
+    # ------------------------------------------------------------------
+    def _all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        """SUM over ranks (a no-op at K=1), on the control device."""
+        if self.world == 1:
+            return t
+        x = t.to(self._comm_dev)
+        dist.all_reduce(x)
+        return x.to(t.device)
+
+    def _all_gather(self, t: torch.Tensor) -> torch.Tensor:
+        """[world, *t.shape] on every rank."""
+        x = t.to(self._comm_dev).contiguous()
+        out = [torch.empty_like(x) for _ in range(self.world)]
+        dist.all_gather(out, x)
+        return torch.stack(out).to(t.device)
+
+    def _adaptive(self) -> bool:
+        return self.assigner is not None and self.scheme is Scheme.ADAPTIVE
+
     def _train_step(self, epoch: int) -> torch.Tensor:
-        # dropout masks come from (seed, epoch), so a resumed run could draw
-        # the same masks as an uninterrupted one
-        self.dropout_gen.manual_seed(self.cfg.seed * 100_003 + epoch)
+        cfg, st = self.cfg, self.static
+        self.dropout_gen.manual_seed(stream_key(cfg.seed, epoch, self.rank, 0))
         self.opt.zero_grad(set_to_none=True)
-        logits, _ = apply_gnn(
-            self.params, self.sh, self.static, True, self.blocks, self.dropout_gen
+        sinks = None
+        if self._adaptive():
+            # layer 0 has no backward exchange, so no trace and no sink
+            sinks = [None] + [
+                torch.zeros(st.r_pad, device=self.device, requires_grad=True)
+                for _ in range(st.num_layers - 1)
+            ]
+        keys = [(stream_key(cfg.seed, epoch, self.rank, i, 1),
+                 stream_key(cfg.seed, epoch, self.rank, i, 2))
+                for i in range(st.num_layers)]
+        logits, traces = apply_gnn(
+            self.params, self.sh, st, True, self.blocks, self.dropout_gen,
+            wires=self.wire_q if self.mode.quantized else self.wire_fp,
+            keys=keys, sinks=sinks,
         )
         s = self.sh
-        loss = masked_loss_sum(logits, s.labels, s.train_mask, self.static.multilabel)
+        loss = masked_loss_sum(logits, s.labels, s.train_mask, st.multilabel)
         loss = loss / self.train_count
         loss.backward()
+        loss = loss.detach()
+        if self.world > 1:
+            loss = self._sync_grads(loss)
         self.opt.step()
-        return loss.detach()
+        if sinks is not None:
+            self.trace_fwd += traces
+            for i in range(1, st.num_layers):
+                self.trace_bwd[i] += sinks[i].grad
+        return loss
+
+    def _sync_grads(self, loss: torch.Tensor) -> torch.Tensor:
+        """All-reduce every gradient (SUM) and the loss in one buffer;
+        returns the global loss."""
+        ps = [p for layer in self.params for p in layer.values()]
+        for p in ps:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        flat = self._all_reduce(torch.cat([p.grad.reshape(-1) for p in ps] + [loss.reshape(1)]))
+        o = 0
+        for p in ps:
+            p.grad.copy_(flat[o:o + p.numel()].view_as(p))
+            o += p.numel()
+        return flat[o]
 
     @torch.no_grad()
     def _eval_step(self):
         st, s = self.static, self.sh
-        logits, _ = apply_gnn(self.params, s, st, False, self.blocks)
+        logits, _ = apply_gnn(self.params, s, st, False, self.blocks, wires=self.wire_fp)
         masks = (s.train_mask, s.val_mask, s.test_mask)
         if st.multilabel:
-            out = []
-            for m in masks:
-                tp, fp, fn = (x.float() for x in f1_pieces(logits, s.labels, m))
-                out.append(2 * tp / torch.clamp_min(2 * tp + fp + fn, 1.0))
-            return [float(x) for x in out]
+            pieces = torch.stack([x.float() for m in masks for x in f1_pieces(logits, s.labels, m)])
+            tp, fp, fn = self._all_reduce(pieces).view(3, 3).T
+            return [float(x) for x in 2 * tp / torch.clamp_min(2 * tp + fp + fn, 1.0)]
+        correct = torch.stack([correct_count(logits, s.labels, m).float() for m in masks])
+        correct = self._all_reduce(correct).tolist()
         counts = (self.train_count, self.val_count, self.test_count)
-        return [
-            float(correct_count(logits, s.labels, m)) / c
-            for m, c in zip(masks, counts)
-        ]
+        return [c / n for c, n in zip(correct, counts)]
 
     # ------------------------------------------------------------------
+    def _reassign(self, epoch: int):
+        """Periodic bit-width reassignment (reference
+        ``runtime_util.py:86-93``)."""
+        t0 = time.perf_counter()
+        plan, L = self.layout.plan_fwd, self.cfg.num_layers
+        if self.scheme is Scheme.RANDOM:
+            # numpy from a shared seed: every rank draws the same widths
+            self.assignment = random_assignment(plan, L, self.cfg.seed + epoch)
+        else:
+            tf = self._all_gather(self.trace_fwd).transpose(0, 1)  # [L, K, K, S]
+            tb = self._all_gather(self.trace_bwd).transpose(0, 1)  # [L, K, R]
+            asg = None
+            if self.rank == 0:
+                asg = self.assigner.assign(
+                    tf.cpu().numpy(), tb.cpu().numpy(), layer_dims=self.layer_dims
+                )
+            self.assignment = self._broadcast_assignment(asg)
+            self._reset_traces()
+        t_assign = time.perf_counter() - t0
+        self._lower_assignment()
+        dt = time.perf_counter() - t0
+        self.assign_s.append(dt)
+        self.timer.add("assignment_overhead", dt)
+        logger.info(
+            "epoch %d: reassignment done in %.2fs (solve %.2fs, lower %.2fs)",
+            epoch, dt, t_assign, dt - t_assign,
+        )
+
+    def _broadcast_assignment(self, asg: Optional[Assignment]) -> Assignment:
+        """Rank 0's assignment on every rank."""
+        plan, L = self.layout.plan_fwd, self.cfg.num_layers
+        shapes = [plan.send_idx.shape] * L + [(self.k, plan.r_pad)] * L
+        if self.rank == 0:
+            flat = torch.as_tensor(np.concatenate(
+                [np.asarray(a, np.int32).reshape(-1) for a in asg.fwd + asg.bwd]))
+        else:
+            flat = torch.empty(sum(int(np.prod(s)) for s in shapes), dtype=torch.int32)
+        flat = flat.to(self._comm_dev)
+        dist.broadcast(flat, src=0)
+        flat = flat.cpu().numpy()
+        arrays, o = [], 0
+        for s in shapes:
+            n = int(np.prod(s))
+            arrays.append(flat[o:o + n].reshape(s))
+            o += n
+        return Assignment(arrays[:L], arrays[L:])
+
+    def planned_quant_launches(self) -> Tuple[int, int]:
+        """(quant_pack, unpack_dequant) launches one training step makes
+        on this rank with the current quantized wires."""
+        if self.wire_q is None:
+            return 0, 0
+        pack = unpack = 0
+        for wf, wb in self.wire_q:
+            for w in (wf, wb):
+                if w is not None:
+                    p, u = w.quant_launches()
+                    pack, unpack = pack + p, unpack + u
+        return pack, unpack
+
     def train(self) -> Dict[str, Any]:
         cfg = self.cfg
         t_train0 = time.perf_counter()
         losses = []
+        planned = np.zeros(2, np.int64)
         for epoch in range(1, cfg.num_epochs + 1):
+            if (
+                self.assigner is not None
+                and self.scheme in (Scheme.ADAPTIVE, Scheme.RANDOM)
+                and epoch % cfg.assign_cycle == 1
+                and epoch != 1
+            ):
+                self._reassign(epoch)
+            if self.mode.quantized:
+                planned += self.planned_quant_launches()
             t0 = time.perf_counter()
             # the host readback waits for the device, so the bracket holds
             # the whole step
@@ -248,17 +518,18 @@ class Trainer:
         total = time.perf_counter() - t_train0
         ep = np.asarray(self.timer.epoch_times)
         # median: robust to the first epoch's one-time costs (kernel build
-        # and load, allocator warm-up)
+        # and load, allocator warm-up) and the reassignment epochs
         steady = float(np.median(ep)) if len(ep) else 0.0
         best = self.recorder.best()
         records = {
-            "overhead": self.overhead_s,
+            "overhead": self.overhead_s + self.timer.totals().get("assignment_overhead", 0.0),
             "total": total,
             "per_epoch": steady,
             "buckets": self.timer.epoch_traced_time(),
             "best": best,
             "val_curve": self.recorder.val_curve(),
             "loss_curve": np.asarray(losses),
+            "planned_quant_launches": tuple(int(x) for x in planned),
         }
         logger.info(
             "done: best epoch %d train %.4f val %.4f test %.4f | %.3fs/epoch",
@@ -269,8 +540,17 @@ class Trainer:
     # ------------------------------------------------------------------
     def save(self, records: Dict[str, Any]):
         """Write reference-compatible artifacts (``trainer.py:203-238``):
-        metrics txt, val-curve array, per-worker time CSV."""
+        metrics txt, val-curve array, and the time CSV with one row per
+        rank. Collective at K>1 (every rank's row goes to rank 0, which
+        writes)."""
         cfg = self.cfg
+        row = torch.tensor(
+            [records["overhead"], records["total"], records["per_epoch"],
+             *records["buckets"]], dtype=torch.float64,
+        )
+        rows = self._all_gather(row) if self.world > 1 else row[None]
+        if self.rank != 0:
+            return
         base = os.path.join(
             cfg.exp_path, self.graph.name, f"{self.k}part", cfg.model_name
         )
@@ -287,20 +567,20 @@ class Trainer:
                 f"total_s: {records['total']:.4f}\noverhead_s: {records['overhead']:.4f}\n"
             )
         np.save(os.path.join(base, "val_curve", f"{name}.npy"), records["val_curve"])
-        comm, quant_t, central, marginal, full = records["buckets"]
-        rows = []
-        for w in range(self.k):
-            rows.append(
-                [w, records["overhead"], records["total"], records["per_epoch"],
-                 comm, quant_t, central, marginal, full]
-            )
+        table = np.concatenate([np.arange(self.k)[:, None], rows.numpy()], axis=1)
         header = "Worker,Overhead,Total,Per_epoch,Comm,Quant,Central,Marginal,Full"
         np.savetxt(
-            os.path.join(base, "time", f"{name}.csv"),
-            np.asarray(rows),
-            delimiter=",",
-            header=header,
-            comments="",
-            fmt="%.6f",
+            os.path.join(base, "time", f"{name}.csv"), table,
+            delimiter=",", header=header, comments="", fmt="%.6f",
         )
         logger.info("artifacts written under %s", base)
+
+
+def train_worker(rank, world, device, cfg: RunConfig, graph_fn=None):
+    """One rank's run (the launcher's worker): build the Trainer, train,
+    write the artifacts. Returns the loss curve and the median epoch
+    seconds."""
+    trainer = Trainer(cfg, graph=None if graph_fn is None else graph_fn(), device=device)
+    records = trainer.train()
+    trainer.save(records)
+    return {"loss_curve": records["loss_curve"], "per_epoch": records["per_epoch"]}

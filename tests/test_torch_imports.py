@@ -9,6 +9,8 @@ import pytest
 import torch
 
 import adaqp_tpu_torch
+from adaqp_tpu_torch import __main__ as cli
+from adaqp_tpu_torch.comm.distributed import resolve_backend, spawn
 from adaqp_tpu_torch.ops import spmm_strip
 from adaqp_tpu_torch.trainer import RunConfig, Trainer
 
@@ -23,13 +25,16 @@ def test_import_leaves_jax_out():
         "    importlib.import_module(m.name)\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
         "             or k == 'adaqp_tpu' or k.startswith('adaqp_tpu.'))\n"
+        "need = ['adaqp_tpu_torch.__main__', 'adaqp_tpu_torch.comm.exchange_ragged',\n"
+        "        'adaqp_tpu_torch.ops.quant_cuda', 'adaqp_tpu_torch.assigner.profile']\n"
+        "assert all(m in sys.modules for m in need), need\n"
         "print(len([k for k in sys.modules if k.startswith('adaqp_tpu_torch.')]), bad)\n"
     )
     out = subprocess.run(
         [sys.executable, "-c", code], capture_output=True, text=True, check=True,
         cwd=PKG.parent,
     ).stdout.split()
-    assert int(out[0]) >= 20 and out[1] == "[]", out
+    assert int(out[0]) >= 30 and out[1] == "[]", out
 
 
 def test_sources_never_name_the_jax_package():
@@ -66,11 +71,17 @@ def test_entry_points_need_a_card_unless_cpu_is_asked(tmp_path):
     assert not out.any() and spmm_strip.strip_spmm.launches == before  # plain version
     with pytest.raises(ValueError, match="no strip SpMM"):
         spmm_strip.strip_spmm(lay.to_device("cpu"), torch.ones(lay.n_src_pad, 8, device="meta"))
+    # the launcher and the command line land on the card unless asked
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        spawn(print, 2, device="cuda", workdir=str(tmp_path / "l"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["--dataset", "sbm", "--num_parts", "1", "--mode", "Vanilla",
+                  "--exp_path", str(tmp_path / "e")])
 
 
 @pytest.mark.parametrize("over,what", [
-    ({"num_parts": 2}, "num_parts=2"),
-    ({"mode": "AdaQP"}, "mode=AdaQP"),
+    ({"wire_impl": "padded"}, "wire_impl=padded"),
+    ({"spmm_impl": "segment"}, "spmm_impl=segment"),
     ({"spmm_impl": "block"}, "spmm_impl=block"),
     ({"ckpt_every": 5}, "checkpointing"),
 ])
@@ -79,4 +90,24 @@ def test_unported_options_raise(tmp_path, over, what):
         "num_parts": 1, "mode": "Vanilla", "partition_dir": str(tmp_path), **over,
     })
     with pytest.raises(NotImplementedError, match=what):
+        Trainer(cfg, device="cpu")
+
+
+def test_nccl_needs_a_card_per_rank(tmp_path, monkeypatch):
+    cards = torch.cuda.device_count()
+    assert resolve_backend(cards + 1, "cuda") == "gloo"
+    assert resolve_backend(2, "cpu") == "gloo"
+    if cards:
+        assert resolve_backend(cards, "cuda") == "nccl"
+    cfg = RunConfig.from_yaml("sbm", {
+        "num_parts": 2, "mode": "Vanilla", "partition_dir": str(tmp_path),
+    })
+    with pytest.raises(RuntimeError, match="process group|torch.distributed"):
+        Trainer(cfg, device="cpu")
+    # a group the caller made over nccl while the ranks share a card (or
+    # the CPU) is refused with a message naming gloo
+    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.distributed, "get_world_size", lambda *a: 2)
+    monkeypatch.setattr(torch.distributed, "get_backend", lambda *a: "nccl")
+    with pytest.raises(ValueError, match="gloo"):
         Trainer(cfg, device="cpu")

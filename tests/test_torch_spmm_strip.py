@@ -178,6 +178,38 @@ def test_layout_cache_roundtrip(rng, tmp_path):
     _ell_equal(a.straggler, b.straggler)
 
 
+def test_select_keeps_one_shard(rng):
+    # each rank keeps only its own shard's layouts; its operators are the
+    # same before and after the selection
+    from adaqp_tpu_torch.common.types import GNNType
+    from adaqp_tpu_torch.graph import build_layout, partition_graph
+    from adaqp_tpu_torch.graph.strip_shards import build_strip_shards
+    from adaqp_tpu_torch.helper.dataset import sbm_graph
+
+    g = sbm_graph(n=900, blocks=3, num_feats=8, seed=2)
+    lay = build_layout(g, partition_graph(g, 3, "ldg"), GNNType.GCN, pad_multiple=2048)
+    shards = build_strip_shards(lay, min_edges=400)  # some tiles to the ELL tail
+    assert shards.selected is None and shards.ell_widths[0]
+    for rank in range(3):
+        before = shards.devices(rank)
+        sel = shards.select(rank)
+        assert sel.selected == rank and sel.fwd_local[0].shape[0] == 1
+        for a, b in zip(sel.devices(rank), before):
+            for name in ("n", "n_pad", "n_src_pad"):
+                assert getattr(a, name) == getattr(b, name)
+            for name in ("masks", "tile_src", "blk_ptr"):
+                assert torch.equal(getattr(a, name), getattr(b, name))
+            assert (a.straggler is None) == (b.straggler is None)
+            if a.straggler is not None:
+                for x, y in zip(a.straggler.buckets, b.straggler.buckets):
+                    assert x[0] == y[0] and all(torch.equal(u, v) for u, v in zip(x[1:], y[1:]))
+        assert all(torch.equal(a.masks, b.masks) for a, b in zip(sel.devices(), before))
+        with pytest.raises(ValueError):
+            sel.devices((rank + 1) % 3)
+        with pytest.raises(ValueError):
+            sel.select(rank)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
