@@ -4,6 +4,7 @@
     python -m adaqp_tpu_torch --dataset reddit --num_parts 4 --mode AdaQP \\
         --assign_scheme adaptive
     python -m adaqp_tpu_torch --dataset sbm --num_parts 2 --mode AdaQP --device cpu
+    python -m adaqp_tpu_torch --dataset sbm --num_parts 1 --spmm_impl compact --device cpu
 
 ``--num_parts K`` > 1 starts K ranks on this machine (one per partition;
 over nccl when there is a card for each rank, else over gloo). Under
@@ -37,10 +38,17 @@ def parse_args(argv=None):
     p.add_argument("--logger_level", type=str, default=None)
     p.add_argument("--exp_path", type=str, default=None)
     p.add_argument("--seed", type=int, default=None)
-    p.add_argument("--spmm_impl", type=str, default=None, choices=["auto", "strip"])
+    p.add_argument("--spmm_impl", type=str, default=None,
+                   choices=["auto", "segment", "block", "compact", "strip"])
     p.add_argument("--agg_dtype", type=str, default=None, choices=["float32", "bfloat16"])
     p.add_argument("--block_min_edges", type=int, default=None,
-                   help="tile/ELL split threshold of the strip layouts")
+                   help="tile/ELL split threshold of the strip and block layouts")
+    p.add_argument("--compact_me_ell", type=int, default=None,
+                   help="compact impl: regions below this edge count ride "
+                        "the ELL tail")
+    p.add_argument("--compact_full_cols", type=int, default=None,
+                   help="compact impl: regions above this occupied-column "
+                        "count stay full-bitmask")
     p.add_argument("--fp32_lanes", action="store_true", default=None,
                    help="let the adaptive MILP assign raw fp32 lanes per "
                         "channel group")

@@ -6,18 +6,27 @@ becomes two explicit objects: :class:`ShardArrays`, one partition's tensors
 ``shard_map``), and :class:`ShardStatic`, the run's hashable shape and
 model configuration. One rank owns one partition; there is no mesh.
 
-The per-partition edge lists of the segment-sum path are not carried: that
-path is not ported yet, and the strip shards hold the edges.
+The per-partition edge lists (``fl_src`` .. ``bh_dst``) feed only the
+segment-sum aggregation (``spmm_impl=segment``); the tile paths hold their
+edges in their shards, so :func:`shard_arrays_from_layout` fills the lists
+only when asked (at the K=1 smoke's Reddit size they would take about 1 GB
+of device memory).
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
+import numpy as np
 import torch
 
 from ..common.backend import DeviceLike
 from ..common.types import AggregatorType, GNNType, Mode
 from .layout import PartitionLayout
+
+
+def _no_edges():
+    return dataclasses.field(default_factory=lambda: torch.zeros(0, dtype=torch.int32))
 
 
 @dataclasses.dataclass
@@ -34,6 +43,21 @@ class ShardArrays:
     send_idx: torch.Tensor  # i64 [K, S]  this rank's sends to each receiver
     recv_slot: torch.Tensor  # i64 [K, S]  slots of this rank's receives
     num_local: int
+    # segment-sum edge lists (i32 [E]; empty on the tile paths); padding
+    # edges carry the sentinel dst (the output row count) and drop
+    fl_src: torch.Tensor = _no_edges()  # forward local-src edges
+    fl_dst: torch.Tensor = _no_edges()
+    fh_src: torch.Tensor = _no_edges()  # forward halo-src (src = remote SLOT)
+    fh_dst: torch.Tensor = _no_edges()
+    bl_src: torch.Tensor = _no_edges()  # transposed local edges (backward)
+    bl_dst: torch.Tensor = _no_edges()
+    bh_src: torch.Tensor = _no_edges()  # transposed halo (src local, dst SLOT)
+    bh_dst: torch.Tensor = _no_edges()
+
+    def edges(self):
+        """The eight edge lists in the order ``pair_seg_spmm`` takes them."""
+        return (self.fl_src, self.fl_dst, self.fh_src, self.fh_dst,
+                self.bl_src, self.bl_dst, self.bh_src, self.bh_dst)
 
     def to(self, device: DeviceLike) -> "ShardArrays":
         return dataclasses.replace(self, **{
@@ -62,12 +86,28 @@ class ShardStatic:
     dropout: float = 0.5
     use_norm: bool = True
     spmm: str = "strip"
+    edge_chunk: Optional[int] = None  # segment sum: edges per chunk (None: all at once)
     agg_dtype: str = "float32"  # aggregation compute dtype ("bfloat16" on the card)
 
 
-def shard_arrays_from_layout(layout: PartitionLayout, rank: int = 0) -> ShardArrays:
-    """Partition ``rank``'s rows of the layout as CPU tensors."""
+def shard_arrays_from_layout(layout: PartitionLayout, rank: int = 0,
+                             edges: bool = False) -> ShardArrays:
+    """Partition ``rank``'s rows of the layout as CPU tensors, with its
+    segment-sum edge lists when ``edges`` (else empty)."""
     labels = torch.as_tensor(layout.labels[rank])
+    lists = {}
+    if edges:
+        l_max = layout.l_max
+        fh_src, fh_dst = layout.fwd_halo[0][rank], layout.fwd_halo[1][rank]
+        # halo sources are stored as l_max + slot; padding edges read slot 0
+        fh_src = np.where(fh_dst < l_max, fh_src - l_max, 0)
+        for name, arr in (
+            ("fl_src", layout.fwd_local[0][rank]), ("fl_dst", layout.fwd_local[1][rank]),
+            ("fh_src", fh_src), ("fh_dst", fh_dst),
+            ("bl_src", layout.bwd_local[0][rank]), ("bl_dst", layout.bwd_local[1][rank]),
+            ("bh_src", layout.bwd_halo[0][rank]), ("bh_dst", layout.bwd_halo[1][rank]),
+        ):
+            lists[name] = torch.as_tensor(np.ascontiguousarray(arr, dtype=np.int32))
     return ShardArrays(
         feats=torch.as_tensor(layout.feats[rank]),
         labels=labels if layout.multilabel else labels.long(),
@@ -79,6 +119,7 @@ def shard_arrays_from_layout(layout: PartitionLayout, rank: int = 0) -> ShardArr
         send_idx=torch.as_tensor(layout.plan_fwd.send_idx[rank]).long(),
         recv_slot=torch.as_tensor(layout.plan_fwd.recv_slot[rank]).long(),
         num_local=int(layout.num_local[rank]),
+        **lists,
     )
 
 

@@ -34,15 +34,16 @@ import numpy as np
 import torch
 
 from ..common.backend import DeviceLike, resolve_device
-from .spmm_block import BD, BS, WORDS, _dedup
-from .spmm_fast import EllDevice, EllLayout, _run_ell, ell_from_csr
+from .spmm_block import (
+    BD, BS, WORDS, ReverseSpmm, _dedup, block_pointers, check_cuda_operands,
+    run_tiles_torch, with_straggler,
+)
+from .spmm_fast import EllDevice, EllLayout, ell_from_csr
 
 SB = 8             # dst blocks per strip
 STRIP = SB * BD    # 2048 dst rows: output rows are padded to this multiple
 MIN_EDGES = 192
 STRIP_SCHEME = 1   # cache-format version
-# tiles expanded at once by the plain version (a [chunk, 256, 2048] f32 tile)
-_PLAIN_TILES = 16
 
 
 @dataclass
@@ -88,17 +89,6 @@ class StripDevice:
             self.tile_src.to(device), self.blk_ptr.to(device),
             self.straggler.to(device) if self.straggler else None,
         )
-
-
-def block_pointers(tile_dst: np.ndarray, n_pad: int) -> np.ndarray:
-    """int32 [n_pad // BD + 1] tile range per destination block, from the
-    (ascending) per-tile destination blocks of one unpadded layout."""
-    tile_dst = np.asarray(tile_dst)
-    if len(tile_dst) and (np.any(np.diff(tile_dst) < 0) or tile_dst[-1] >= n_pad // BD):
-        raise ValueError("tile_dst must be ascending and below n_pad // BD")
-    return np.searchsorted(
-        tile_dst, np.arange(n_pad // BD + 1), side="left"
-    ).astype(np.int32)
 
 
 def strip_layout(
@@ -203,35 +193,17 @@ def strip_layout(
 
 
 def _run_strip_torch(layout: StripDevice, h: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: expand each tile's bits to a
-    0/1 f32 [256, 2048] matrix, multiply it with its source window in f32,
-    ``index_add_`` into the f32 output, and round once to ``h.dtype``.
-    Tiles go ``_PLAIN_TILES`` at a time, so all T masks are never expanded
-    at once; a layout with no tiles gives zeros."""
-    f = h.shape[1]
+    """Plain PyTorch version of the kernel: each dense tile's product with
+    its source window, summed in f32 at its destination block
+    (:func:`~adaqp_tpu_torch.ops.spmm_block.run_tiles_torch`); a layout with
+    no tiles gives zeros."""
     if h.shape[0] != layout.n_src_pad:
         raise ValueError(f"h has {h.shape[0]} rows, layout wants {layout.n_src_pad}")
-    dev = h.device
-    out = torch.zeros((layout.n_pad, f), dtype=torch.float32, device=dev)
-    blk_ptr = layout.blk_ptr.to(dev, torch.int64)
-    t = int(blk_ptr[-1])
+    blk_ptr = layout.blk_ptr.to(torch.int64)
     tile_dst = torch.repeat_interleave(
-        torch.arange(blk_ptr.numel() - 1, device=dev), blk_ptr.diff()
+        torch.arange(blk_ptr.numel() - 1, device=blk_ptr.device), blk_ptr.diff()
     )
-    shifts = torch.arange(16, dtype=torch.int32, device=dev)
-    win = torch.arange(BS, device=dev)
-    rows = torch.arange(BD, device=dev)
-    for s in range(0, t, _PLAIN_TILES):
-        e = min(s + _PLAIN_TILES, t)
-        words = layout.masks[s:e].to(dev, torch.int32) & 0xFFFF
-        bits = (words[..., None] >> shifts) & 1  # [c, BD, WORDS, 16]
-        # column j = bit * WORDS + halfword
-        a = bits.transpose(2, 3).reshape(e - s, BD, BS).to(torch.float32)
-        src_rows = layout.tile_src[s:e].to(dev, torch.int64)[:, None] + win
-        tile_out = torch.bmm(a, h[src_rows].to(torch.float32))  # [c, BD, F]
-        dst_rows = (tile_dst[s:e, None] * BD + rows).reshape(-1)
-        out.index_add_(0, dst_rows, tile_out.reshape(-1, f))
-    return out.to(h.dtype)
+    return run_tiles_torch(layout.masks, layout.tile_src, tile_dst, layout.n_pad, h)
 
 
 # ---------------------------------------------------------------------------
@@ -254,28 +226,13 @@ def _lib() -> ctypes.CDLL:
 
 def _run_strip_cuda(layout: StripDevice, h: torch.Tensor) -> torch.Tensor:
     """Launch the CUDA kernel on ``h``'s device and current stream."""
-    if h.dim() != 2 or h.shape[0] != layout.n_src_pad:
-        raise ValueError(
-            f"h must be [{layout.n_src_pad}, F], got {tuple(h.shape)}"
-        )
-    if h.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"h must be bfloat16 or float32, got {h.dtype}")
+    check_cuda_operands(h, layout.n_src_pad, (
+        ("masks", layout.masks, torch.int16),
+        ("tile_src", layout.tile_src, torch.int32),
+        ("blk_ptr", layout.blk_ptr, torch.int32),
+    ))
     f = h.shape[1]
-    vec = 8 if h.dtype == torch.bfloat16 else 4  # values per 16-byte load
-    if f % vec or not h.is_contiguous() or h.data_ptr() % 16:
-        raise ValueError(
-            f"h must be contiguous, 16-byte aligned, with F % {vec} == 0 "
-            f"(F={f})"
-        )
     n_blocks = layout.n_pad // BD
-    for name, x, dt in (("masks", layout.masks, torch.int16),
-                        ("tile_src", layout.tile_src, torch.int32),
-                        ("blk_ptr", layout.blk_ptr, torch.int32)):
-        if x.device != h.device or x.dtype != dt or not x.is_contiguous():
-            raise ValueError(
-                f"layout {name} must be contiguous {dt} on {h.device}, "
-                f"got {x.dtype} on {x.device}"
-            )
     if layout.blk_ptr.numel() != n_blocks + 1 or tuple(layout.masks.shape[1:]) != (BD, WORDS):
         raise ValueError("layout shapes do not match n_pad")
     out = torch.empty((layout.n_pad, f), dtype=h.dtype, device=h.device)
@@ -312,30 +269,11 @@ strip_spmm.launches = 0
 def run_strip(layout: StripDevice, h: torch.Tensor) -> torch.Tensor:
     """out = A^T h in ``h.dtype``: the dense tiles plus the ELL straggler,
     which is accumulated in f32 and added in ``h.dtype``."""
-    out = strip_spmm(layout, h)
-    if layout.straggler is not None:
-        ell = _run_ell(layout.straggler, h, acc_dtype=torch.float32)
-        out = out + ell.to(h.dtype)
-    return out
-
-
-class SpmmStrip(torch.autograd.Function):
-    """A^T h with strip bitmask tiles; the backward runs the reverse layout
-    through the same kernel and returns the gradient in ``h``'s dtype."""
-
-    @staticmethod
-    def forward(ctx, h: torch.Tensor, layout_fwd: StripDevice, reverse: StripDevice):
-        ctx.reverse = reverse
-        ctx.h_dtype = h.dtype
-        return run_strip(layout_fwd, h)
-
-    @staticmethod
-    def backward(ctx, g: torch.Tensor):
-        gh = run_strip(ctx.reverse, g.to(ctx.h_dtype).contiguous())
-        return gh.to(ctx.h_dtype), None, None
+    return with_straggler(strip_spmm(layout, h), layout.straggler, h)
 
 
 def spmm_strip(layout_fwd: StripDevice, h: torch.Tensor, reverse: StripDevice) -> torch.Tensor:
-    """A^T h through :class:`SpmmStrip` (argument order of the JAX package's
+    """A^T h with strip bitmask tiles; the backward runs the reverse layout
+    through the same kernel (argument order of the JAX package's
     ``spmm_strip``)."""
-    return SpmmStrip.apply(h, layout_fwd, reverse)
+    return ReverseSpmm.apply(h, run_strip, layout_fwd, reverse)

@@ -4,12 +4,12 @@
 YAML sections mirror the reference (``AdaQP/config/*.yaml``):
 ``data`` / ``model`` / ``runtime`` / ``assignment``. The field set is the
 JAX package's, so one config describes a run of either package. Of the
-fields for paths this port does not run yet, the Trainer rejects the ones that change the result (other ``spmm_impl``
-values, ``wire_impl=padded``, checkpointing). Fields that tune the JAX
-package's compiler or TPU memory have no effect here: ``static_wire``
-(PyTorch runs eagerly, so exact wire shapes cost no recompile),
-``remat``, ``log_hbm``, ``edge_chunk``, the compact-kernel knobs, and
-``measure_breakdown`` (the breakdown probe is not ported).
+fields for paths this port does not run yet, the Trainer rejects the ones
+that change the result (``wire_impl=padded``, checkpointing). Fields that
+tune the JAX package's compiler or TPU memory have no effect here:
+``static_wire`` (PyTorch runs eagerly, so exact wire shapes cost no
+recompile), ``remat``, ``log_hbm``, and ``measure_breakdown`` (the
+breakdown probe is not ported).
 """
 from __future__ import annotations
 
@@ -48,16 +48,20 @@ class RunConfig:
     logger_level: str = "INFO"
     log_steps: int = 10
     seed: int = 42
+    # segment sum: edges per chunk (None: all edges at once)
     edge_chunk: Optional[int] = None
     # time comm/quant/central/marginal probes (the reference always records
     # these buckets, AdaQP/util/timer.py:29-51)
     measure_breakdown: bool = True
     # "auto" | "segment" | "block" | "strip" | "compact": the aggregation
-    # implementation; the port runs "strip" ("auto" resolves to it)
+    # implementation ("auto" is "strip" in the port)
     spmm_impl: str = "auto"
-    # tile-vs-ELL split: tiles with fewer edges go to the ELL straggler path
+    # strip/block tile-vs-ELL split: tiles with fewer edges go to the ELL
+    # straggler path
     block_min_edges: int = 192
-    # compact-impl tiering
+    # compact tiering: regions under compact_me_ell edges go to the ELL
+    # tail, regions with more than compact_full_cols occupied source columns
+    # stay full bitmask tiles, the rest become compact subtiles
     compact_me_ell: int = 64
     compact_full_cols: int = 1024
     # boundary-exchange wire: "ragged" = exact per-pair sizes; "padded" =

@@ -10,10 +10,10 @@ K>1 every rank of a ``torch.distributed`` group of ``num_parts`` ranks
 builds a Trainer (``comm/distributed.py::spawn`` or ``python -m
 adaqp_tpu_torch`` start them):
 
-- rank 0 partitions the graph and writes the partition, layout and strip
-  caches; the other ranks load them after a barrier (the JAX package
+- rank 0 partitions the graph and writes the partition, layout and tile
+  layout caches; the other ranks load them after a barrier (the JAX package
   writes from process 0 only, ``trainer.py:340``). Each rank keeps its own
-  shard's arrays and strip layouts on its device;
+  shard's arrays and tile layouts on its device;
 - parameters start identical on every rank (drawn on a CPU generator from
   ``seed``); each rank's loss is its masked sum over the GLOBAL train
   count, the gradients are all-reduced with SUM before ``Adam.step`` (the
@@ -67,7 +67,6 @@ from ..common.types import BITS_SET, WIRE_BITS_SET, AggregatorType, GNNType, Mod
 from ..graph import build_layout, partition_graph
 from ..graph.device import shard_arrays_from_layout, static_from_layout
 from ..graph.layout import load_layout, save_layout
-from ..graph.strip_shards import build_strip_shards
 from ..helper.dataset import GraphData, load_dataset
 from ..model.gnn import apply_gnn, init_params, params_from_numpy
 from ..model.loss import correct_count, f1_pieces, masked_loss_sum
@@ -77,9 +76,12 @@ from .config import RunConfig
 
 logger = logging.getLogger("adaqp_tpu_torch")
 
-# the tile kernel's grid: rows padded to its 2048-row source windows,
-# features to whole 16-byte vectors of 128 lanes
-PAD_MULTIPLE, FEAT_MULTIPLE = 2048, 128
+# (row, feature) padding per aggregation, the JAX Trainer's: the tile
+# kernels pad rows to their 2048-row source windows and features to 128
+# lanes, compact features to 384 (its TPU kernel's lane chunk; kept so that
+# the first weight has the JAX Trainer's shape), the segment sum to (8, 4)
+PADDING = {"strip": (2048, 128), "block": (2048, 128), "compact": (2048, 384),
+           "segment": (8, 4)}
 
 
 def setup_logger(level: str = "INFO", logfile: Optional[str] = "trainer.log"):
@@ -96,12 +98,8 @@ def setup_logger(level: str = "INFO", logfile: Optional[str] = "trainer.log"):
 
 def _check_supported(cfg: RunConfig) -> RunConfig:
     """Reject what the port does not run; resolve ``spmm_impl=auto``."""
-    if cfg.spmm_impl not in ("auto", "strip"):
-        raise NotImplementedError(
-            f"spmm_impl={cfg.spmm_impl}: only the strip kernel is ported "
-            "(ROADMAP Queue 1, 'Segment SpMM' and 'Block and compact host "
-            "sides'; Queue 2, the block and compact kernels)"
-        )
+    if cfg.spmm_impl not in ("auto", *PADDING):
+        raise ValueError(f"unknown spmm_impl {cfg.spmm_impl!r}")
     if cfg.wire_impl != "ragged":
         raise NotImplementedError(
             f"wire_impl={cfg.wire_impl}: only the exact-size ragged wire is "
@@ -111,7 +109,26 @@ def _check_supported(cfg: RunConfig) -> RunConfig:
         raise NotImplementedError(
             "checkpointing is not ported (ROADMAP Queue 1, 'Trainer')"
         )
-    return dataclasses.replace(cfg, spmm_impl="strip")
+    # auto is the strip kernel on every device (the JAX Trainer picks the
+    # segment sum off the TPU; on the card the tile kernels are the point)
+    return dataclasses.replace(
+        cfg, spmm_impl="strip" if cfg.spmm_impl == "auto" else cfg.spmm_impl
+    )
+
+
+def _check_compact_gate(cfg: RunConfig, device: torch.device) -> None:
+    """On the card the compact path needs the row gather; a failed probe
+    raises (the JAX Trainer redirects compact to block, which would hide a
+    failed kernel)."""
+    if cfg.spmm_impl != "compact" or device.type != "cuda":
+        return
+    from ..ops.spmm_compact import dynamic_gather_supported
+
+    if not dynamic_gather_supported():
+        raise RuntimeError(
+            "spmm_impl=compact on the card needs its row gather, and "
+            "spmm_compact.dynamic_gather_supported() found none"
+        )
 
 
 def _process_group(cfg: RunConfig, device: torch.device) -> Tuple[int, int]:
@@ -147,6 +164,7 @@ class Trainer:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         cfg = self.cfg = _check_supported(cfg)
+        _check_compact_gate(cfg, self.device)
         self.rank, self.world = _process_group(cfg, self.device)
         # gloo carries CUDA tensors on the exchange's hot path; the small
         # control collectives (gradients, counts, traces) go through the CPU
@@ -170,13 +188,14 @@ class Trainer:
         self.k = self.layout.k
         if self.k != self.world:
             raise ValueError(f"the layout has {self.k} partitions for {self.world} ranks")
-        sh = shard_arrays_from_layout(self.layout, rank=self.rank)
+        sh = shard_arrays_from_layout(
+            self.layout, rank=self.rank, edges=cfg.spmm_impl == "segment")
         if cfg.agg_dtype == "bfloat16":
             # features feed layer 0 in the aggregation dtype anyway; storing
             # them bf16 halves the largest resident
             sh = dataclasses.replace(sh, feats=sh.feats.to(torch.bfloat16))
         self.sh = sh.to(self.device)
-        self.blocks = shards.select(self.rank).to(self.device)
+        self.blocks = None if shards is None else shards.select(self.rank).to(self.device)
         self.static = static_from_layout(
             self.layout,
             model=self.model_type,
@@ -188,6 +207,7 @@ class Trainer:
             use_norm=cfg.use_norm,
             spmm=cfg.spmm_impl,
             agg_dtype=cfg.agg_dtype,
+            edge_chunk=cfg.edge_chunk,
         )
         # global counts from the layout: every node lies in one partition
         lay = self.layout
@@ -266,30 +286,45 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def _host_setup(self):
-        """Partition, layout and strip shards, each from its cache when one
-        exists (rank 0 runs this first and writes them)."""
+        """Partition, layout and the aggregation's shards (None for the
+        segment sum), each from its cache when one exists (rank 0 runs this
+        first and writes them)."""
         cfg = self.cfg
         part_id = self._load_or_partition()
+        pad_multiple, feat_multiple = PADDING[cfg.spmm_impl]
         lay_cache = os.path.join(
             cfg.partition_dir,
             f"{self.graph.name}_{cfg.num_parts}part_{cfg.partition_method}_"
-            f"{self.model_type.value}_pm{PAD_MULTIPLE}_fm{FEAT_MULTIPLE}_layout",
+            f"{self.model_type.value}_pm{pad_multiple}_fm{feat_multiple}_layout",
         )
         self.layout = load_layout(lay_cache)
         if self.layout is None:
             self.layout = build_layout(
                 self.graph, part_id, self.model_type,
-                pad_multiple=PAD_MULTIPLE, feat_pad_multiple=FEAT_MULTIPLE,
+                pad_multiple=pad_multiple, feat_pad_multiple=feat_multiple,
             )
             save_layout(lay_cache, self.layout)
         else:
             logger.info("loaded layout cache %s", lay_cache)
-        return build_strip_shards(
-            self.layout, min_edges=cfg.block_min_edges,
+        if cfg.spmm_impl == "strip":
+            from ..graph.strip_shards import build_strip_shards
+
             # the JAX package caches its strip layouts under "_stp" in
             # another format
-            cache_prefix=lay_cache + "_stc",
-        )
+            return build_strip_shards(
+                self.layout, min_edges=cfg.block_min_edges, cache_prefix=lay_cache + "_stc")
+        if cfg.spmm_impl == "block":
+            from ..graph.block_shards import build_block_shards
+
+            return build_block_shards(
+                self.layout, min_edges=cfg.block_min_edges, cache_prefix=lay_cache + "_blk")
+        if cfg.spmm_impl == "compact":
+            from ..graph.compact_shards import build_compact_shards
+
+            return build_compact_shards(
+                self.layout, me_ell=cfg.compact_me_ell, full_cols=cfg.compact_full_cols,
+                cache_prefix=lay_cache + "_cmp")
+        return None
 
     def _load_or_partition(self) -> np.ndarray:
         cfg = self.cfg
@@ -487,6 +522,18 @@ class Trainer:
                     pack, unpack = pack + p, unpack + u
         return pack, unpack
 
+    def tile_launches_per_epoch(self) -> int:
+        """Launches of the run's tile kernel one epoch (a training step and
+        an evaluation) makes on this rank; 0 for the segment sum. Forward
+        and evaluation aggregate twice a layer (local and halo); the
+        backward once a layer after the first (layer 0's input carries no
+        gradient), twice at K>1 (the halo rows carry one through the
+        exchange)."""
+        if self.blocks is None:
+            return 0
+        layers = self.cfg.num_layers
+        return 4 * layers + (layers - 1) * (1 if self.k == 1 else 2)
+
     def train(self) -> Dict[str, Any]:
         cfg = self.cfg
         t_train0 = time.perf_counter()
@@ -530,6 +577,7 @@ class Trainer:
             "val_curve": self.recorder.val_curve(),
             "loss_curve": np.asarray(losses),
             "planned_quant_launches": tuple(int(x) for x in planned),
+            "planned_tile_launches": cfg.num_epochs * self.tile_launches_per_epoch(),
         }
         logger.info(
             "done: best epoch %d train %.4f val %.4f test %.4f | %.3fs/epoch",

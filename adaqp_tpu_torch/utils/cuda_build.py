@@ -3,13 +3,15 @@
 Each ``adaqp_tpu_torch/csrc/<name>.cu`` holds kernels behind a plain
 ``extern "C"`` launcher (no PyTorch headers, so a build takes seconds).
 It compiles into ``build/kernels/lib<name>.so`` at the checkout's root on
-first use, for Hopper only (``sm_90a``), and rebuilds when the source is
-newer than the library. Nothing here runs at import time: the CPU tests
-import every module of the package on machines without ``nvcc``.
+first use, for Hopper only (``sm_90a``), and rebuilds when the source or a
+shared header (``csrc/*.cuh``) is newer than the library. Nothing here
+runs at import time: the CPU tests import every module of the package on
+machines without ``nvcc``.
 """
 from __future__ import annotations
 
 import ctypes
+import glob
 import os
 import shutil
 import subprocess
@@ -84,7 +86,9 @@ def load_library(name: str) -> ctypes.CDLL:
     if name in _LIBS:
         return _LIBS[name]
     src, lib = _paths(name)
-    if not os.path.exists(lib) or os.path.getmtime(lib) < os.path.getmtime(src):
+    headers = glob.glob(os.path.join(CSRC_DIR, "*.cuh"))
+    newest = max(os.path.getmtime(p) for p in [src, *headers])
+    if not os.path.exists(lib) or os.path.getmtime(lib) < newest:
         build([name])
     _LIBS[name] = ctypes.CDLL(lib)
     return _LIBS[name]

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``adaqp_tpu_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py            # banded Reddit-degree graphs (K=1: 65,536 nodes)
+    python3 chip_smoke.py            # banded graphs (Reddit K=1: 65,536 nodes; products: 131,072)
     python3 chip_smoke.py --full     # K=1 at Reddit's 232,965 nodes / 114,615,892 edges
 
 It builds the port's CUDA kernels from this checkout (one ``nvcc`` per
@@ -10,14 +10,20 @@ card, and trains a Reddit-width GCN (602 -> 256 -> 256 -> 41, 3 layers,
 bf16 aggregation, LayerNorm, dropout 0.5, Adam lr 0.01) twice through the
 port's entry points: at K=1 through ``Trainer``, and at K=4 in mode AdaQP
 with the adaptive scheme through the launcher of ``python -m
-adaqp_tpu_torch`` (four ranks sharing the one card over gloo). It checks
+adaqp_tpu_torch`` (four ranks sharing the one card over gloo); then an
+ogbn-products-width GCN (100 -> 256 -> 256 -> 47) at K=1 through each
+aggregation (``spmm_impl`` strip, block, compact, segment). It checks
 that each training ran through the kernels (their launch counts), and
 times every kernel beside its bound, its plain version and a library call
-where one exists. Phases: env, build, setup, kernel (strip SpMM), quant
-(quant_pack and unpack_dequant), e2e (a small K=1 run on the card against
-the same run on the CPU), e2e_k (the same at K=2, Vanilla and AdaQP),
-train (K=1), train_k (K=4), time (and, with ``--profile``, a device-time
-breakdown of a few K=1 training steps). Each phase prints its seconds. Any
+where one exists. Phases: env, build, agg (block_spmm, compact_spmm and
+gather_rows), setup, kernel (strip SpMM), quant (quant_pack and
+unpack_dequant), e2e (a small K=1 run on the card against the same run on
+the CPU), e2e_k (the same at K=2, Vanilla and AdaQP), train (K=1),
+train_k (K=4), e2e_agg (K=2 card against CPU for block, compact and
+segment), train_agg (the products GCN through the four aggregations), time
+(after k1, train_k and train_agg; with ``--profile``, also a device-time
+breakdown of a few training steps of the K=1 Reddit run and of each
+train_agg run). Each phase prints its seconds. Any
 failing phase exits nonzero and prints no result. The last line of
 standard output is ``{"ok": true, "device": {...}}``; the line before it
 holds the per-kernel numbers, and the one before that the card's name and
@@ -44,6 +50,14 @@ SEED = 0
 # round once to bf16, in another order: one bf16 step (2^-7 of the value)
 # plus f32 reordering error next to zero
 BF16_ATOL, BF16_RTOL = 1e-3, 2.0 ** -7
+# f32: both sum in f32 in another order (the plain versions through
+# torch.bmm at full f32 precision); readings on the H100 up to 2.7e-5 where
+# rows sum hundreds of N(0, 1) values, hence the absolute floor
+F32_ATOL, F32_RTOL = 1e-4, 1e-5
+# the products GCN's evaluation loss before a step, one set of parameters,
+# across the four aggregations: bf16 sums in other orders (f32 for the
+# segment sum); 3.4e-6 read on the H100
+AGG_LOSS0_RTOL = 1e-4
 
 
 class Failed(Exception):
@@ -77,7 +91,7 @@ def phase_build():
     from adaqp_tpu_torch.utils.cuda_build import build
 
     t0 = time.perf_counter()
-    logs = build(["spmm_strip", "quant_pack"])
+    logs = build(["spmm_strip", "quant_pack", "spmm_block", "spmm_compact"])
     say(f"[build] nvcc sm_90a: {time.perf_counter() - t0:.1f} s")
     for name, log in logs.items():
         for line in log.splitlines():
@@ -182,7 +196,7 @@ def phase_kernel(torch, trainer, seed):
     check(int(rect.blk_ptr[-1]) > 0, "rectangular layout has no dense tile")
     run(f"rectangular {rect.n_pad}x{rect.n_src_pad}", rect, 640)
 
-    # backward: SpmmStrip (kernel on the reverse layout) against autograd
+    # backward: spmm_strip (kernel on the reverse layout) against autograd
     # through the plain version; dense tiles only, summed in f32 by both
     fwd = ss.strip_layout(src % n, dst, n, min_edges=1).to_device(dev)
     rev = ss.strip_layout(dst, src % n, n, min_edges=1).to_device(dev)
@@ -196,10 +210,10 @@ def phase_kernel(torch, trainer, seed):
     torch.cuda.synchronize()
     err, ratio = compare(torch, hk.grad, hp.grad, BF16_ATOL, BF16_RTOL)
     worst = max(worst, ratio)
-    say(f"[kernel] backward F=256: max |SpmmStrip grad - plain autograd grad| "
+    say(f"[kernel] backward F=256: max |spmm_strip grad - plain autograd grad| "
         f"{err:.3g}, {ratio:.3f} of the tolerance")
     check(hk.grad.dtype == torch.bfloat16, "backward did not return the primal dtype")
-    check(ratio <= 1.0, "SpmmStrip backward disagrees with the plain version's autograd")
+    check(ratio <= 1.0, "spmm_strip backward disagrees with the plain version's autograd")
     return err_main
 
 
@@ -255,14 +269,14 @@ def phase_train(torch, trainer):
     return launches
 
 
-def phase_profile(torch, trainer, steps=3):
+def phase_profile(torch, trainer, steps=3, tag="profile"):
     """``--profile``: device time by kernel over a few training steps
-    (``torch.profiler``), and the device's busy share of that window."""
+    (``torch.profiler``), the device's busy share of that window, and the
+    host's self time by operator. The steps' launches are not counted."""
     from torch.profiler import ProfilerActivity, profile
 
-    from adaqp_tpu_torch.ops import spmm_strip as ss
-
-    saved = ss.strip_spmm.launches
+    wrappers = _wrappers()
+    saved = {k: w.launches for k, w in wrappers.items()}
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -270,38 +284,30 @@ def phase_profile(torch, trainer, steps=3):
             trainer._train_step(1000 + i)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    ss.strip_spmm.launches = saved  # not the main path's launches
+    for k, w in wrappers.items():
+        w.launches = saved[k]
     kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
     busy = {}
     for e in kernels:
         busy[e.name] = busy.get(e.name, 0.0) + e.time_range.elapsed_us()
     total = sum(busy.values())
     check(total > 0, "the profiler saw no device time")
-    say(f"[profile] {steps} training steps: wall {wall_us / 1e3:.1f} ms, device busy "
+    say(f"[{tag}] {steps} training steps: wall {wall_us / 1e3:.1f} ms, device busy "
         f"{total / 1e3:.1f} ms ({100 * total / wall_us:.1f}%), {len(kernels)} device events")
     for name, us in sorted(busy.items(), key=lambda kv: -kv[1])[:10]:
-        say(f"[profile] {us / 1e3:9.3f} ms {100 * us / total:5.1f}%  {name[:100]}")
+        say(f"[{tag}] device {us / 1e3:9.3f} ms {100 * us / total:5.1f}%  {name[:100]}")
+    host = {e.key: e.self_cpu_time_total for e in prof.key_averages() if e.self_cpu_time_total > 0}
+    for name, us in sorted(host.items(), key=lambda kv: -kv[1])[:5]:
+        say(f"[{tag}] host   {us / 1e3:9.3f} ms  {name[:100]}")
 
 
 def tile_csr(torch, lay, dtype):
-    """The layout's dense-tile edges as a CSR matrix (library yardstick)."""
-    dev = lay.masks.device
-    blk = lay.blk_ptr.long()
-    t = int(blk[-1])
-    tile_dst = torch.repeat_interleave(torch.arange(blk.numel() - 1, device=dev), blk.diff())
-    shifts = torch.arange(16, dtype=torch.int32, device=dev)
-    rows, cols = [], []
-    for s in range(0, t, 64):
-        e = min(s + 64, t)
-        words = lay.masks[s:e].int() & 0xFFFF
-        bits = ((words[..., None] >> shifts) & 1).transpose(2, 3).reshape(e - s, 256, 2048)
-        ti, r, j = bits.nonzero(as_tuple=True)
-        rows.append(tile_dst[s + ti] * 256 + r)
-        cols.append(lay.tile_src[s + ti].long() + j)
-    idx = torch.stack([torch.cat(rows), torch.cat(cols)])
-    vals = torch.ones(idx.shape[1], dtype=dtype, device=dev)
-    coo = torch.sparse_coo_tensor(idx, vals, (lay.n_pad, lay.n_src_pad)).coalesce()
-    return coo.to_sparse_csr(), idx.shape[1]
+    """The edges a tile layout's kernel part covers, as a CSR matrix of ones
+    (the library yardstick), and their count."""
+    dst, src = _layout_coo(torch, lay)
+    vals = torch.ones(dst.numel(), dtype=dtype, device=dst.device)
+    coo = torch.sparse_coo_tensor(torch.stack([dst, src]), vals, (lay.n_pad, lay.n_src_pad))
+    return coo.coalesce().to_sparse_csr(), dst.numel()
 
 
 def phase_time(torch, trainer, card):
@@ -673,6 +679,446 @@ def phase_time_quant(torch, card, lanes):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the block, compact and segment aggregations (spmm_impl=block|compact|segment)
+# ---------------------------------------------------------------------------
+
+# ogbn-products (OGB): 2,449,029 nodes, 123,718,280 directed edges with
+# self-loops, 100 features, 47 classes
+PRODUCTS_N, PRODUCTS_E, PRODUCTS_F, PRODUCTS_C = 2_449_029, 123_718_280, 100, 47
+TILE_KERNELS = ("strip_spmm", "block_spmm", "compact_spmm")
+# each impl's first-layer width (its feature padding of the 100 features)
+LAYER0_F = {"strip": 128, "block": 128, "compact": 384, "segment": 100}
+
+
+def _wrappers():
+    """name -> kernel wrapper of every aggregation kernel."""
+    from adaqp_tpu_torch.ops import spmm_block as sb
+    from adaqp_tpu_torch.ops import spmm_compact as sc
+    from adaqp_tpu_torch.ops import spmm_strip as ss
+
+    return {"strip_spmm": ss.strip_spmm, "block_spmm": sb.block_spmm,
+            "compact_spmm": sc.compact_spmm, "gather_rows": sc.gather_rows}
+
+
+def _tile_kernels():
+    """spmm_impl -> (kernel name, wrapper, plain version) of each tile path."""
+    from adaqp_tpu_torch.ops import spmm_block as sb
+    from adaqp_tpu_torch.ops import spmm_compact as sc
+    from adaqp_tpu_torch.ops import spmm_strip as ss
+
+    return {"strip": ("strip_spmm", ss.strip_spmm, ss._run_strip_torch),
+            "block": ("block_spmm", sb.block_spmm, sb._run_block_torch),
+            "compact": ("compact_spmm", sc.compact_spmm, sc._run_compact_torch)}
+
+
+def _tiered_edges(rng, n, n_src, e):
+    """Edges that give a compact layout all three tiers: dense regions on
+    the diagonal windows of the first half of the rows (full tiles), a hot
+    set of 1,500 source columns there too (compact subtiles, several to a
+    region), and a sprinkle over the second half (the ELL tail)."""
+    import numpy as np
+
+    d1 = rng.integers(0, n // 2, e)
+    s1 = np.minimum((d1 // 2048) * 2048 + rng.integers(0, 2048, e), n_src - 1)
+    d2 = rng.integers(0, n // 2, e // 2)
+    hot = rng.integers(0, n_src, 1500)
+    s2 = hot[rng.integers(0, 1500, e // 2)]
+    d3 = rng.integers(n // 2, n, e // 40)
+    s3 = rng.integers(0, n_src, e // 40)
+    return (np.concatenate([s1, s2, s3]).astype(np.int32),
+            np.concatenate([d1, d2, d3]).astype(np.int32))
+
+
+def _tolerance(torch, dtype):
+    return (BF16_ATOL, BF16_RTOL) if dtype == torch.bfloat16 else (F32_ATOL, F32_RTOL)
+
+
+def _hold(torch, gen, tag, wrapper, plain, lay, f, dtype, phase):
+    """Run ``wrapper`` (one launch, not counted) and ``plain`` on the same
+    random ``h``; fail unless they agree within the dtype's tolerance."""
+    h = torch.randn(lay.n_src_pad, f, generator=gen, device="cuda").to(dtype)
+    saved = wrapper.launches
+    got = wrapper(lay, h)
+    torch.cuda.synchronize()
+    check(wrapper.launches == saved + 1, f"{tag}: the kernel did not launch")
+    wrapper.launches = saved
+    want = plain(lay, h)
+    atol, rtol = _tolerance(torch, dtype)
+    err, ratio = compare(torch, got, want, atol, rtol)
+    say(f"[{phase}] {tag} F={f} {str(dtype)[6:]}: max |kernel - plain| {err:.3g}, "
+        f"{ratio:.3f} of the tolerance ({atol:g} + {rtol:g} |plain|)")
+    check(got.dtype == dtype and got.shape == want.shape, f"{tag}: dtype or shape")
+    check(ratio <= 1.0, f"{tag} F={f}: kernel disagrees with the plain version")
+    return got, err
+
+
+def _hold_backward(torch, gen, tag, spmm, plain, fwd, rev, f, phase):
+    """The autograd function (kernel forward and, on the reverse layout,
+    kernel backward) against autograd through the plain version; bf16."""
+    h0 = torch.randn(fwd.n_src_pad, f, generator=gen, device="cuda").to(torch.bfloat16)
+    g = torch.randn(fwd.n_pad, f, generator=gen, device="cuda")
+    hk = h0.clone().requires_grad_()
+    (spmm(fwd, hk, rev).float() * g).sum().backward()
+    hp = h0.clone().requires_grad_()
+    (plain(fwd, hp.float()).to(torch.bfloat16).float() * g).sum().backward()
+    torch.cuda.synchronize()
+    err, ratio = compare(torch, hk.grad, hp.grad, BF16_ATOL, BF16_RTOL)
+    say(f"[{phase}] {tag} backward F={f}: max |grad - plain autograd grad| {err:.3g}, "
+        f"{ratio:.3f} of the tolerance")
+    check(hk.grad.dtype == torch.bfloat16, f"{tag}: backward did not return the primal dtype")
+    check(ratio <= 1.0, f"{tag}: backward disagrees with the plain version's autograd")
+
+
+def phase_agg(torch, seed):
+    """block_spmm, compact_spmm and gather_rows against their plain versions
+    on small layouts of every shape the paths give them: square forward and
+    reverse, rectangular (halo-shaped), empty; a compact layout with full
+    tiles, subtile groups and an ELL tail, and one of groups only; bf16 and
+    f32; and each through its autograd backward."""
+    import numpy as np
+
+    from adaqp_tpu_torch.ops import spmm_block as sb
+    from adaqp_tpu_torch.ops import spmm_compact as sc
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    n, n_src = 8192, 6144
+    src, dst = _tiered_edges(rng, n, n, 150_000)
+    rs, rd = _tiered_edges(rng, 4096, n_src, 60_000)
+    e0 = np.zeros(0, np.int32)
+    errs = {"block_spmm": 0.0, "compact_spmm": 0.0, "gather_rows": 0.0}
+
+    def cases(name, wrapper, plain, lays):
+        for tag, lay in lays:
+            for dtype in (torch.bfloat16, torch.float32):
+                for f in (128, 384):
+                    out, err = _hold(torch, gen, f"{name} {tag}", wrapper, plain, lay, f,
+                                     dtype, "agg")
+                    errs[name] = max(errs[name], err)
+                    if tag.startswith("empty"):
+                        check(not out.any(), f"{name} {tag}: the empty layout did not give zeros")
+
+    block = [
+        ("forward", sb.block_layout(src, dst, n, min_edges=64)),
+        ("reverse", sb.block_layout(dst, src, n, min_edges=64)),
+        (f"rectangular 4096x{n_src}", sb.block_layout(rs, rd, 4096, min_edges=64, n_src=n_src)),
+        ("empty 2048x4096", sb.block_layout(e0, e0, 2048, n_src=4096)),
+    ]
+    check(block[2][1].masks.any(), "the rectangular block layout has no set bit")
+    cases("block_spmm", sb.block_spmm, sb._run_block_torch,
+          [(t, lay.to_device("cuda")) for t, lay in block])
+
+    tiers = sc.compact_layout(src, dst, n)
+    kinds = np.bincount(tiers.kind[tiers.masks.reshape(len(tiers.kind), -1).any(1)], minlength=2)
+    say(f"[agg] compact three-tier layout: {kinds[0]} full items, {kinds[1]} groups, "
+        f"ELL tail {tiers.straggler is not None}; subtile slots used "
+        f"{np.bincount(tiers.nsub[tiers.kind == 1], minlength=9)[1:].tolist()}")
+    check(kinds[0] > 0 and kinds[1] > 0 and tiers.straggler is not None,
+          "the compact layout lacks a tier")
+    shared = sum(len(set(d[:k])) < k for d, k in zip(tiers.dst_off[tiers.kind == 1],
+                                                      tiers.nsub[tiers.kind == 1]))
+    check(shared > 0, "no compact group holds two subtiles with one target")
+    groups = sc.compact_layout(src, dst, n, full_cols=2048)
+    check(not groups.masks[groups.kind == 0].any(), "the all-groups layout holds a full tile")
+    rect = sc.compact_layout(rs, rd, 4096, n_src=n_src)
+    check((rect.kind == 1).any(), "the rectangular compact layout holds no group")
+    cases("compact_spmm", sc.compact_spmm, sc._run_compact_torch, [
+        ("three-tier", tiers.to_device("cuda")),
+        ("all groups (full_cols 2048)", groups.to_device("cuda")),
+        (f"rectangular 4096x{n_src}", rect.to_device("cuda")),
+        ("empty 2048x4096", sc.compact_layout(e0, e0, 2048, n_src=4096).to_device("cuda")),
+    ])
+
+    # backward: the tile parts only (no ELL edges), summed in f32 by both
+    fwd = sb.block_layout(src, dst, n, min_edges=1).to_device("cuda")
+    rev = sb.block_layout(dst, src, n, min_edges=1).to_device("cuda")
+    check(fwd.straggler is None and rev.straggler is None, "backward layouts have ELL edges")
+    _hold_backward(torch, gen, "spmm_block", sb.spmm_block, sb._run_block_torch, fwd, rev, 256,
+                   "agg")
+    fwd = sc.compact_layout(src, dst, n, me_ell=1).to_device("cuda")
+    rev = sc.compact_layout(dst, src, n, me_ell=1).to_device("cuda")
+    check(fwd.straggler is None and rev.straggler is None, "backward layouts have ELL edges")
+    _hold_backward(torch, gen, "spmm_compact", sc.spmm_compact, sc._run_compact_torch, fwd, rev,
+                   256, "agg")
+
+    # the row gather, bit for bit, at the probe's shape and a ragged one
+    for r, c in ((2048, 128), (1000, 37)):
+        x = torch.randn(r, c, generator=gen, device="cuda")
+        idx = torch.randint(0, r, (r, c), generator=gen, device="cuda", dtype=torch.int32)
+        saved = sc.gather_rows.launches
+        got = sc.gather_rows(x, idx)
+        torch.cuda.synchronize()
+        check(sc.gather_rows.launches == saved + 1, "gather_rows did not launch")
+        sc.gather_rows.launches = saved
+        want = torch.take_along_dim(x, idx.long(), dim=0)
+        errs["gather_rows"] = max(errs["gather_rows"], float((got - want).abs().max()))
+        say(f"[agg] gather_rows [{r}, {c}]: max |kernel - take_along_dim| "
+            f"{float((got - want).abs().max()):g}")
+        check(torch.equal(got, want), "gather_rows differs from torch.take_along_dim")
+    return errs
+
+
+def phase_e2e_agg(torch, seed):
+    """K=2 on the SBM, f32, Vanilla, for block, compact and segment: two
+    ranks on the card over gloo against the same ranks on the CPU."""
+    import numpy as np
+
+    from adaqp_tpu_torch.comm.distributed import spawn
+
+    impls = ("block", "compact", "segment")
+    runs = {}
+    for device in ("cuda", "cpu"):
+        configs = [{
+            "num_parts": 2, "mode": "Vanilla", "spmm_impl": impl, "num_epochs": 6,
+            "hidden_dim": 32, "dropout_rate": 0.0, "log_steps": 100, "block_min_edges": 64,
+            "compact_me_ell": 16, "logger_level": "WARNING",
+            "synth_kwargs": {"n": 1200, "blocks": 4, "num_feats": 16, "seed": seed},
+            "partition_dir": os.path.join(WORK, f"e2eagg_parts_{device}"),
+            "exp_path": os.path.join(WORK, "e2eagg_exp"),
+        } for impl in impls]
+        res = spawn(_e2e_worker, 2, device, args=(configs,),
+                    workdir=os.path.join(WORK, "launch"), timeout_s=240)
+        for i, impl in enumerate(impls):
+            curves = [np.asarray(r[i]) for r in res]
+            check(np.array_equal(curves[0], curves[1]), f"{device} {impl}: ranks disagree on the loss")
+            runs[(device, impl)] = curves[0]
+    tol = 1e-5  # the e2e_k limit: f32 sums in another order, nothing more
+    for impl in impls:
+        card, cpu = runs[("cuda", impl)], runs[("cpu", impl)]
+        rel = float(np.max(np.abs(card - cpu) / np.abs(cpu)))
+        say(f"[e2e_agg] K=2 f32 SBM-1200 Vanilla spmm_impl={impl}: card losses "
+            f"{np.round(card, 5).tolist()}")
+        say(f"[e2e_agg] {impl}: max relative difference to the CPU run {rel:.2e} (limit {tol:g})")
+        check(np.isfinite(card).all() and card[-1] < card[0], f"{impl}: the loss did not fall")
+        check(rel <= tol, f"{impl}: card and CPU K=2 runs disagree")
+
+
+def _eval_loss(torch, t):
+    """The training loss of the current parameters in evaluation mode (no
+    dropout), without a step."""
+    from adaqp_tpu_torch.model.gnn import apply_gnn
+    from adaqp_tpu_torch.model.loss import masked_loss_sum
+
+    with torch.no_grad():
+        logits, _ = apply_gnn(t.params, t.sh, t.static, False, t.blocks)
+        loss = masked_loss_sum(logits, t.sh.labels, t.sh.train_mask, t.static.multilabel)
+    return float(loss) / t.train_count
+
+
+def _ell_edges(lay):
+    if lay.straggler is None:
+        return 0
+    return sum(int(lens[rows < lay.straggler.n].sum()) for _, rows, _, lens in lay.straggler.buckets)
+
+
+def phase_train_agg(torch, args):
+    """The ogbn-products-width GCN (100 -> 256 -> 256 -> 47, 3 layers, bf16
+    aggregation, LayerNorm, dropout 0.5, Adam lr 0.01) at K=1 through each
+    aggregation in turn, from the same initial parameters: strip, block,
+    compact, segment. Each run is the Trainer's construction and training;
+    the launch counts of that window must be what the path implies. After
+    each run its kernel is held against its plain version on the run's own
+    layouts at the path's widths."""
+    import dataclasses
+
+    import numpy as np
+
+    from adaqp_tpu_torch.helper.dataset import synth_reddit
+    from adaqp_tpu_torch.ops import spmm_compact as sc
+    from adaqp_tpu_torch.trainer import RunConfig, Trainer
+
+    n = args.nodes_agg
+    e = round(n * PRODUCTS_E / PRODUCTS_N)
+    t0 = time.perf_counter()
+    g = synth_reddit(n, e, PRODUCTS_F, PRODUCTS_C, seed=SEED, device="cuda")
+    say(f"[train_agg] products-degree banded graph: {n} nodes, {e} unique directed edges "
+        f"(mean degree {e / n:.2f}), {PRODUCTS_F} features, {PRODUCTS_C} classes: "
+        f"{time.perf_counter() - t0:.1f} s")
+    base = RunConfig.from_yaml("ogbn-products", {
+        "num_parts": 1, "mode": "Vanilla", "num_epochs": args.epochs_agg, "log_steps": 1,
+        "partition_dir": os.path.join(WORK, "agg_parts"), "exp_path": os.path.join(WORK, "agg_exp"),
+        "seed": SEED, "logger_level": "WARNING",
+    })
+    check((base.num_layers, base.hidden_dim, base.dropout_rate, base.use_norm,
+           base.learning_rate, base.agg_dtype) == (3, 256, 0.5, True, 0.01, "bfloat16"),
+          "ogbn-products.yaml no longer holds the products GCN settings")
+    wrappers = _wrappers()
+    tiles = _tile_kernels()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    init, out = None, {}
+    for impl in ("strip", "block", "compact", "segment"):
+        cfg = dataclasses.replace(base, spmm_impl=impl)
+        # the main path: the Trainer's construction (the compact gate probes
+        # the row gather once a process) and its training
+        sc.dynamic_gather_supported.cache_clear()
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        t = Trainer(cfg, graph=g)
+        setup_s = time.perf_counter() - t0
+        params = [{k: v.detach().cpu().numpy().copy() for k, v in layer.items()}
+                  for layer in t.params]
+        if init is None:
+            init = params
+        # one set of initial parameters: the first weight's rows past the
+        # 100 features are zero-padded or cut to this run's f_pad
+        w0 = np.zeros_like(params[0]["w"])
+        rows = min(len(w0), len(init[0]["w"]))
+        w0[:rows] = init[0]["w"][:rows]
+        t.load_params([{**init[0], "w": w0}] + init[1:])
+        saved = {k: w.launches for k, w in wrappers.items()}
+        loss0 = _eval_loss(torch, t)
+        for k, w in wrappers.items():
+            w.launches = saved[k]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rec = t.train()
+        torch.cuda.synchronize()
+        launches = {k: w.launches for k, w in wrappers.items()}
+        losses = rec["loss_curve"]
+        fl = t.blocks.devices()[0] if t.blocks is not None else None
+        ell = _ell_edges(fl) if fl is not None else 0
+        say(f"[train_agg] {impl}: set-up {setup_s:.1f} s, f_pad {t.static.f_pad}, eval loss "
+            f"before a step {loss0:.6f}; losses {np.round(losses, 4).tolist()}")
+        say(f"[train_agg] {impl}: median step {rec['per_epoch'] * 1e3:.2f} ms; peak "
+            f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+            f"launches {launches} (planned tile launches {rec['planned_tile_launches']})")
+        if fl is not None:
+            units = t.blocks.counts[0][0]
+            say(f"[train_agg] {impl}: forward local layout {units} "
+                f"{'items' if impl == 'compact' else 'tiles'}, ELL edges {ell} "
+                f"({100 * ell / e:.2f}% of the edges)")
+        check(np.isfinite(losses).all() and losses[-1] < losses[0], f"{impl}: the loss did not fall")
+        for k in TILE_KERNELS:
+            want = rec["planned_tile_launches"] if impl in tiles and k == tiles[impl][0] else 0
+            check(launches[k] == want, f"{impl}: {k} launched {launches[k]} times, expected {want}")
+        check(impl == "segment" or rec["planned_tile_launches"] > 0, f"{impl}: no tile launch planned")
+        check(launches["gather_rows"] == (1 if impl == "compact" else 0),
+              f"{impl}: gather_rows launched {launches['gather_rows']} times")
+        if args.profile:
+            phase_profile(torch, t, tag=f"train_agg {impl} profile")
+        res = {"loss0": loss0, "launches": launches, "step_ms": rec["per_epoch"] * 1e3}
+        if impl == "compact":
+            t_items = int(fl.item_ptr[-1])
+            kinds = torch.bincount(fl.kind[:t_items].long(), minlength=2).tolist()
+            say(f"[train_agg] compact forward local: {kinds[0]} full items, {kinds[1]} groups "
+                f"(fill {float(fl.nsub[:t_items][fl.kind[:t_items] == 1].float().mean()):.2f} "
+                f"of 8 slots)")
+            check(kinds[0] > 0 and kinds[1] > 0 and ell > 0,
+                  "the products compact layout lacks a tier")
+        if fl is not None:
+            # the kernel against its plain version on this run's layouts
+            bl = t.blocks.devices()[1]
+            name, wrapper, plain = tiles[impl]
+            _, res["err"] = _hold(torch, gen, f"{name} forward local", wrapper, plain, fl,
+                                  LAYER0_F[impl], torch.bfloat16, "train_agg")
+            _hold(torch, gen, f"{name} forward local", wrapper, plain, fl, 256,
+                  torch.bfloat16, "train_agg")
+            _hold(torch, gen, f"{name} reverse local", wrapper, plain, bl, 256,
+                  torch.bfloat16, "train_agg")
+            res["layout"] = fl
+        out[impl] = res
+        del t
+        torch.cuda.empty_cache()
+    l0 = {k: v["loss0"] for k, v in out.items()}
+    rel = max(abs(v - l0["strip"]) / abs(l0["strip"]) for v in l0.values())
+    say(f"[train_agg] eval loss before a step, same parameters: {l0}; largest relative "
+        f"difference to strip {rel:.2e} (limit {AGG_LOSS0_RTOL:g})")
+    check(rel <= AGG_LOSS0_RTOL, "the aggregations disagree on the same parameters")
+    return out
+
+
+def _layout_coo(torch, lay):
+    """(dst, src) of the edges a tile layout's kernel part covers."""
+    from adaqp_tpu_torch.ops import spmm_block as sb
+    from adaqp_tpu_torch.ops import spmm_compact as sc
+
+    dev = lay.masks.device
+    if isinstance(lay, sc.CompactDevice):
+        ptr = lay.item_ptr.long()
+        starts = lay.src_start
+    else:
+        ptr = lay.blk_ptr.long()
+        starts = lay.tile_src if hasattr(lay, "tile_src") else lay.src_start
+    owner = torch.repeat_interleave(torch.arange(ptr.numel() - 1, device=dev), ptr.diff())
+    rows, cols = [], []
+    for s in range(0, owner.numel(), 64):
+        e = min(s + 64, owner.numel())
+        ti, r, v = sb.expand_masks(lay.masks[s:e]).nonzero(as_tuple=True)
+        it = s + ti
+        if isinstance(lay, sc.CompactDevice):
+            grp = lay.kind[it] == 1
+            col = torch.where(grp, lay.col_idx[it, v].long(), v)
+            slot = torch.where(grp, v // sc.CSUB, 0)
+            rows.append(owner[it] * sc.STRIP + lay.dst_off[it, slot].long() + r)
+        else:
+            col = v
+            rows.append(owner[it] * sb.BD + r)
+        cols.append(starts[it].long() + col)
+    return torch.cat(rows), torch.cat(cols)
+
+
+def phase_time_agg(torch, card, runs):
+    """The three tile kernels on the products forward local layout at F=256
+    and at each one's layer-0 width, and gather_rows at the probe's shape,
+    each beside its bound, its plain version and a library call."""
+    from adaqp_tpu_torch.ops import spmm_compact as sc
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rows = {}
+    for impl, (name, w, plain) in _tile_kernels().items():
+        lay = runs[impl]["layout"]
+        csr, nnz = tile_csr(torch, lay, torch.bfloat16)
+        h_rows = int(torch.unique(csr.col_indices()).numel())
+        for f in sorted({256, LAYER0_F[impl]}):
+            h = torch.randn(lay.n_src_pad, f, generator=gen, device="cuda").to(torch.bfloat16)
+            saved = w.launches
+            ms = cuda_ms(torch, lambda: w(lay, h), reps=20)
+            w.launches = saved
+            plain_ms = cuda_ms(torch, lambda: plain(lay, h), reps=2, warmup=1)
+            lib_ms = cuda_ms(torch, lambda: torch.sparse.mm(csr, h), reps=20)
+            # each input once (masks, index arrays, the h rows the edges
+            # read), the output once
+            ptr = lay.item_ptr if impl == "compact" else lay.blk_ptr
+            units = int(ptr[-1])
+            idx_bytes = units * 4 + ptr.numel() * 4  # src_start, pointers
+            if impl == "compact":  # kind, nsub, dst_off; col_idx of the groups
+                groups = int((lay.kind[:units] == 1).sum())
+                idx_bytes += units * (2 * 4 + 8 * 4) + groups * 2048 * 4
+            nbytes = units * 256 * 128 * 2 + idx_bytes + h_rows * f * 2 + lay.n_pad * f * 2
+            flops = 2.0 * nnz * f
+            bytes_ms, ops_ms = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_BF16_FLOP_S * 1e3
+            bound_ms = max(bytes_ms, ops_ms)
+            bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+            say(f"[time] {card} | {name} products forward local F={f} bf16: {units} "
+                f"{'items' if impl == 'compact' else 'tiles'}, {nnz} covered edges, "
+                f"{h_rows} source rows read")
+            say(f"[time] {card} | {name} F={f}: kernel {ms:.4f} ms; bound {bound_ms:.4f} ms by "
+                f"{bound_by} ({nbytes / 1e9:.4f} GB, {flops / 1e12:.5f} TFLOP); plain "
+                f"{plain_ms:.2f} ms; torch.sparse.mm {lib_ms:.4f} ms (bf16 CSR of the covered edges)")
+            rows[(name, f)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                   bound_by=bound_by, library_ms=lib_ms)
+        del csr
+    x = torch.randn(2048, 128, generator=gen, device="cuda")
+    i = torch.randint(0, 2048, (2048, 128), generator=gen, device="cuda", dtype=torch.int32)
+    il = i.long()
+    saved = sc.gather_rows.launches
+    # the launch alone: the wrapper's index range check reads idx back
+    ms = cuda_ms(torch, lambda: sc._launch_gather_rows(x, i), reps=20)
+    sc.gather_rows.launches = saved
+    plain_ms = cuda_ms(torch, lambda: torch.take_along_dim(x, il, dim=0), reps=20)
+    nbytes = 3 * x.numel() * 4
+    bound_ms = nbytes / PEAK_BYTES_S * 1e3
+    say(f"[time] {card} | gather_rows [2048, 128] f32: kernel {ms:.4f} ms; bound {bound_ms:.5f} ms by bytes ({nbytes / 1e6:.2f} MB); "
+        f"torch.take_along_dim {plain_ms:.4f} ms (the plain version and the library call)")
+    rows[("gather_rows", 128)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                      bound_by="bytes", library_ms=plain_ms)
+    return rows
+
+
+
 def main():
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--full", action="store_true",
@@ -683,11 +1129,16 @@ def main():
     p.add_argument("--nodes_k", type=int, default=32_768, help="nodes of the K=4 graph")
     p.add_argument("--epochs_k", type=int, default=12,
                    help="AdaQP epochs at K=4 (reassignment at 6 and 11 with a cycle of 5)")
+    p.add_argument("--nodes_agg", type=int, default=131_072,
+                   help="nodes of the products-degree graph of train_agg")
+    p.add_argument("--epochs_agg", type=int, default=8, help="epochs of each train_agg run")
     p.add_argument("--only", type=str, default=None,
-                   help="comma-separated phases to run (quant, e2e, e2e_k, k1, train_k); "
-                        "build always runs, and the result lines print only for a full run")
+                   help="comma-separated phases to run (agg, quant, e2e, e2e_k, k1, train_k, "
+                        "e2e_agg, train_agg); build always runs, and the result lines print "
+                        "only for a full run")
     p.add_argument("--profile", action="store_true",
-                   help="also trace a few K=1 training steps with torch.profiler")
+                   help="also trace a few K=1 training steps with torch.profiler (the "
+                        "Reddit run and each train_agg run)")
     args = p.parse_args()
     only = None if args.only is None else set(args.only.split(","))
     try:
@@ -713,6 +1164,7 @@ def main():
         return only is None or name in only
 
     run("build", phase_build)
+    agg_errs = run("agg", phase_agg, torch, SEED) if want("agg") else None
     pack_err, quant_err = run("quant", phase_quant, torch, SEED) if want("quant") else (None, None)
     if want("e2e"):
         run("e2e", phase_e2e, torch, SEED)
@@ -731,19 +1183,27 @@ def main():
         k4 = run("train_k", phase_train_k, torch, args)
         lanes = k4["AdaQP"][0]["lanes"]
         qtimes = run("time", phase_time_quant, torch, card, lanes)
+    if want("e2e_agg"):
+        run("e2e_agg", phase_e2e_agg, torch, SEED)
+    if want("train_agg"):
+        agg = run("train_agg", phase_train_agg, torch, args)
+        atimes = run("time", phase_time_agg, torch, card, agg)
     if only is not None:
         say("[done] partial run (--only): no result lines")
         return
     k4_strip = sum(r["launches"][0] for r in k4["AdaQP"])
     k4_q = sum(r["launches"][1] for r in k4["AdaQP"])
     k4_u = sum(r["launches"][2] for r in k4["AdaQP"])
-    say(f"[result] strip_spmm launches: K=1 train {launches}, K=4 AdaQP train {k4_strip} (all ranks)")
+    agg_l = {k: sum(r["launches"][k] for r in agg.values()) for k in _wrappers()}
+    say(f"[result] strip_spmm launches: K=1 train {launches}, K=4 AdaQP train {k4_strip} "
+        f"(all ranks), products train {agg_l['strip_spmm']}")
     say(card)
     say(json.dumps({"kernels": [
         {"name": "strip_spmm", "route": "cuda",
          "source": "adaqp_tpu_torch/csrc/spmm_strip.cu",
          "replaces": "adaqp_tpu/ops/spmm_strip.py:277",
-         "launches": launches + k4_strip, "max_abs_err": err, **times[640]},
+         "launches": launches + k4_strip + agg_l["strip_spmm"], "max_abs_err": err,
+         **times[640]},
         {"name": "quant_pack", "route": "cuda",
          "source": "adaqp_tpu_torch/csrc/quant_pack.cu",
          "replaces": "adaqp_tpu/ops/quant_pallas.py:103",
@@ -752,6 +1212,21 @@ def main():
          "source": "adaqp_tpu_torch/csrc/quant_pack.cu",
          "replaces": "adaqp_tpu/ops/quant_pallas.py:202",
          "launches": k4_u, "max_abs_err": quant_err, **qtimes[640][1]},
+        {"name": "block_spmm", "route": "cuda",
+         "source": "adaqp_tpu_torch/csrc/spmm_block.cu",
+         "replaces": "adaqp_tpu/ops/spmm_block.py:248",
+         "launches": agg_l["block_spmm"], "max_abs_err": agg["block"]["err"],
+         **atimes[("block_spmm", 256)]},
+        {"name": "compact_spmm", "route": "cuda",
+         "source": "adaqp_tpu_torch/csrc/spmm_compact.cu",
+         "replaces": "adaqp_tpu/ops/spmm_compact.py:413",
+         "launches": agg_l["compact_spmm"], "max_abs_err": agg["compact"]["err"],
+         **atimes[("compact_spmm", 256)]},
+        {"name": "gather_rows", "route": "cuda",
+         "source": "adaqp_tpu_torch/csrc/spmm_compact.cu",
+         "replaces": "adaqp_tpu/ops/spmm_compact.py:93",
+         "launches": agg_l["gather_rows"], "max_abs_err": agg_errs["gather_rows"],
+         **atimes[("gather_rows", 128)]},
     ]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -26,7 +26,9 @@ def test_import_leaves_jax_out():
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
         "             or k == 'adaqp_tpu' or k.startswith('adaqp_tpu.'))\n"
         "need = ['adaqp_tpu_torch.__main__', 'adaqp_tpu_torch.comm.exchange_ragged',\n"
-        "        'adaqp_tpu_torch.ops.quant_cuda', 'adaqp_tpu_torch.assigner.profile']\n"
+        "        'adaqp_tpu_torch.ops.quant_cuda', 'adaqp_tpu_torch.assigner.profile',\n"
+        "        'adaqp_tpu_torch.ops.spmm_compact', 'adaqp_tpu_torch.graph.compact_shards',\n"
+        "        'adaqp_tpu_torch.ops.spmm']\n"
         "assert all(m in sys.modules for m in need), need\n"
         "print(len([k for k in sys.modules if k.startswith('adaqp_tpu_torch.')]), bad)\n"
     )
@@ -81,9 +83,8 @@ def test_entry_points_need_a_card_unless_cpu_is_asked(tmp_path):
 
 @pytest.mark.parametrize("over,what", [
     ({"wire_impl": "padded"}, "wire_impl=padded"),
-    ({"spmm_impl": "segment"}, "spmm_impl=segment"),
-    ({"spmm_impl": "block"}, "spmm_impl=block"),
     ({"ckpt_every": 5}, "checkpointing"),
+    ({"resume": True}, "checkpointing"),
 ])
 def test_unported_options_raise(tmp_path, over, what):
     cfg = RunConfig.from_yaml("sbm", {
@@ -91,6 +92,20 @@ def test_unported_options_raise(tmp_path, over, what):
     })
     with pytest.raises(NotImplementedError, match=what):
         Trainer(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("impl", ["block", "compact"])
+def test_tile_kernels_refuse_other_devices(impl):
+    # as strip_spmm: a CPU tensor takes the plain version, a CUDA one the
+    # kernel, and any other device raises
+    import importlib
+
+    mod = importlib.import_module(f"adaqp_tpu_torch.ops.spmm_{impl}")
+    e = np.zeros(0, np.int32)
+    lay = getattr(mod, f"{impl}_layout")(e, e, 2048).to_device("cpu")
+    wrapper = getattr(mod, f"{impl}_spmm")
+    with pytest.raises(ValueError, match=f"no {impl} SpMM"):
+        wrapper(lay, torch.ones(lay.n_src_pad, 8, device="meta"))
 
 
 def test_nccl_needs_a_card_per_rank(tmp_path, monkeypatch):

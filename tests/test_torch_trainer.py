@@ -1,12 +1,16 @@
 """The port's K=1 Trainer against the JAX package's, on the CPU.
 
 Both train the same SBM graph from the same initial parameters (the JAX
-init carried across) with f32 aggregation and no dropout. The JAX side runs
+init carried across, with each aggregation's own first-weight shape) with
+f32 aggregation and no dropout. For the port's strip run the JAX side runs
 ``spmm_impl="block"``: it pads like the strip path (2048 rows / 128
 feature lanes), so its shapes and init match, and its portable twin handles
 the empty K=1 halo layouts (the JAX strip twin does not; see ROADMAP). The
-port runs the strip tiles (plain version on the CPU) with an ELL tail.
+port runs the strip tiles (plain version on the CPU) with an ELL tail. The
+port's block, compact and segment runs face the JAX Trainer with the same
+``spmm_impl``.
 """
+import pytest
 import os
 
 import jax
@@ -73,6 +77,25 @@ def test_matches_jax_trainer(tmp_path):
             np.testing.assert_allclose(
                 p.detach().numpy(), jlayer[name], rtol=1e-3, atol=1e-4, err_msg=name
             )
+
+
+@pytest.mark.parametrize("impl,f_pad", [("block", 128), ("compact", 384), ("segment", 16)])
+def test_impl_matches_jax_trainer(tmp_path, impl, f_pad):
+    # each impl's padding sets the first weight's shape; the JAX parameters
+    # carry across unchanged and give the same losses
+    _, jrec, init, jlosses = _jax_run(
+        _cfg(JRunConfig, tmp_path, "jax", spmm_impl=impl, dropout_rate=0.0, num_epochs=4)
+    )
+    t = Trainer(_cfg(RunConfig, tmp_path, "port", spmm_impl=impl, dropout_rate=0.0,
+                     num_epochs=4), device="cpu")
+    assert t.static.f_pad == f_pad and init[0]["w"].shape == (f_pad, 16)
+    assert tuple(t.params[0]["w"].shape) == init[0]["w"].shape
+    assert (t.blocks is None) == (impl == "segment") and (t.sh.fl_src.numel() > 0) == (impl == "segment")
+    t.load_params(init)
+    rec = t.train()
+    np.testing.assert_allclose(rec["loss_curve"], jlosses, rtol=1e-5)
+    np.testing.assert_allclose(rec["val_curve"], jrec["val_curve"], atol=1e-4)
+    assert rec["planned_tile_launches"] == (0 if impl == "segment" else 4 * 14)
 
 
 def test_bf16_learns_and_writes_reference_artifacts(tmp_path):

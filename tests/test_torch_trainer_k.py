@@ -7,7 +7,10 @@ same math overlapped), AdaQP and AdaQP-q with uniform 8-bit widths (the
 quantized wire, overlapped and serial), and AdaQP with the adaptive scheme
 and ``assign_cycle=2`` (profiling, two reassignments). The ranks import
 only torch and the port. The JAX side runs ``spmm_impl="block"``, which
-pads like the port's strip path (2048 rows, 128 feature lanes).
+pads like the port's strip path (2048 rows, 128 feature lanes). The same
+launch then trains Vanilla with ``spmm_impl`` block, compact and segment,
+each from the JAX Trainer's initial parameters for that impl (its own
+first-weight shape), against the JAX Trainer with the same impl.
 """
 import sys
 
@@ -23,6 +26,7 @@ RUNS = {
     "AdaQP-q uniform": {"mode": "AdaQP-q", "assign_scheme": "uniform"},
     "AdaQP adaptive": {"mode": "AdaQP", "assign_scheme": "adaptive", "assign_cycle": 2},
 }
+IMPLS = ("block", "compact", "segment")
 
 
 def _cfg(cls, tmp, tag, **over):
@@ -35,15 +39,18 @@ def _cfg(cls, tmp, tag, **over):
     })
 
 
-def _rank_train(rank, world, device, tmp, init):
-    """Every run of RUNS in turn on this rank; returns each run's losses,
-    parameters and reassignment count."""
+def _rank_train(rank, world, device, tmp, inits):
+    """Every run of RUNS in turn on this rank, then a Vanilla run of each of
+    IMPLS; returns each run's losses, parameters, reassignment epochs and
+    planned quant launches."""
     from adaqp_tpu_torch.trainer import RunConfig, Trainer
 
     out = {}
-    for name, over in RUNS.items():
+    runs = [(name, over, "strip") for name, over in RUNS.items()]
+    runs += [(impl, {"mode": "Vanilla", "spmm_impl": impl}, impl) for impl in IMPLS]
+    for name, over, init in runs:
         t = Trainer(_cfg(RunConfig, tmp, "port", block_min_edges=1, **over), device=device)
-        t.load_params(init)
+        t.load_params(inits[init])
         n = []
         reassign = t._reassign
         t._reassign = lambda epoch: (n.append(epoch), reassign(epoch))
@@ -88,14 +95,18 @@ def runs(tmp_path_factory):
 
     tmp = str(tmp_path_factory.mktemp("k2"))
     jt, jrec, init, jlosses = _jax_run(_cfg(JRunConfig, tmp, "jax", spmm_impl="block"))
+    inits, impl_losses = {"strip": init, "block": init}, {"block": jlosses}
+    for impl in ("compact", "segment"):
+        _, _, inits[impl], impl_losses[impl] = _jax_run(
+            _cfg(JRunConfig, tmp, f"jax_{impl}", spmm_impl=impl))
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("OMP_NUM_THREADS", "1")  # one thread a rank beside other test workers
-        res = spawn(_rank_train, 2, "cpu", args=(tmp, init), workdir=f"{tmp}/launch")
-    return jt, jrec, jlosses, res, tmp
+        res = spawn(_rank_train, 2, "cpu", args=(tmp, inits), workdir=f"{tmp}/launch")
+    return jt, jrec, jlosses, res, tmp, inits, impl_losses
 
 
 def test_vanilla_matches_jax_trainer(runs):
-    jt, jrec, jlosses, res, _ = runs
+    jt, jrec, jlosses, res, *_ = runs
     assert jt.layout.l_max == 2048 and jt.static.f_pad == 128 and jt.k == 2
     losses = res[0]["Vanilla"][0]
     assert len(losses) == len(jlosses) == EPOCHS
@@ -104,7 +115,7 @@ def test_vanilla_matches_jax_trainer(runs):
 
 @pytest.mark.parametrize("name", list(RUNS))
 def test_ranks_stay_identical_and_learn(runs, name):
-    _, _, _, res, _ = runs
+    res = runs[3]
     (l0, p0, n0, q0), (l1, p1, n1, q1) = res[0][name], res[1][name]
     np.testing.assert_array_equal(l0, l1)
     np.testing.assert_array_equal(p0.view(np.int32), p1.view(np.int32))
@@ -117,7 +128,7 @@ def test_ranks_stay_identical_and_learn(runs, name):
 @pytest.mark.parametrize("overlapped,serial", [
     ("AdaQP-p", "Vanilla"), ("AdaQP uniform", "AdaQP-q uniform")])
 def test_overlap_equals_serial(runs, overlapped, serial):
-    _, _, _, res, _ = runs
+    res = runs[3]
     for r in range(2):
         np.testing.assert_array_equal(res[r][overlapped][0], res[r][serial][0])
         np.testing.assert_array_equal(res[r][overlapped][1].view(np.int32),
@@ -125,10 +136,22 @@ def test_overlap_equals_serial(runs, overlapped, serial):
 
 
 def test_time_csv_has_a_row_per_rank(runs):
-    *_, tmp = runs
+    tmp = runs[4]
     csv = np.genfromtxt(f"{tmp}/exp_port/sbm600/2part/gcn/time/AdaQP_adaptive.csv",
                         delimiter=",", names=True)
     np.testing.assert_array_equal(csv["Worker"], [0, 1])
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+def test_impl_vanilla_matches_jax_trainer(runs, impl):
+    # the JAX parameters carry across with each impl's first-weight shape
+    res, inits, impl_losses = runs[3], runs[5], runs[6]
+    assert inits[impl][0]["w"].shape[0] == {"block": 128, "compact": 384, "segment": 16}[impl]
+    (l0, p0, n0, q0), (l1, p1, _, _) = res[0][impl], res[1][impl]
+    np.testing.assert_array_equal(l0, l1)
+    np.testing.assert_array_equal(p0.view(np.int32), p1.view(np.int32))
+    assert n0 == [] and tuple(q0) == (0, 0)
+    np.testing.assert_allclose(l0, impl_losses[impl], rtol=1e-5)
 
 
 def _plan_and_traces(seed):
