@@ -5,6 +5,7 @@
         --assign_scheme adaptive
     python -m adaqp_tpu_torch --dataset sbm --num_parts 2 --mode AdaQP --device cpu
     python -m adaqp_tpu_torch --dataset sbm --num_parts 1 --spmm_impl compact --device cpu
+    python -m adaqp_tpu_torch --dataset sbm --num_parts 2 --wire_impl padded --device cpu
 
 ``--num_parts K`` > 1 starts K ranks on this machine (one per partition;
 over nccl when there is a card for each rank, else over gloo). Under
@@ -40,6 +41,9 @@ def parse_args(argv=None):
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--spmm_impl", type=str, default=None,
                    choices=["auto", "segment", "block", "compact", "strip"])
+    p.add_argument("--wire_impl", type=str, default=None, choices=["ragged", "padded"],
+                   help="boundary-exchange wire: exact per-pair sizes (ragged) or the dense "
+                        "all-to-all at each bucket's worst-channel capacity (padded)")
     p.add_argument("--agg_dtype", type=str, default=None, choices=["float32", "bfloat16"])
     p.add_argument("--block_min_edges", type=int, default=None,
                    help="tile/ELL split threshold of the strip and block layouts")

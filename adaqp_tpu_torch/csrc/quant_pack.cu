@@ -15,11 +15,9 @@
 // (unpack_dequantize_rows_tpu): out[r, c] = q[c] / scale[r] + rmin[r] for
 // c < f_true, 0 for f_true <= c < f_pad.
 //
-// The uniforms. The TPU draws from its hardware generator; here u of
-// element (r, c) is a pure function of the launch key and (r, c):
-// h = mix32(mix32(key ^ r) ^ c), u = (h & 0xFFFFFF) * 2^-24, with mix32 the
-// lowbias32 hash. ops/quant_cuda.py::uniforms computes the same numbers in
-// PyTorch, so the plain version draws the same codes.
+// The uniforms: counter_hash.cuh (u of element (r, c) is a pure function of
+// the launch key and (r, c)); ops/quant_cuda.py::uniforms draws the same
+// numbers in PyTorch, so the plain version draws the same codes.
 //
 // Rounding. Every step rounds once, as the plain version's separate
 // PyTorch ops do: __fsub_rn, __fmul_rn, __fadd_rn (no FMA contraction,
@@ -44,32 +42,14 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "counter_hash.cuh"
+
 namespace {
 
+using adaqp::load;
+using adaqp::uniform;
+
 constexpr int kWarps = 8;  // rows (warps) per block of quant_pack
-
-__device__ __forceinline__ uint32_t mix32(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x7feb352du;
-  x ^= x >> 15;
-  x *= 0x846ca68bu;
-  x ^= x >> 16;
-  return x;
-}
-
-__device__ __forceinline__ float uniform(uint32_t key, uint32_t row, uint32_t col) {
-  const uint32_t h = mix32(mix32(key ^ row) ^ col);
-  return __uint2float_rn(h & 0xFFFFFFu) * 5.9604644775390625e-8f;  // 2^-24, exact
-}
-
-template <bool kBf16>
-__device__ __forceinline__ float load(const void* x, size_t i) {
-  if constexpr (kBf16) {
-    return __uint_as_float(static_cast<uint32_t>(static_cast<const uint16_t*>(x)[i]) << 16);
-  } else {
-    return static_cast<const float*>(x)[i];
-  }
-}
 
 template <bool kBf16>
 __global__ void __launch_bounds__(kWarps * 32)

@@ -88,6 +88,7 @@ class ShardStatic:
     spmm: str = "strip"
     edge_chunk: Optional[int] = None  # segment sum: edges per chunk (None: all at once)
     agg_dtype: str = "float32"  # aggregation compute dtype ("bfloat16" on the card)
+    wire: str = "ragged"  # the K>1 exchange's wire_impl: "ragged" or "padded"
 
 
 def shard_arrays_from_layout(layout: PartitionLayout, rank: int = 0,

@@ -4,10 +4,17 @@ reference.
 
 :func:`dist_aggregate` splits the aggregation by EDGE SOURCE into a
 local-source part and a halo-source part; the halo rows come from the
-boundary exchange (``comm/exchange_ragged.py``) over the wire plan the
-caller passes: the fp wire (Vanilla, AdaQP-p, and evaluation in every mode)
-or the quantized one (AdaQP, AdaQP-q in training). The schedule follows the
-run mode (reference ``ops.py:132-193``):
+boundary exchange on the run's wire (``wire_impl``):
+
+- ragged (``comm/exchange_ragged.py``): the caller passes the layer's wire
+  plan, the fp wire (Vanilla, AdaQP-p, and evaluation in every mode) or
+  the quantized one (AdaQP, AdaQP-q in training);
+- padded (``comm/exchange.py``): the caller passes the layer's buckets in
+  quantized training (``exchange_quant``), and None otherwise: the f32
+  exchange runs over the plan's ``send_idx``/``recv_slot``
+  (``exchange_fp``), as in the JAX package's ``dist_ops.py:150-172``.
+
+The schedule follows the run mode (reference ``ops.py:132-193``):
 
 - serial modes (Vanilla, AdaQP-q): the exchange finishes before the local
   aggregation starts (the JAX package's ``optimization_barrier``);
@@ -36,7 +43,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..comm.exchange import variance_proxy
+from ..comm.exchange import FP_BITS, padded_finish, padded_start, uniform_buckets, variance_proxy
 from ..comm.exchange_ragged import exchange_finish, exchange_start
 from ..common.types import AggregatorType, GNNType
 from ..graph.device import ShardArrays, ShardStatic, agg_torch_dtype
@@ -99,16 +106,19 @@ def dist_aggregate(
     wire=None,
     keys: Tuple[int, int] = (0, 0),
     sink: Optional[torch.Tensor] = None,
+    buckets=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Aggregate one partition's rows ``h`` [L, F] over the graph.
 
     ``blocks``: the rank's tile shards (strip, block or compact), or None
-    for the segment sum over ``sh``'s edge lists. At K>1: ``wire`` is this
-    layer's ``(fwd, bwd)`` pair of
-    :class:`~adaqp_tpu_torch.comm.wire.LocalWire` (bwd None for layer 0),
-    ``keys`` the (forward, backward) generator keys of its quantized
-    buckets, and ``sink`` a ``[r_pad]`` leaf whose gradient becomes the
-    backward variance trace (or None).
+    for the segment sum over ``sh``'s edge lists. At K>1, the exchange on
+    the wire ``cfg.wire``: ragged, ``wire`` this layer's ``(fwd, bwd)``
+    pair of :class:`~adaqp_tpu_torch.comm.wire.LocalWire` (bwd None for
+    layer 0); padded, ``buckets`` this layer's buckets of quantized
+    training, or None for the f32 exchange. ``keys`` are the
+    (forward, backward) generator keys of the quantized buckets, and
+    ``sink`` a ``[r_pad]`` leaf whose gradient becomes the backward
+    variance trace (or None).
 
     Returns ``(out [L, F], fwd_trace [K, S])``; fwd_trace is the
     per-sent-lane variance proxy (reference ``@trace_input``,
@@ -120,17 +130,26 @@ def dist_aggregate(
     pending = None
     if cfg.k == 1:
         remote = torch.zeros((cfg.r_pad, h.shape[1]), dtype=torch.float32, device=h.device)
-    else:
+    elif cfg.wire == "ragged":
         if wire is None:
-            raise ValueError("K>1 aggregation needs this layer's wire plans")
+            raise ValueError("K>1 aggregation on the ragged wire needs this layer's wire plans")
         wfwd, wbwd = wire
         pending = exchange_start(h, wfwd, keys[0], ft)
 
         def finish():
             return exchange_finish(h, sink, pending, wbwd, keys[1])
+    elif cfg.wire == "padded":
+        if buckets is None:  # the f32 exchange over the plan
+            buckets = uniform_buckets(sh.send_idx, sh.recv_slot, FP_BITS)
+        pending = padded_start(h, buckets, cfg.r_pad, keys[0], ft)
 
-        if not cfg.mode.overlapped:
-            remote, pending = finish(), None
+        def finish():
+            return padded_finish(h, sink, pending, keys[1])
+    else:
+        raise ValueError(f"unknown wire {cfg.wire!r} (ragged or padded)")
+
+    if pending is not None and not cfg.mode.overlapped:
+        remote, pending = finish(), None
 
     l = cfg.l_max
     if blocks is None:

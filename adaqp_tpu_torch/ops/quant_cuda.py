@@ -1,14 +1,17 @@
-"""The quantized wire's two kernels — ``quant_pack`` and ``unpack_dequant``.
+"""The quantized wires' kernels.
 
-``quant_pack`` replaces the JAX package's TPU kernel
-``ops/quant_pallas.py::_quant_pack_kernel`` (rows -> per-row range ->
-stochastic codes -> word-interleaved u32 words) and ``unpack_dequant``
-replaces ``_unpack_dequant_kernel`` (words -> f32 rows). Both are CUDA C++
-for ``sm_90a`` in ``csrc/quant_pack.cu``, built with ``nvcc`` at first use
-and loaded with ``ctypes``. Each wrapper launches its kernel on a CUDA
-tensor (and adds one to its ``launches`` count), runs the plain PyTorch
-version on a CPU tensor, and raises on anything else; nothing falls back
-from one to the other.
+The ragged wire's pair: ``quant_pack`` replaces the JAX package's TPU
+kernel ``ops/quant_pallas.py::_quant_pack_kernel`` (rows -> per-row range
+-> stochastic codes -> word-interleaved u32 words) and ``unpack_dequant``
+replaces ``_unpack_dequant_kernel`` (words -> f32 rows), both in
+``csrc/quant_pack.cu``. The padded dense wire's pair: ``quant_rows``
+replaces ``_quant_kernel`` (rows -> u8 codes, one per column, with the
+per-row scale and rmin) and ``dequant_rows`` replaces ``_dequant_kernel``
+(u8 codes -> f32 rows), both in ``csrc/quant_rows.cu``. All four are CUDA
+C++ for ``sm_90a``, built with ``nvcc`` at first use and loaded with
+``ctypes``. Each wrapper launches its kernel on a CUDA tensor (and adds one
+to its ``launches`` count), runs the plain PyTorch version on a CPU tensor,
+and raises on anything else; nothing falls back from one to the other.
 
 The random numbers. The TPU kernel draws from the chip's hardware
 generator, which nothing can reproduce. Here the uniform of element
@@ -36,7 +39,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from .quant import dequantize_words, pack_words, quantize_rows, to_width
+from .quant import dequantize_rows, dequantize_words, pack_words, quantize_rows, to_width
 
 _M1, _M2 = 0x7FEB352D, 0x846CA68B
 _MASK = 0xFFFFFFFF
@@ -93,6 +96,17 @@ def uniforms(key: int, n: int, f: int, device=None) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def _quant_rows_torch(x: torch.Tensor, bits: int, f_true: int, key: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    n, f = x.shape
+    return quantize_rows(x, bits, uniforms(key, n, f, x.device), f_true)
+
+
+def _dequant_rows_torch(q: torch.Tensor, scale: torch.Tensor, rmin: torch.Tensor
+                        ) -> torch.Tensor:
+    return dequantize_rows(q, scale, rmin)
+
+
 def _quant_pack_torch(x: torch.Tensor, bits: int, f_true: int, f_wire: int,
                       key: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     n, f = x.shape
@@ -122,10 +136,24 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _raise_on(lib, rc: int, what: str):
+def _rows_lib() -> ctypes.CDLL:
+    from ..utils.cuda_build import load_library
+
+    lib = load_library("quant_rows")
+    if lib.adaqp_quant_rows.argtypes is None:
+        vp, ci, cu = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
+        lib.adaqp_quant_rows.argtypes = [vp, ci, ci, ci, ci, ci, cu, vp, vp, vp, ci, vp]
+        lib.adaqp_quant_rows.restype = ci
+        lib.adaqp_dequant_rows.argtypes = [vp, vp, vp, ci, ci, vp, ci, vp]
+        lib.adaqp_dequant_rows.restype = ci
+        lib.adaqp_quant_rows_error_string.argtypes = [ci]
+        lib.adaqp_quant_rows_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _raise_on(error_string, rc: int, what: str):
     if rc:
-        raise RuntimeError(
-            f"{what} launch failed: {lib.adaqp_quant_error_string(rc).decode()}")
+        raise RuntimeError(f"{what} launch failed: {error_string(rc).decode()}")
 
 
 def _check_bits(bits: int, f_true: int, f_wire: int):
@@ -154,7 +182,7 @@ def _quant_pack_cuda(x, bits, f_true, f_wire, key):
         wpr, key & _MASK, words.data_ptr(), scale.data_ptr(), rmin.data_ptr(),
         dev.index, torch.cuda.current_stream(dev).cuda_stream,
     )
-    _raise_on(lib, rc, "quant_pack")
+    _raise_on(lib.adaqp_quant_error_string, rc, "quant_pack")
     quant_pack.launches += 1
     return words, scale, rmin
 
@@ -181,9 +209,84 @@ def _unpack_dequant_cuda(words, scale, rmin, bits, f_true, f_wire, f_pad, out):
         wpr, f_pad, out.data_ptr(), dev.index,
         torch.cuda.current_stream(dev).cuda_stream,
     )
-    _raise_on(lib, rc, "unpack_dequant")
+    _raise_on(lib.adaqp_quant_error_string, rc, "unpack_dequant")
     unpack_dequant.launches += 1
     return out
+
+
+def _quant_rows_cuda(x, bits, f_true, key):
+    if x.dim() != 2 or x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"x must be a 2-D f32 or bf16 tensor, got {x.dtype} {tuple(x.shape)}")
+    x = x.contiguous()
+    n, f = x.shape
+    dev = x.device
+    q = torch.empty((n, f), dtype=torch.uint8, device=dev)
+    scale = torch.empty(n, dtype=torch.float32, device=dev)
+    rmin = torch.empty(n, dtype=torch.float32, device=dev)
+    if n == 0:
+        return q, scale, rmin
+    lib = _rows_lib()
+    rc = lib.adaqp_quant_rows(
+        x.data_ptr(), int(x.dtype == torch.bfloat16), n, f, min(f_true, f), bits,
+        key & _MASK, q.data_ptr(), scale.data_ptr(), rmin.data_ptr(), dev.index,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(lib.adaqp_quant_rows_error_string, rc, "quant_rows")
+    quant_rows.launches += 1
+    return q, scale, rmin
+
+
+def _dequant_rows_cuda(q, scale, rmin):
+    dev = q.device
+    for name, t, dt in (("q", q, torch.uint8), ("scale", scale, torch.float32),
+                        ("rmin", rmin, torch.float32)):
+        if t.device != dev or t.dtype != dt or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous {dt} on {dev}, got {t.dtype} on {t.device}")
+    n, f = q.shape
+    if scale.shape != (n,) or rmin.shape != (n,):
+        raise ValueError("q, scale and rmin disagree in shape")
+    out = torch.empty((n, f), dtype=torch.float32, device=dev)
+    if n == 0:
+        return out
+    lib = _rows_lib()
+    rc = lib.adaqp_dequant_rows(
+        q.data_ptr(), scale.data_ptr(), rmin.data_ptr(), n, f, out.data_ptr(), dev.index,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(lib.adaqp_quant_rows_error_string, rc, "dequant_rows")
+    dequant_rows.launches += 1
+    return out
+
+
+def quant_rows(x: torch.Tensor, bits: int, f_true: int, key: int
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Rows ``x`` [N, F] (f32 or bf16) -> ``(q uint8 [N, F], scale f32 [N],
+    rmin f32 [N])`` with the uniforms of launch ``key``: the range over the
+    first ``f_true`` columns, a code for every column. N=0 launches
+    nothing.
+
+    CUDA ``x``: the kernel (one more ``quant_rows.launches`` per launch).
+    CPU ``x``: the plain version."""
+    if bits not in (2, 4, 8) or f_true <= 0:
+        raise ValueError(f"bits={bits}, f_true={f_true}: bits must be 2, 4 or 8, f_true > 0")
+    if x.device.type == "cuda":
+        return _quant_rows_cuda(x, bits, f_true, key)
+    if x.device.type == "cpu":
+        return _quant_rows_torch(x, bits, f_true, key)
+    raise ValueError(f"no quant_rows for device {x.device}")
+
+
+def dequant_rows(q: torch.Tensor, scale: torch.Tensor, rmin: torch.Tensor) -> torch.Tensor:
+    """uint8 codes ``q`` [N, F] with f32 ``scale``/``rmin`` [N] -> f32
+    ``q / scale + rmin`` [N, F]. N=0 launches nothing.
+
+    CUDA ``q``: the kernel (one more ``dequant_rows.launches`` per launch).
+    CPU ``q``: the plain version."""
+    if q.device.type == "cuda":
+        return _dequant_rows_cuda(q, scale, rmin)
+    if q.device.type == "cpu":
+        return _dequant_rows_torch(q, scale, rmin)
+    raise ValueError(f"no dequant_rows for device {q.device}")
 
 
 def quant_pack(x: torch.Tensor, bits: int, f_true: int, f_wire: int, key: int
@@ -227,3 +330,5 @@ def unpack_dequant(words: torch.Tensor, scale: torch.Tensor, rmin: torch.Tensor,
 
 quant_pack.launches = 0
 unpack_dequant.launches = 0
+quant_rows.launches = 0
+dequant_rows.launches = 0

@@ -4,12 +4,11 @@
 YAML sections mirror the reference (``AdaQP/config/*.yaml``):
 ``data`` / ``model`` / ``runtime`` / ``assignment``. The field set is the
 JAX package's, so one config describes a run of either package. Of the
-fields for paths this port does not run yet, the Trainer rejects the ones
-that change the result (``wire_impl=padded``, checkpointing). Fields that
-tune the JAX package's compiler or TPU memory have no effect here:
-``static_wire`` (PyTorch runs eagerly, so exact wire shapes cost no
-recompile), ``remat``, ``log_hbm``, and ``measure_breakdown`` (the
-breakdown probe is not ported).
+fields for paths this port does not run yet, the Trainer rejects the one
+that changes the result (checkpointing). Fields that tune the JAX
+package's compiler or TPU memory have no effect here: ``static_wire``
+(PyTorch runs eagerly, so exact wire shapes cost no recompile),
+``remat`` and ``log_hbm``.
 """
 from __future__ import annotations
 
@@ -50,8 +49,8 @@ class RunConfig:
     seed: int = 42
     # segment sum: edges per chunk (None: all edges at once)
     edge_chunk: Optional[int] = None
-    # time comm/quant/central/marginal probes (the reference always records
-    # these buckets, AdaQP/util/timer.py:29-51)
+    # time the comm/quant/central/marginal parts of a step before training
+    # (the reference always records these buckets, AdaQP/util/timer.py:29-51)
     measure_breakdown: bool = True
     # "auto" | "segment" | "block" | "strip" | "compact": the aggregation
     # implementation ("auto" is "strip" in the port)

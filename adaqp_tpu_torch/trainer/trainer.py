@@ -18,17 +18,22 @@ adaqp_tpu_torch`` start them):
   ``seed``); each rank's loss is its masked sum over the GLOBAL train
   count, the gradients are all-reduced with SUM before ``Adam.step`` (the
   reference's ``average_gradients``), so parameters stay identical;
-- boundary rows travel on the exact-size ragged wire: the fp wire in
-  Vanilla and AdaQP-p and in every evaluation, the quantized wire (from
-  the current :class:`~adaqp_tpu_torch.assigner.Assignment`) in AdaQP and
-  AdaQP-q training;
+- boundary rows travel on the run's wire (``wire_impl``): the exact-size
+  ragged wire (the fp wire in Vanilla and AdaQP-p and in every
+  evaluation, the quantized wire of the current
+  :class:`~adaqp_tpu_torch.assigner.Assignment` in AdaQP and AdaQP-q
+  training) or the padded dense wire (the f32 exchange over the plan, or
+  the assignment's per-width buckets in quantized training);
 - schemes: ``uniform`` keeps ``assign_bits``; ``random`` draws new widths
   and ``adaptive`` solves the variance-vs-time MILP at every epoch with
   ``epoch % assign_cycle == 1`` except the first (``trainer.py:813-819``).
   For ``adaptive`` the ranks accumulate forward and backward variance
   traces, all-gather them to rank 0, which solves and broadcasts the
   assignment, so no two ranks can hold different plans; the cost model
-  comes from timing the transport at start-up (``assigner/profile.py``).
+  comes from timing the transport at start-up (``assigner/profile.py``);
+- the breakdown probe (``measure_breakdown``, on by default) times the
+  parts of a training epoch before the first one and fills the time CSV's
+  Comm, Quant, Central and Marginal columns (:meth:`Trainer._breakdown_probe`).
 
 Random streams, all derived from ``seed`` with
 ``ops/quant_cuda.py::stream_key``, so that a run is reproducible and a
@@ -60,17 +65,22 @@ import torch.distributed as dist
 
 from ..assigner import Assigner, AssignerConfig, Assignment, random_assignment
 from ..assigner.profile import fit_cost_model, profile_cost_model
+from ..assigner.assignment import buckets_from_assignment
 from ..comm.distributed import resolve_backend
-from ..comm.wire import wire_fp, wire_from_assignment
+from ..comm.exchange import _dequant_lanes, _quant_lanes, padded_all_to_all
+from ..comm.ragged import ragged_all_to_all
+from ..comm.wire import wire_cols, wire_fp, wire_from_assignment
 from ..common.backend import DeviceLike, resolve_device
 from ..common.types import BITS_SET, WIRE_BITS_SET, AggregatorType, GNNType, Mode, Scheme
 from ..graph import build_layout, partition_graph
-from ..graph.device import shard_arrays_from_layout, static_from_layout
+from ..graph.device import agg_torch_dtype, shard_arrays_from_layout, static_from_layout
 from ..graph.layout import load_layout, save_layout
 from ..helper.dataset import GraphData, load_dataset
 from ..model.gnn import apply_gnn, init_params, params_from_numpy
 from ..model.loss import correct_count, f1_pieces, masked_loss_sum
-from ..ops.quant_cuda import stream_key
+from ..ops.dist_ops import _seg, pick_block_kernel
+from ..ops.quant import bytes_per_row, pad_features
+from ..ops.quant_cuda import quant_pack, stream_key, unpack_dequant
 from ..utils import Recorder, Timer
 from .config import RunConfig
 
@@ -100,10 +110,12 @@ def _check_supported(cfg: RunConfig) -> RunConfig:
     """Reject what the port does not run; resolve ``spmm_impl=auto``."""
     if cfg.spmm_impl not in ("auto", *PADDING):
         raise ValueError(f"unknown spmm_impl {cfg.spmm_impl!r}")
-    if cfg.wire_impl != "ragged":
-        raise NotImplementedError(
-            f"wire_impl={cfg.wire_impl}: only the exact-size ragged wire is "
-            "ported (ROADMAP Queue 1 item 11, the padded dense wire)"
+    if cfg.wire_impl not in ("ragged", "padded"):
+        raise ValueError(f"unknown wire_impl {cfg.wire_impl!r} (ragged or padded)")
+    if cfg.fp32_lanes and cfg.wire_impl != "ragged" and Mode.from_str(cfg.mode).quantized:
+        raise ValueError(
+            "fp32_lanes needs the ragged wire: the padded wire's buckets carry "
+            "only quantized widths (2, 4, 8 bits)"
         )
     if cfg.ckpt_every or cfg.resume:
         raise NotImplementedError(
@@ -208,6 +220,7 @@ class Trainer:
             spmm=cfg.spmm_impl,
             agg_dtype=cfg.agg_dtype,
             edge_chunk=cfg.edge_chunk,
+            wire=cfg.wire_impl,
         )
         # global counts from the layout: every node lies in one partition
         lay = self.layout
@@ -231,8 +244,10 @@ class Trainer:
         # drive the wire layouts and the assigner's byte model ----
         plan = lay.plan_fwd
         self.layer_dims = [lay.f_true] + [cfg.hidden_dim] * (cfg.num_layers - 1)
-        self.wire_fp = self.wire_q = None
-        if self.k > 1:
+        # ragged: per-layer wire plans; padded: per-layer buckets of this
+        # rank (quantized training), the f32 exchange needs none
+        self.wire_fp = self.wire_q = self.buckets = None
+        if self.k > 1 and cfg.wire_impl == "ragged":
             self.wire_fp = self._local_wires(wire_fp(plan, self.layer_dims, cfg.num_layers))
 
         # ---- assigner (quantized modes; at K=1 nothing crosses) ----
@@ -357,8 +372,16 @@ class Trainer:
         ]
 
     def _lower_assignment(self):
-        """Assignment -> this rank's quantized wire plans (the reference's
-        train-buffer regeneration, ``buffer.py:176-248``)."""
+        """Assignment -> this rank's quantized wire plans or padded buckets
+        (the reference's train-buffer regeneration, ``buffer.py:176-248``)."""
+        if self.cfg.wire_impl == "padded":
+            self.buckets = [
+                (bits, tuple(tuple(torch.as_tensor(a[self.rank]).long().to(self.device)
+                                   for a in quad) for quad in arrays))
+                for bits, arrays in buckets_from_assignment(
+                    self.layout.plan_fwd, self.assignment, self.layout.l_max)
+            ]
+            return
         self.wire_q = self._local_wires(wire_from_assignment(
             self.layout.plan_fwd, self.assignment, self.layer_dims,
             bits_set=self._bits_options(),
@@ -418,6 +441,7 @@ class Trainer:
             self.params, self.sh, st, True, self.blocks, self.dropout_gen,
             wires=self.wire_q if self.mode.quantized else self.wire_fp,
             keys=keys, sinks=sinks,
+            buckets=self.buckets if self.mode.quantized else None,
         )
         s = self.sh
         loss = masked_loss_sum(logits, s.labels, s.train_mask, st.multilabel)
@@ -510,8 +534,14 @@ class Trainer:
         return Assignment(arrays[:L], arrays[L:])
 
     def planned_quant_launches(self) -> Tuple[int, int]:
-        """(quant_pack, unpack_dequant) launches one training step makes
-        on this rank with the current quantized wires."""
+        """Launches of the wire's (quantize, dequantize) kernel pair one
+        training step makes on this rank with the current quantized wires:
+        (quant_pack, unpack_dequant) on the ragged wire, (quant_rows,
+        dequant_rows) on the padded one, one pair per bucket, layer and
+        direction (layer 0 has no backward)."""
+        if self.buckets is not None:
+            n = sum(len(bits) * (1 if i == 0 else 2) for i, (bits, _) in enumerate(self.buckets))
+            return n, n
         if self.wire_q is None:
             return 0, 0
         pack = unpack = 0
@@ -534,8 +564,143 @@ class Trainer:
         layers = self.cfg.num_layers
         return 4 * layers + (layers - 1) * (1 if self.k == 1 else 2)
 
+    def _probe_aggregation(self):
+        """part -> fn(rows) running the run's aggregation of that part:
+        "fl"/"fh" the forward local/halo sums, "bl"/"bh" their transposes
+        (the backward's)."""
+        st, dt = self.static, agg_torch_dtype(self.static)
+        if self.blocks is None:
+            s, l, r = self.sh, st.l_max, st.r_pad
+            lists = {"fl": (s.fl_src, s.fl_dst, l), "bl": (s.bl_src, s.bl_dst, l),
+                     "fh": (s.fh_src, s.fh_dst, l), "bh": (s.bh_src, s.bh_dst, r)}
+            return {part: (lambda x, e=e: _seg(e[0], e[1], x, e[2], st.edge_chunk))
+                    for part, e in lists.items()}
+        lays = dict(zip(("fl", "bl", "fh", "bh"), self.blocks.devices()))
+        kernel = pick_block_kernel(lays["fl"])
+        return {part: (lambda x, lay=lay: kernel(lay, x.to(dt), None))
+                for part, lay in lays.items()}
+
+    def probe_launches(self, reps: int = 5) -> Dict[str, int]:
+        """Kernel launches :meth:`_breakdown_probe` makes on this rank
+        (kernel name -> count): each timed call runs once to warm up and
+        ``reps`` times. The aggregation: what a training step runs (the
+        local and halo parts forward, their transposes after layer 0, the
+        halo's only at K>1). The quant pair of the wire, once a layer, in
+        quantized modes at K>1."""
+        layers, calls = self.cfg.num_layers, reps + 1
+        out = {}
+        if self.blocks is not None:
+            name = {"strip": "strip_spmm", "block": "block_spmm",
+                    "compact": "compact_spmm"}[self.cfg.spmm_impl]
+            # an epoch's launches less the evaluation's two a layer
+            out[name] = calls * (self.tile_launches_per_epoch() - 2 * layers)
+        if self.assigner is not None:
+            pair = (("quant_rows", "dequant_rows") if self.cfg.wire_impl == "padded"
+                    else ("quant_pack", "unpack_dequant"))
+            out.update({name: calls * layers for name in pair})
+        return out
+
+    @torch.no_grad()
+    def _breakdown_probe(self, reps: int = 5):
+        """Per-epoch time buckets [comm, quant, central, marginal], from
+        timing each part of a training step alone at the run's shapes (the
+        reference brackets the regions of the step itself with stream-sync
+        fences, ``AdaQP/util/timer.py:18-27``; the JAX package times the
+        parts alone, ``trainer.py:626-744``). Host clock around a
+        ``torch.cuda.synchronize()`` on the card; each part runs once to
+        warm up, then ``reps`` times.
+
+        - Comm: the transfers of the exchange this mode's training runs, at
+          their sizes (forward, and backward after layer 0): the fp or the
+          quantized wire, ragged or padded. (The JAX probe times the fp
+          exchange in every mode.) A collective: at K>1 every rank runs
+          the probe in step.
+        - Quant: the wire's quantize and dequantize kernels at
+          ``assign_bits`` on ``[K * s_pad, d]`` rows, once per direction
+          (quantized modes at K>1).
+        - Central / Marginal: the run's aggregation on the local / halo
+          layout, forward and (after layer 0) backward.
+
+        Nothing here is caught: a failing probe fails the run (the JAX
+        Trainer logs and goes on, ``trainer.py:800-803``)."""
+        cfg, st, dev = self.cfg, self.static, self.device
+        layers = cfg.num_layers
+        dims = [st.f_pad] + [st.hidden] * (layers - 1)
+        sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+
+        def timeit(fn):
+            fn()
+            sync()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            sync()
+            return (time.perf_counter() - t0) / reps
+
+        agg = self._probe_aggregation()
+        adt = agg_torch_dtype(st)
+        gen = torch.Generator(device=dev).manual_seed(cfg.seed)
+        bits, padded = cfg.assign_bits, cfg.wire_impl == "padded"
+        for layer, d in enumerate(dims):
+            back = layer > 0  # layer 0's input carries no gradient
+            ft = self.layer_dims[layer] if layer == 0 else d
+            local = torch.zeros((st.l_max, d), dtype=adt, device=dev)
+            halo = torch.zeros((st.r_pad, d), dtype=adt, device=dev)
+            central = timeit(lambda: agg["fl"](local))
+            marginal = timeit(lambda: agg["fh"](halo))
+            if back:
+                central += timeit(lambda: agg["bl"](local))
+                if self.k > 1:
+                    marginal += timeit(lambda: agg["bh"](local))
+            self.timer.add("central", central)
+            self.timer.add("marginal", marginal)
+            if self.k == 1:
+                continue
+            self.timer.add("communication", sum(
+                timeit(fn) for fn in self._probe_transfers(layer, d, ft, back)))
+            if self.assigner is None:
+                continue
+            rows = torch.randn((self.k, st.s_pad, d), generator=gen, device=dev).to(adt)
+            if padded:
+                def quant():
+                    return _dequant_lanes(*_quant_lanes(rows, bits, 1, ft), bits, d, ft)
+            else:
+                flat, fw = rows.reshape(-1, d), wire_cols(ft, bits)
+
+                def quant():
+                    return unpack_dequant(*quant_pack(flat, bits, ft, fw, 1), bits, ft, fw, d)
+            self.timer.add("quantization", timeit(quant) * (2 if back else 1))
+
+    def _probe_transfers(self, layer: int, d: int, f_true: int, back: bool):
+        """The all-to-alls of one layer's exchange in this mode's training
+        (forward, then backward when ``back``), each as a function that
+        ships zeros of the wire's sizes."""
+        st, dev, padded = self.static, self.device, self.cfg.wire_impl == "padded"
+        widths = [f_true] + ([d] if back else [])  # true columns, forward then backward
+        if not padded:
+            wf, wb = (self.wire_q if self.mode.quantized else self.wire_fp)[layer]
+            return [
+                (lambda w=w: ragged_all_to_all(
+                    torch.zeros(sum(w.send_splits), dtype=torch.int32, device=dev),
+                    w.send_splits, w.recv_splits))
+                for w in ([wf, wb] if back else [wf])
+            ]
+        if not self.mode.quantized:
+            buf = torch.zeros((self.k, st.s_pad, d), dtype=torch.float32, device=dev)
+            return [lambda: padded_all_to_all(buf) for _ in widths]
+        bits, arrays = self.buckets[layer]
+        fns = []
+        for ft in widths:
+            for b, quad in zip(bits, arrays):
+                n = bytes_per_row(pad_features(ft), b) + 4  # codes, bf16 pair
+                buf = torch.zeros((self.k, quad[0].shape[1], n), dtype=torch.uint8, device=dev)
+                fns.append(lambda buf=buf: padded_all_to_all(buf))
+        return fns
+
     def train(self) -> Dict[str, Any]:
         cfg = self.cfg
+        if cfg.measure_breakdown:
+            self._breakdown_probe()
         t_train0 = time.perf_counter()
         losses = []
         planned = np.zeros(2, np.int64)
@@ -578,6 +743,7 @@ class Trainer:
             "loss_curve": np.asarray(losses),
             "planned_quant_launches": tuple(int(x) for x in planned),
             "planned_tile_launches": cfg.num_epochs * self.tile_launches_per_epoch(),
+            "probe_launches": self.probe_launches() if cfg.measure_breakdown else {},
         }
         logger.info(
             "done: best epoch %d train %.4f val %.4f test %.4f | %.3fs/epoch",

@@ -7,9 +7,9 @@ keeps the same vocabulary:
 
 - per-epoch totals are wall-clock around a step that ends in a host
   readback of the loss (which waits for the device);
-- the breakdown buckets hold whatever sub-computation timings are added
-  under their names (none yet: the breakdown probe is not ported). The
-  CSV layout stays reference-compatible (``trainer.py:226-234``).
+- the breakdown buckets hold the sub-computation timings added under
+  their names (``Trainer._breakdown_probe``). The CSV layout stays
+  reference-compatible (``trainer.py:226-234``).
 """
 from __future__ import annotations
 

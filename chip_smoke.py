@@ -10,20 +10,28 @@ card, and trains a Reddit-width GCN (602 -> 256 -> 256 -> 41, 3 layers,
 bf16 aggregation, LayerNorm, dropout 0.5, Adam lr 0.01) twice through the
 port's entry points: at K=1 through ``Trainer``, and at K=4 in mode AdaQP
 with the adaptive scheme through the launcher of ``python -m
-adaqp_tpu_torch`` (four ranks sharing the one card over gloo); then an
-ogbn-products-width GCN (100 -> 256 -> 256 -> 47) at K=1 through each
-aggregation (``spmm_impl`` strip, block, compact, segment). It checks
-that each training ran through the kernels (their launch counts), and
-times every kernel beside its bound, its plain version and a library call
-where one exists. Phases: env, build, agg (block_spmm, compact_spmm and
-gather_rows), setup, kernel (strip SpMM), quant (quant_pack and
+adaqp_tpu_torch`` (four ranks sharing the one card over gloo), on the
+ragged wire and, with the breakdown probe on, on the padded dense wire
+(``wire_impl=padded``); then an ogbn-products-width GCN (100 -> 256 -> 256
+-> 47) at K=1 through each aggregation (``spmm_impl`` strip, block,
+compact, segment). It checks that each training ran through the kernels
+(their launch counts), and times every kernel beside its bound, its plain
+version and a library call where one exists. Phases: env, build, agg
+(block_spmm, compact_spmm and gather_rows), pad (quant_rows and
+dequant_rows), setup, kernel (strip SpMM), quant (quant_pack and
 unpack_dequant), e2e (a small K=1 run on the card against the same run on
-the CPU), e2e_k (the same at K=2, Vanilla and AdaQP), train (K=1),
-train_k (K=4), e2e_agg (K=2 card against CPU for block, compact and
-segment), train_agg (the products GCN through the four aggregations), time
-(after k1, train_k and train_agg; with ``--profile``, also a device-time
-breakdown of a few training steps of the K=1 Reddit run and of each
-train_agg run). Each phase prints its seconds. Any
+the CPU), e2e_k (the same at K=2, Vanilla and AdaQP), e2e_pad (e2e_k on
+the padded wire), train (K=1), train_k (K=4), train_pad (K=4 AdaQP on the
+padded wire, with the probe), e2e_agg (K=2 card against CPU for block,
+compact and segment), train_agg (the products GCN through the four
+aggregations), time (after k1, train_k, train_pad and train_agg; after
+train_pad it first holds quant_rows and dequant_rows against their plain
+versions at every shape that run gave them; with ``--profile``, also a
+device-time breakdown of a few training steps of the K=1 Reddit run and of
+each train_agg run; train_k and train_pad always profile three more steps
+of rank 0). The runs that check exact
+launch counts of training alone turn the probe off; train_pad counts the
+probe's launches as a planned term. Each phase prints its seconds. Any
 failing phase exits nonzero and prints no result. The last line of
 standard output is ``{"ok": true, "device": {...}}``; the line before it
 holds the per-kernel numbers, and the one before that the card's name and
@@ -91,7 +99,7 @@ def phase_build():
     from adaqp_tpu_torch.utils.cuda_build import build
 
     t0 = time.perf_counter()
-    logs = build(["spmm_strip", "quant_pack", "spmm_block", "spmm_compact"])
+    logs = build(["spmm_strip", "quant_pack", "quant_rows", "spmm_block", "spmm_compact"])
     say(f"[build] nvcc sm_90a: {time.perf_counter() - t0:.1f} s")
     for name, log in logs.items():
         for line in log.splitlines():
@@ -133,7 +141,7 @@ def phase_setup(torch, args):
     cfg = RunConfig.from_yaml("reddit", {
         "num_parts": 1, "mode": "Vanilla", "num_epochs": args.epochs,
         "spmm_impl": "auto", "agg_dtype": "bfloat16", "log_steps": 1,
-        "partition_dir": os.path.join(WORK, "parts"),
+        "measure_breakdown": False, "partition_dir": os.path.join(WORK, "parts"),
         "exp_path": os.path.join(WORK, "exp"), "seed": SEED,
     })
     check((cfg.num_layers, cfg.hidden_dim, cfg.dropout_rate, cfg.use_norm,
@@ -482,7 +490,8 @@ def _profile_steps(torch, t, rank, steps=3):
     from adaqp_tpu_torch.ops import quant_cuda as qc
     from adaqp_tpu_torch.ops import spmm_strip as ss
 
-    saved = (ss.strip_spmm.launches, qc.quant_pack.launches, qc.unpack_dequant.launches)
+    counters = (ss.strip_spmm, qc.quant_pack, qc.unpack_dequant, qc.quant_rows, qc.dequant_rows)
+    saved = [c.launches for c in counters]
     torch.cuda.synchronize()
     dist.barrier()
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
@@ -493,7 +502,8 @@ def _profile_steps(torch, t, rank, steps=3):
         float(t._train_step(1000 + i))
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    ss.strip_spmm.launches, qc.quant_pack.launches, qc.unpack_dequant.launches = saved
+    for c, n in zip(counters, saved):
+        c.launches = n
     if rank != 0:
         return None
     prof.__exit__(None, None, None)
@@ -509,6 +519,48 @@ def _profile_steps(torch, t, rank, steps=3):
     top = lambda d: sorted(d.items(), key=lambda kv: -kv[1])[:8]
     return {"wall_ms": wall_ms, "device_ms": sum(dev.values()), "device": top(dev),
             "host": top(host)}
+
+
+def _wire_volume(t):
+    """One training step's quantized wire on this rank: (collectives, bytes
+    sent to the other ranks), forward and backward over all layers; None
+    without a quantized wire."""
+    from adaqp_tpu_torch.ops.quant import bytes_per_row, pad_features
+
+    if t.buckets is not None:
+        n = sent = 0
+        for i, (bits, arrays) in enumerate(t.buckets):
+            for ft in [t.layer_dims[i]] + ([t.layer_dims[i]] if i else []):
+                for b, quad in zip(bits, arrays):
+                    k, cap = quad[0].shape  # the chunk to itself is padding
+                    n, sent = n + 1, sent + (k - 1) * cap * (bytes_per_row(pad_features(ft), b) + 4)
+        return n, sent
+    if t.wire_q is None:
+        return None
+    ws = [w for pair in t.wire_q for w in pair if w is not None]
+    return len(ws), sum(4 * sum(w.send_splits) for w in ws)
+
+
+def _pad_cases(t, probe=False):
+    """The (bits, rows, F, f_true, dtype) of every quant_rows launch one
+    padded training step makes with the current buckets: the forward rows
+    in the activations' dtype, the backward's gradient rows in f32. With
+    ``probe``, also the breakdown probe's: ``assign_bits`` on ``K * s_pad``
+    rows a layer."""
+    st = t.static
+    dims = [st.f_pad] + [st.hidden] * (st.num_layers - 1)
+    fwd = "bfloat16" if st.agg_dtype == "bfloat16" else "float32"
+    cases = set()
+    if probe and t.buckets is not None:
+        cases.update((t.cfg.assign_bits, t.k * st.s_pad, d, ft, fwd)
+                     for d, ft in zip(dims, t.layer_dims))
+    for i, (bits, arrays) in enumerate(t.buckets or ()):
+        for b, quad in zip(bits, arrays):
+            n = int(quad[0].numel())
+            cases.add((b, n, dims[i], t.layer_dims[i], fwd))
+            if i:
+                cases.add((b, n, dims[i], dims[i], "float32"))
+    return cases
 
 
 def _train_k_worker(rank, world, device, cfg, graph_fn, profile):
@@ -532,7 +584,10 @@ def _train_k_worker(rank, world, device, cfg, graph_fn, profile):
             {b: int(((a == b) & (a > 0)).sum()) for b in (2, 4, 8)}
             for a in t.assignment.fwd + t.assignment.bwd[1:]
         ]))
+        volume.append((epoch, _wire_volume(t)))
+        pad_cases.update(_pad_cases(t))
 
+    volume, pad_cases = [(1, _wire_volume(t))], _pad_cases(t, cfg.measure_breakdown)
     t._reassign = recording_reassign
     fh = t.blocks.devices()[2]
     halo = (int(fh.blk_ptr[-1]), 0 if fh.straggler is None else
@@ -540,9 +595,15 @@ def _train_k_worker(rank, world, device, cfg, graph_fn, profile):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ss.strip_spmm.launches = qc.quant_pack.launches = qc.unpack_dequant.launches = 0
+    qc.quant_rows.launches = qc.dequant_rows.launches = 0
     rec = t.train()
     launches = (ss.strip_spmm.launches, qc.quant_pack.launches, qc.unpack_dequant.launches)
+    pad_launches = (qc.quant_rows.launches, qc.dequant_rows.launches)
     torch.cuda.synchronize()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    t.save(rec)  # the time CSV: a row per rank, written by rank 0
+    csv = os.path.join(cfg.exp_path, t.graph.name, f"{t.k}part", cfg.model_name, "time",
+                       t.mode.value + (f"_{t.scheme.value}.csv" if t.mode.quantized else ".csv"))
     flat = torch.cat([p.detach().reshape(-1) for layer in t.params for p in layer.values()]).cpu()
     every = [torch.empty_like(flat) for _ in range(world)]
     dist.all_gather(every, flat)
@@ -555,13 +616,45 @@ def _train_k_worker(rank, world, device, cfg, graph_fn, profile):
         "loss_curve": rec["loss_curve"], "epoch_times": list(t.timer.epoch_times),
         "per_epoch": rec["per_epoch"], "planned": rec["planned_quant_launches"],
         "launches": launches, "checksum": float(flat.double().sum()),
-        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "pad_launches": pad_launches, "probe": rec["probe_launches"], "csv": csv,
+        "buckets": t.timer.epoch_traced_time()[:4],
+        # layer 0's padded buckets: (bits, K * cap) each
+        "pad_shapes": None if t.buckets is None else [
+            (b, int(q[0].numel())) for b, q in zip(*t.buckets[0])],
+        "pad_cases": sorted(pad_cases), "volume": volume,
+        "peak_gib": peak_gib,
         "profile_s": t.profile_s, "assign_s": t.assign_s, "hist": hist,
         "halo": halo, "lanes": int(plan.counts[rank].sum()),
         "layout": (t.layout.l_max, plan.r_pad, plan.s_pad,
                    [int(x) for x in t.layout.num_local]),
         "epochs": cfg.num_epochs, "layers": cfg.num_layers,
     }
+
+
+def _say_volume(tag, r0):
+    """Rank 0's quantized wire per training step under each assignment,
+    and the median step of the epochs each assignment ran."""
+    import numpy as np
+
+    ep = np.asarray(r0["epoch_times"]) * 1e3
+    starts = [e for e, _ in r0["volume"]] + [len(ep) + 1]
+    for (epoch, (n, sent)), end in zip(r0["volume"], starts[1:]):
+        # epoch 1 carries the one-time costs (kernel build and load)
+        steps = ep[max(epoch, 2) - 1:end - 1]
+        say(f"[{tag}] rank 0 wire from epoch {epoch}: {n} all-to-alls, {sent / 1e6:.2f} MB to "
+            f"the other ranks a step; median step of epochs {max(epoch, 2)}-{end - 1} "
+            f"{np.median(steps):.1f} ms")
+
+
+def _say_split(tag, sp):
+    # the four ranks time-share the card: a kernel's span on the device
+    # clock may include slices that ran other ranks' work
+    say(f"[{tag}] profile, rank 0 of 4 over 3 more steps: {sp['wall_ms']:.1f} ms a step; "
+        f"its kernels span {sp['device_ms']:.1f} ms of device time a step")
+    for name, ms in sp["device"]:
+        say(f"[{tag}]   device {ms:8.3f} ms  {name[:90]}")
+    for name, ms in sp["host"]:
+        say(f"[{tag}]   host   {ms:8.3f} ms  {name[:90]}")
 
 
 def phase_train_k(torch, args):
@@ -586,7 +679,7 @@ def phase_train_k(torch, args):
             "--agg_dtype", "bfloat16", "--seed", str(SEED),
             "--exp_path", os.path.join(WORK, "k4_exp"),
         ]))
-        cfg.assign_cycle, cfg.log_steps = 5, 1
+        cfg.assign_cycle, cfg.log_steps, cfg.measure_breakdown = 5, 1, False
         cfg.partition_dir = os.path.join(WORK, "k4_parts")
         check((cfg.num_layers, cfg.hidden_dim, cfg.dropout_rate, cfg.use_norm,
                cfg.learning_rate, cfg.partition_method) == (3, 256, 0.5, True, 0.01, "ldg"),
@@ -618,6 +711,7 @@ def phase_train_k(torch, args):
             check(sum(r["halo"]) > 0, f"rank {rank}: the halo layout is empty")
             check(strip == per_epoch_strip * epochs, f"rank {rank}: strip launch count is off")
             check((qp, ud) == tuple(r["planned"]), f"rank {rank}: quant launch counts differ from the plans")
+            check(r["pad_launches"] == (0, 0), f"rank {rank}: the ragged run launched a padded-wire kernel")
             if mode == "AdaQP":
                 check(qp > 0 and ud > 0, f"rank {rank}: no quant kernel launched")
         say(f"[train_k] {mode}: parameters bit-identical across ranks (all-gathered; "
@@ -629,15 +723,8 @@ def phase_train_k(torch, args):
             for epoch, h in r0["hist"]:
                 say(f"[train_k] assignment at epoch {epoch}, lanes per width "
                     f"(fwd layers 0-2, bwd layers 1-2): {h}")
-            sp = r0["split"]
-            # the four ranks time-share the card: a kernel's span on the
-            # device clock may include slices that ran other ranks' work
-            say(f"[train_k] profile, rank 0 of 4 over 3 more steps: {sp['wall_ms']:.1f} ms a step; "
-                f"its kernels span {sp['device_ms']:.1f} ms of device time a step")
-            for name, ms in sp["device"]:
-                say(f"[train_k]   device {ms:8.3f} ms  {name[:90]}")
-            for name, ms in sp["host"]:
-                say(f"[train_k]   host   {ms:8.3f} ms  {name[:90]}")
+            _say_volume("train_k", r0)
+            _say_split("train_k", r0["split"])
         out[mode] = res
     say(f"[train_k] median step AdaQP {out['AdaQP'][0]['per_epoch'] * 1e3:.1f} ms, "
         f"Vanilla {out['Vanilla'][0]['per_epoch'] * 1e3:.1f} ms "
@@ -677,6 +764,247 @@ def phase_time_quant(torch, card, lanes):
         rows[f] = (dict(ms=ms_q, plain_ms=plain_q, bound_ms=bq, bound_by="bytes", library_ms=None),
                    dict(ms=ms_u, plain_ms=plain_u, bound_ms=bu, bound_by="bytes", library_ms=None))
     return rows
+
+
+# ---------------------------------------------------------------------------
+# the padded dense wire (wire_impl=padded) and the breakdown probe
+# ---------------------------------------------------------------------------
+
+
+def phase_pad(torch, seed):
+    """quant_rows and dequant_rows against their plain versions on the card,
+    bit for bit: bits 2/4/8, f32 and bf16 rows, row counts that are no
+    multiple of the TPU kernel's 256, f_true < F, a constant row, no rows;
+    and the round trip within one step."""
+    from adaqp_tpu_torch.ops import quant_cuda as qc
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    worst_q = worst_d = 0.0  # max |kernel - plain|: codes, scale, rmin; rows
+    cases = 0
+    for bits in (2, 4, 8):
+        for f, ft in ((640, 602), (256, 256), (18, 17)):
+            for dtype in (torch.float32, torch.bfloat16):
+                for n in (0, 1, 33, 25_700):
+                    x = torch.randn(n, f, generator=gen, device="cuda")
+                    x = (x * torch.rand(n, 1, generator=gen, device="cuda") * 4).to(dtype)
+                    x[:, ft:] = 0
+                    if n > 1:
+                        x[1, :] = 0.5  # a constant row: all codes 0
+                    key = qc.stream_key(seed, bits, f, n, 7)
+                    saved = (qc.quant_rows.launches, qc.dequant_rows.launches)
+                    q, sc, rm = qc.quant_rows(x, bits, ft, key)
+                    y = qc.dequant_rows(q, sc, rm)
+                    torch.cuda.synchronize()
+                    launched = (qc.quant_rows.launches - saved[0],
+                                qc.dequant_rows.launches - saved[1])
+                    qc.quant_rows.launches, qc.dequant_rows.launches = saved
+                    check(launched == ((0, 0) if n == 0 else (1, 1)), f"launches {launched} for N={n}")
+                    q0, sc0, rm0 = qc._quant_rows_torch(x, bits, ft, key)
+                    y0 = qc._dequant_rows_torch(q0, sc0, rm0)
+                    tag = f"bits={bits} F={f} f_true={ft} {str(dtype)[6:]} N={n}"
+                    check(q.shape == (n, f) and q.dtype == torch.uint8 and y.shape == (n, f),
+                          f"{tag}: shapes")
+                    if n:
+                        worst_q = max(worst_q, float((q.int() - q0.int()).abs().max()),
+                                      float((sc - sc0).abs().max()), float((rm - rm0).abs().max()))
+                        worst_d = max(worst_d, float((y - y0).abs().max()))
+                    check(torch.equal(q, q0), f"{tag}: codes differ from the plain version")
+                    check(torch.equal(sc, sc0) and torch.equal(rm, rm0), f"{tag}: scale/rmin differ")
+                    check(torch.equal(y, y0), f"{tag}: dequantized rows differ")
+                    if n > 1:
+                        check(not q[1].any() and bool((y[1, :ft] == 0.5).all()),
+                              f"{tag}: the constant row did not round-trip")
+                    if n:
+                        err = (y[:, :ft] - x[:, :ft].float()).abs()
+                        step = (1.0 / sc)[:, None]
+                        check(bool((err <= step * (1 + 1e-3) + 1e-6).all()),
+                              f"{tag}: a round-trip error exceeds one step")
+                    cases += 1
+    say(f"[pad] {cases} cases (bits 2/4/8, F 640/256/18, f32/bf16, N 0/1/33/25,700, a constant "
+        f"row): kernels equal the plain versions bit for bit (max |difference| quant_rows "
+        f"{worst_q:g}, dequant_rows {worst_d:g}); round trip within one step")
+    return worst_q, worst_d
+
+
+def phase_e2e_pad(torch, seed):
+    """e2e_k on the padded wire: K=2 SBM, f32, two ranks on the card over
+    gloo against the same ranks on the CPU, Vanilla and AdaQP (uniform 8
+    bits), the breakdown probe on. The counter generator draws the same
+    codes on both devices."""
+    import numpy as np
+
+    from adaqp_tpu_torch.comm.distributed import spawn
+
+    runs = {}
+    for device in ("cuda", "cpu"):
+        configs = [{
+            "num_parts": 2, "mode": mode, "assign_scheme": "uniform", "assign_bits": 8,
+            "wire_impl": "padded", "num_epochs": 6, "hidden_dim": 32, "dropout_rate": 0.0,
+            "log_steps": 100, "block_min_edges": 1, "logger_level": "WARNING",
+            "synth_kwargs": {"n": 1200, "blocks": 4, "num_feats": 16, "seed": seed},
+            "partition_dir": os.path.join(WORK, f"e2ek_parts_{device}"),
+            "exp_path": os.path.join(WORK, "e2epad_exp"),
+        } for mode in ("Vanilla", "AdaQP")]
+        res = spawn(_e2e_worker, 2, device, args=(configs,),
+                    workdir=os.path.join(WORK, "launch"), timeout_s=180)
+        for i, mode in enumerate(("Vanilla", "AdaQP")):
+            curves = [np.asarray(r[i]) for r in res]
+            check(np.array_equal(curves[0], curves[1]), f"{device} {mode}: ranks disagree on the loss")
+            runs[(device, mode)] = curves[0]
+    tol = 1e-5  # the e2e_k limit: the same codes, f32 sums in another order
+    for mode in ("Vanilla", "AdaQP"):
+        card, cpu = runs[("cuda", mode)], runs[("cpu", mode)]
+        rel = float(np.max(np.abs(card - cpu) / np.abs(cpu)))
+        say(f"[e2e_pad] K=2 f32 SBM-1200 {mode} wire_impl=padded: card losses "
+            f"{np.round(card, 5).tolist()}")
+        say(f"[e2e_pad] {mode}: max relative difference to the CPU run {rel:.2e} (limit {tol:g})")
+        check(np.isfinite(card).all() and card[-1] < card[0], f"{mode}: the loss did not fall")
+        check(rel <= tol, f"{mode}: card and CPU K=2 padded runs disagree")
+
+
+def phase_train_pad(torch, args, k4):
+    """The Reddit-width GCN at K=4 on one card (four ranks over gloo) in
+    mode AdaQP with the adaptive scheme on the padded wire, the breakdown
+    probe on: its launches are planned on top of training's."""
+    import functools
+
+    import numpy as np
+
+    from adaqp_tpu_torch.__main__ import config_from_args, parse_args
+    from adaqp_tpu_torch.comm.distributed import spawn
+    from adaqp_tpu_torch.helper.dataset import REDDIT_C, REDDIT_E, REDDIT_F, REDDIT_N, synth_reddit
+
+    n = args.nodes_k
+    e = n * round(REDDIT_E / REDDIT_N)
+    epochs = args.epochs_pad
+    graph_fn = functools.partial(synth_reddit, n, e, REDDIT_F, REDDIT_C, seed=SEED, device="cuda")
+    cfg = config_from_args(parse_args([
+        "--dataset", "reddit", "--num_parts", "4", "--mode", "AdaQP",
+        "--assign_scheme", "adaptive", "--num_epochs", str(epochs), "--wire_impl", "padded",
+        "--agg_dtype", "bfloat16", "--seed", str(SEED),
+        "--exp_path", os.path.join(WORK, "k4pad_exp"),
+    ]))
+    cfg.assign_cycle, cfg.log_steps = 5, 1
+    cfg.partition_dir = os.path.join(WORK, "k4_parts")  # train_k's caches, when it ran
+    check((cfg.num_layers, cfg.hidden_dim, cfg.dropout_rate, cfg.use_norm, cfg.learning_rate,
+           cfg.measure_breakdown) == (3, 256, 0.5, True, 0.01, True),
+          "reddit.yaml no longer holds the Reddit GCN settings, or the probe is off")
+    t0 = time.perf_counter()
+    res = spawn(_train_k_worker, 4, "cuda", args=(cfg, graph_fn, True),
+                workdir=os.path.join(WORK, "launch"), timeout_s=480)
+    wall = time.perf_counter() - t0
+    r0 = res[0]
+    l_max, r_pad, s_pad, nloc = r0["layout"]
+    say(f"[train_pad] AdaQP adaptive, wire_impl=padded: {n} nodes, {e} edges, K=4 on one card "
+        f"over gloo; partitions {nloc}, l_max {l_max}, r_pad {r_pad}, s_pad {s_pad}; "
+        f"launch + set-up + probe + {epochs} epochs {wall:.1f} s")
+    losses = np.asarray(r0["loss_curve"])
+    for i, loss in enumerate(losses, 1):
+        ms = [r["epoch_times"][i - 1] * 1e3 for r in res]
+        say(f"[train_pad] epoch {i}: loss {loss:.5f} (step {min(ms):.0f}-{max(ms):.0f} ms over ranks)")
+    for r in res[1:]:
+        check(np.array_equal(np.asarray(r["loss_curve"]), losses), "ranks disagree on the loss")
+    check(np.isfinite(losses).all() and losses[-1] < losses[0], "the loss did not fall")
+    per_epoch_strip = 6 * r0["layers"] - 2
+    for rank, r in enumerate(res):
+        strip, qp, ud = r["launches"]
+        qr, dr = r["pad_launches"]
+        probe = r["probe"]
+        want_strip = per_epoch_strip * epochs + probe["strip_spmm"]
+        want_q = r["planned"][0] + probe["quant_rows"]
+        want_d = r["planned"][1] + probe["dequant_rows"]
+        say(f"[train_pad] rank {rank}: launches strip {strip} (training {per_epoch_strip * epochs} "
+            f"+ probe {probe['strip_spmm']}), quant_rows {qr} and dequant_rows {dr} (the buckets "
+            f"imply {r['planned'][0]} and {r['planned'][1]}, + probe {probe['quant_rows']} and "
+            f"{probe['dequant_rows']}); peak max_memory_allocated {r['peak_gib']:.2f} GiB; median "
+            f"step {r['per_epoch'] * 1e3:.1f} ms")
+        check(strip == want_strip, f"rank {rank}: strip launch count is off")
+        check(qr > 0 and (qr, dr) == (want_q, want_d),
+              f"rank {rank}: quant_rows/dequant_rows launches differ from the plan + probe")
+        check((qp, ud) == (0, 0), f"rank {rank}: the padded run launched a ragged-wire kernel")
+    say(f"[train_pad] parameters bit-identical across ranks (all-gathered; sum {r0['checksum']!r})")
+    want = [ep for ep in range(2, epochs + 1) if ep % cfg.assign_cycle == 1]
+    check(want and [h[0] for h in r0["hist"]] == want,
+          f"reassignments at epochs {[h[0] for h in r0['hist']]}, expected {want}")
+    for epoch, h in r0["hist"]:
+        say(f"[train_pad] assignment at epoch {epoch}, lanes per width (fwd layers 0-2, bwd "
+            f"layers 1-2): {h}")
+    say(f"[train_pad] layer-0 buckets after the last assignment (bits, K*cap lanes): {r0['pad_shapes']}")
+    _say_volume("train_pad", r0)
+    _say_split("train_pad", r0["split"])
+    csv = np.genfromtxt(r0["csv"], delimiter=",", names=True)
+    check(list(csv["Worker"]) == [0, 1, 2, 3], "the time CSV lacks a rank's row")
+    for b in ("Comm", "Quant", "Central", "Marginal"):
+        say(f"[train_pad] breakdown {b} per rank (s): {[float(x) for x in csv[b]]}")
+        check(bool((csv[b] > 0).all()), f"the time CSV's {b} bucket is zero")
+    steps = f"padded AdaQP {r0['per_epoch'] * 1e3:.1f} ms"
+    if k4 is not None:
+        steps += (f"; ragged AdaQP {k4['AdaQP'][0]['per_epoch'] * 1e3:.1f} ms, ragged Vanilla "
+                  f"{k4['Vanilla'][0]['per_epoch'] * 1e3:.1f} ms (train_k)")
+    say(f"[train_pad] median step (rank 0): {steps}")
+    return res
+
+
+def phase_time_pad(torch, card, res):
+    """quant_rows and dequant_rows at every shape train_pad gave them (each
+    rank's buckets under each assignment, forward and backward, and the
+    probe's), held against their plain versions bit for bit; then timed at
+    the largest layer-0 bucket: bf16 rows of 640 columns with 602 true, and
+    the codes of the wire's 604 columns back. Returns the two kernels' time
+    rows and their max |kernel - plain| (codes, scale, rmin; rows)."""
+    from adaqp_tpu_torch.ops import quant_cuda as qc
+    from adaqp_tpu_torch.ops.quant import pad_features
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    cases = sorted({tuple(c) for r in res for c in r["pad_cases"]})
+    saved = (qc.quant_rows.launches, qc.dequant_rows.launches)
+    worst_q = worst_d = 0.0
+    inputs = {}  # the forward's bf16 rows at each (bits, N, F)
+    for bits, n, f, ft, dt in cases:
+        x = torch.randn(n, f, generator=gen, device="cuda").to(getattr(torch, dt))
+        fw = pad_features(ft)
+        q, sc, rm = qc.quant_rows(x, bits, ft, 5)
+        q0, sc0, rm0 = qc._quant_rows_torch(x, bits, ft, 5)
+        # the receiver's form: the wire's columns, the pair through bf16
+        p = torch.stack([sc, rm], dim=-1).to(torch.bfloat16).float()
+        qw, pscale, prmin = q[:, :fw].contiguous(), p[:, 0].contiguous(), p[:, 1].contiguous()
+        y, y0 = qc.dequant_rows(qw, pscale, prmin), qc._dequant_rows_torch(qw, pscale, prmin)
+        tag = f"bits={bits} N={n} F={f} f_true={ft} {dt}"
+        worst_q = max(worst_q, float((q.int() - q0.int()).abs().max()),
+                      float((sc - sc0).abs().max()), float((rm - rm0).abs().max()))
+        worst_d = max(worst_d, float((y - y0).abs().max()))
+        check(torch.equal(q, q0) and torch.equal(sc, sc0) and torch.equal(rm, rm0),
+              f"{tag}: quant_rows differs from the plain version")
+        check(torch.equal(y, y0), f"{tag}: dequant_rows differs from the plain version")
+        if dt == "bfloat16":
+            inputs[(bits, n, f)] = (x, qw, pscale, prmin)
+    say(f"[time] quant_rows and dequant_rows equal their plain versions bit for bit at all "
+        f"{len(cases)} shapes train_pad gave them (bits, K*cap or K*s_pad rows, F, f_true, dtype): "
+        f"{cases}")
+    # the largest layer-0 bucket of training (the probe's rows aside)
+    bits, n = max(res[0]["pad_shapes"], key=lambda s: s[1])
+    f, ft, fw = 640, 602, pad_features(602)
+    x, qw, sc, rm = inputs[(bits, n, f)]
+    ms_q = cuda_ms(torch, lambda: qc.quant_rows(x, bits, ft, 5), reps=20)
+    ms_d = cuda_ms(torch, lambda: qc.dequant_rows(qw, sc, rm), reps=20)
+    qc.quant_rows.launches, qc.dequant_rows.launches = saved
+    plain_q = cuda_ms(torch, lambda: qc._quant_rows_torch(x, bits, ft, 5), reps=3, warmup=1)
+    plain_d = cuda_ms(torch, lambda: qc._dequant_rows_torch(qw, sc, rm), reps=3, warmup=1)
+    # one library call computes rmin + q / scale (the port never calls it)
+    lib_d = cuda_ms(torch, lambda: torch.addcdiv(rm[:, None], qw, sc[:, None]), reps=20)
+    lib_err = float((torch.addcdiv(rm[:, None], qw, sc[:, None])
+                     - qc._dequant_rows_torch(qw, sc, rm)).abs().max())
+    bytes_q = n * f * 2 + n * f + 8 * n
+    bytes_d = n * fw + 8 * n + 4 * n * fw
+    bq, bd = bytes_q / PEAK_BYTES_S * 1e3, bytes_d / PEAK_BYTES_S * 1e3
+    say(f"[time] {card} | quant_rows N={n} F={f} f_true={ft} {bits} bits bf16: kernel {ms_q:.4f} ms; "
+        f"bound {bq:.4f} ms by bytes ({bytes_q / 1e6:.1f} MB); plain {plain_q:.3f} ms; library none")
+    say(f"[time] {card} | dequant_rows N={n} F={fw}: kernel {ms_d:.4f} ms; bound {bd:.4f} ms by "
+        f"bytes ({bytes_d / 1e6:.1f} MB); plain {plain_d:.3f} ms; torch.addcdiv {lib_d:.4f} ms "
+        f"(max |addcdiv - plain| {lib_err:g})")
+    return ((dict(ms=ms_q, plain_ms=plain_q, bound_ms=bq, bound_by="bytes", library_ms=None),
+             dict(ms=ms_d, plain_ms=plain_d, bound_ms=bd, bound_by="bytes", library_ms=lib_d)),
+            (worst_q, worst_d))
 
 
 # ---------------------------------------------------------------------------
@@ -939,7 +1267,7 @@ def phase_train_agg(torch, args):
     base = RunConfig.from_yaml("ogbn-products", {
         "num_parts": 1, "mode": "Vanilla", "num_epochs": args.epochs_agg, "log_steps": 1,
         "partition_dir": os.path.join(WORK, "agg_parts"), "exp_path": os.path.join(WORK, "agg_exp"),
-        "seed": SEED, "logger_level": "WARNING",
+        "seed": SEED, "logger_level": "WARNING", "measure_breakdown": False,
     })
     check((base.num_layers, base.hidden_dim, base.dropout_rate, base.use_norm,
            base.learning_rate, base.agg_dtype) == (3, 256, 0.5, True, 0.01, "bfloat16"),
@@ -1129,13 +1457,15 @@ def main():
     p.add_argument("--nodes_k", type=int, default=32_768, help="nodes of the K=4 graph")
     p.add_argument("--epochs_k", type=int, default=12,
                    help="AdaQP epochs at K=4 (reassignment at 6 and 11 with a cycle of 5)")
+    p.add_argument("--epochs_pad", type=int, default=8,
+                   help="AdaQP epochs of train_pad (reassignment at 6 with a cycle of 5)")
     p.add_argument("--nodes_agg", type=int, default=131_072,
                    help="nodes of the products-degree graph of train_agg")
     p.add_argument("--epochs_agg", type=int, default=8, help="epochs of each train_agg run")
     p.add_argument("--only", type=str, default=None,
-                   help="comma-separated phases to run (agg, quant, e2e, e2e_k, k1, train_k, "
-                        "e2e_agg, train_agg); build always runs, and the result lines print "
-                        "only for a full run")
+                   help="comma-separated phases to run (agg, pad, quant, e2e, e2e_k, e2e_pad, "
+                        "k1, train_k, train_pad, e2e_agg, train_agg); build always runs, and the "
+                        "result lines print only for a full run")
     p.add_argument("--profile", action="store_true",
                    help="also trace a few K=1 training steps with torch.profiler (the "
                         "Reddit run and each train_agg run)")
@@ -1165,11 +1495,14 @@ def main():
 
     run("build", phase_build)
     agg_errs = run("agg", phase_agg, torch, SEED) if want("agg") else None
+    pad_q_err, pad_d_err = run("pad", phase_pad, torch, SEED) if want("pad") else (None, None)
     pack_err, quant_err = run("quant", phase_quant, torch, SEED) if want("quant") else (None, None)
     if want("e2e"):
         run("e2e", phase_e2e, torch, SEED)
     if want("e2e_k"):
         run("e2e_k", phase_e2e_k, torch, SEED)
+    if want("e2e_pad"):
+        run("e2e_pad", phase_e2e_pad, torch, SEED)
     if want("k1"):
         trainer = run("setup", phase_setup, torch, args)
         err = run("kernel", phase_kernel, torch, trainer, SEED)
@@ -1179,10 +1512,14 @@ def main():
         times = run("time", phase_time, torch, trainer, card)
         del trainer
         torch.cuda.empty_cache()
+    k4 = None
     if want("train_k"):
         k4 = run("train_k", phase_train_k, torch, args)
         lanes = k4["AdaQP"][0]["lanes"]
         qtimes = run("time", phase_time_quant, torch, card, lanes)
+    if want("train_pad"):
+        kpad = run("train_pad", phase_train_pad, torch, args, k4)
+        ptimes, pad_path_err = run("time", phase_time_pad, torch, card, kpad)
     if want("e2e_agg"):
         run("e2e_agg", phase_e2e_agg, torch, SEED)
     if want("train_agg"):
@@ -1195,6 +1532,8 @@ def main():
     k4_q = sum(r["launches"][1] for r in k4["AdaQP"])
     k4_u = sum(r["launches"][2] for r in k4["AdaQP"])
     agg_l = {k: sum(r["launches"][k] for r in agg.values()) for k in _wrappers()}
+    pad_q = sum(r["pad_launches"][0] for r in kpad)
+    pad_d = sum(r["pad_launches"][1] for r in kpad)
     say(f"[result] strip_spmm launches: K=1 train {launches}, K=4 AdaQP train {k4_strip} "
         f"(all ranks), products train {agg_l['strip_spmm']}")
     say(card)
@@ -1227,6 +1566,14 @@ def main():
          "replaces": "adaqp_tpu/ops/spmm_compact.py:93",
          "launches": agg_l["gather_rows"], "max_abs_err": agg_errs["gather_rows"],
          **atimes[("gather_rows", 128)]},
+        {"name": "quant_rows", "route": "cuda",
+         "source": "adaqp_tpu_torch/csrc/quant_rows.cu",
+         "replaces": "adaqp_tpu/ops/quant_pallas.py:33",
+         "launches": pad_q, "max_abs_err": max(pad_q_err, pad_path_err[0]), **ptimes[0]},
+        {"name": "dequant_rows", "route": "cuda",
+         "source": "adaqp_tpu_torch/csrc/quant_rows.cu",
+         "replaces": "adaqp_tpu/ops/quant_pallas.py:271",
+         "launches": pad_d, "max_abs_err": max(pad_d_err, pad_path_err[1]), **ptimes[1]},
     ]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

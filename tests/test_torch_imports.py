@@ -28,8 +28,11 @@ def test_import_leaves_jax_out():
         "need = ['adaqp_tpu_torch.__main__', 'adaqp_tpu_torch.comm.exchange_ragged',\n"
         "        'adaqp_tpu_torch.ops.quant_cuda', 'adaqp_tpu_torch.assigner.profile',\n"
         "        'adaqp_tpu_torch.ops.spmm_compact', 'adaqp_tpu_torch.graph.compact_shards',\n"
-        "        'adaqp_tpu_torch.ops.spmm']\n"
+        "        'adaqp_tpu_torch.ops.spmm', 'adaqp_tpu_torch.comm.exchange']\n"
         "assert all(m in sys.modules for m in need), need\n"
+        "from adaqp_tpu_torch.comm.exchange import exchange_fp, exchange_quant, padded_start\n"
+        "from adaqp_tpu_torch.ops.quant_cuda import quant_rows, dequant_rows\n"
+        "from adaqp_tpu_torch.assigner.assignment import buckets_from_assignment\n"
         "print(len([k for k in sys.modules if k.startswith('adaqp_tpu_torch.')]), bad)\n"
     )
     out = subprocess.run(
@@ -37,6 +40,8 @@ def test_import_leaves_jax_out():
         cwd=PKG.parent,
     ).stdout.split()
     assert int(out[0]) >= 30 and out[1] == "[]", out
+    for src in ("quant_rows.cu", "quant_pack.cu", "counter_hash.cuh"):
+        assert (PKG / "csrc" / src).is_file(), src
 
 
 def test_sources_never_name_the_jax_package():
@@ -82,7 +87,6 @@ def test_entry_points_need_a_card_unless_cpu_is_asked(tmp_path):
 
 
 @pytest.mark.parametrize("over,what", [
-    ({"wire_impl": "padded"}, "wire_impl=padded"),
     ({"ckpt_every": 5}, "checkpointing"),
     ({"resume": True}, "checkpointing"),
 ])
