@@ -39,6 +39,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..utils.cuda_build import raise_on as _raise_on
 from .quant import dequantize_rows, dequantize_words, pack_words, quantize_rows, to_width
 
 _M1, _M2 = 0x7FEB352D, 0x846CA68B
@@ -149,11 +150,6 @@ def _rows_lib() -> ctypes.CDLL:
         lib.adaqp_quant_rows_error_string.argtypes = [ci]
         lib.adaqp_quant_rows_error_string.restype = ctypes.c_char_p
     return lib
-
-
-def _raise_on(error_string, rc: int, what: str):
-    if rc:
-        raise RuntimeError(f"{what} launch failed: {error_string(rc).decode()}")
 
 
 def _check_bits(bits: int, f_true: int, f_wire: int):

@@ -1,0 +1,365 @@
+"""Microbench: element gathers inside a window, and one compact work item.
+
+The port's counterpart of ``scripts/microbench_gather.py``, with two
+kernels in place of its three TPU kernels:
+
+- ``window_gather`` (``csrc/window_gather.cu``) replaces ``kern`` of
+  ``mk_kernel`` (``:72``) and of ``mk_sq`` (``:130``):
+  ``sum_{k < iters} take_along_axis(x, idx, axis)`` summed in x's dtype,
+  with a full index of x's shape or a 1-D column list ``[1,
+  x.shape[axis]]`` broadcast inside the kernel;
+- ``compact_item`` (``csrc/compact_item.cu``) replaces ``kern`` of
+  ``mk_item`` (``:212``): one compact work item -- expand a [256, 128]
+  halfword mask to a 0/1 [256, 2048] A, then A @ win (kind 0, a full item)
+  or A's eight 256-column subtiles times the matching row slices of
+  ``win[col]`` (kind 1, a group item), summed in f32 over ``iters`` and
+  rounded once to bf16: the cost model of ``spmm_compact``. The TPU kernel
+  never zeroed its accumulator; this one starts from zero.
+
+    python -m adaqp_tpu_torch.scripts.microbench_gather [--iters 200]
+    python -m adaqp_tpu_torch.scripts.microbench_gather --device cpu --iters 1
+
+``--iters`` takes the place of ``GB_ITERS``, ``--device cpu`` that of
+``GB_INTERPRET`` (the plain versions run). The sections run in the
+script's order: the library row gather, the element gather at [4096, 256]
+f32 and bf16, the depth variants 8/256/1024, the square-window
+permutations (axis 0 and 1, full and 1-D index, F 256 and 640), the
+library gather over F, then the compact full and group items at fc 256
+and 384. Every kernel's single-iteration output is held against its plain
+version on the host, and a mismatch raises. Times are per iteration of
+one call of ``iters`` iterations (CUDA events after a warm-up call).
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+
+import numpy as np
+import torch
+
+from ..common.backend import resolve_device
+from ..ops.spmm_block import expand_masks
+from ..ops.spmm_compact import BD, BS, CSUB, GROUP, WORDS
+from ..utils.cuda_build import raise_on
+from . import time_call
+
+R, F = 4096, 256
+D = 2048           # the square window's depth
+SBK = 8            # destination blocks of an item's accumulator
+# |kernel - plain| for compact_item: one bf16 rounding of f32 sums taken in
+# another order
+ITEM_RTOL, ITEM_ATOL = 2.0 ** -7, 1e-6
+
+
+# ---------------------------------------------------------------------------
+# window_gather
+# ---------------------------------------------------------------------------
+
+
+def _is_full(x: torch.Tensor, idx: torch.Tensor, axis: int) -> bool:
+    """True for a full index (x's shape), False for a 1-D one ([1,
+    x.shape[axis]]); raises on any other shape."""
+    if tuple(idx.shape) == tuple(x.shape):
+        return True
+    if tuple(idx.shape) == (1, x.shape[axis]):
+        return False
+    raise ValueError(f"idx of shape {tuple(idx.shape)} is neither x's {tuple(x.shape)} nor "
+                     f"(1, {x.shape[axis]})")
+
+
+def full_index(x: torch.Tensor, idx: torch.Tensor, axis: int) -> torch.Tensor:
+    """``idx`` as the int64 index of x's shape that ``torch.gather`` takes
+    (a 1-D index broadcast along the other axis)."""
+    full = idx.long()
+    if _is_full(x, idx, axis):
+        return full
+    v = full.reshape(-1)
+    return (v[:, None] if axis == 0 else v[None, :]).expand(x.shape)
+
+
+def _window_gather_torch(x: torch.Tensor, idx: torch.Tensor, iters: int, axis: int
+                         ) -> torch.Tensor:
+    full = full_index(x, idx, axis)
+    acc = torch.zeros_like(x)
+    for _ in range(iters):
+        acc = acc + torch.gather(x, axis, full)
+    return acc
+
+
+def _window_lib() -> ctypes.CDLL:
+    from ..utils.cuda_build import load_library
+
+    lib = load_library("window_gather")
+    if lib.adaqp_window_gather.argtypes is None:
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.adaqp_window_gather.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, vp]
+        lib.adaqp_window_gather.restype = ci
+        lib.adaqp_window_gather_error_string.argtypes = [ci]
+        lib.adaqp_window_gather_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _window_gather_cuda(x, idx, iters, axis, full):
+    out = torch.empty_like(x)
+    if x.numel() == 0:
+        return out
+    lib = _window_lib()
+    rc = lib.adaqp_window_gather(
+        x.data_ptr(), idx.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1], axis,
+        int(full), int(x.dtype == torch.bfloat16), iters, x.device.index,
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    raise_on(lib.adaqp_window_gather_error_string, rc, "window_gather")
+    window_gather.launches += 1
+    return out
+
+
+def window_gather(x: torch.Tensor, idx: torch.Tensor, iters: int, axis: int) -> torch.Tensor:
+    """``sum_{k < iters} take_along_axis(x, idx, axis)`` summed in x's
+    dtype (one rounding an iteration), for contiguous f32 or bf16 ``x``
+    [R, C] and int32 ``idx`` of x's shape (a full index) or of shape ``[1,
+    x.shape[axis]]`` (a 1-D one: position p along the axis gathers
+    ``idx[0, p]``), values in ``[0, x.shape[axis])``.
+
+    CUDA ``x``: the kernel (one more ``window_gather.launches`` per
+    launch); a line of the gather axis must fit a block's shared memory
+    (227 KB) and the indices are trusted. CPU ``x``: the plain version.
+    Any other device raises."""
+    if x.dim() != 2 or x.dtype not in (torch.float32, torch.bfloat16) or not x.is_contiguous():
+        raise ValueError(f"x must be a contiguous 2-D f32 or bf16 tensor, got {x.dtype} "
+                         f"{tuple(x.shape)}")
+    if axis not in (0, 1) or iters < 1:
+        raise ValueError(f"axis must be 0 or 1 and iters at least 1, got {axis}, {iters}")
+    if idx.dtype != torch.int32 or idx.device != x.device:
+        raise ValueError(f"idx must be int32 on {x.device}, got {idx.dtype} on {idx.device}")
+    full = _is_full(x, idx, axis)
+    if x.device.type == "cuda":
+        return _window_gather_cuda(x, idx.contiguous(), iters, axis, full)
+    if x.device.type == "cpu":
+        return _window_gather_torch(x, idx, iters, axis)
+    raise ValueError(f"no window_gather for device {x.device}")
+
+
+window_gather.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# compact_item
+# ---------------------------------------------------------------------------
+
+
+def _compact_item_torch(mask: torch.Tensor, col: torch.Tensor, win: torch.Tensor,
+                        kind: int, iters: int) -> torch.Tensor:
+    a = expand_masks(mask[None])[0]  # f32 [BD, BS]
+    w = win.float()
+    if kind == 0:
+        prods = [(0, a @ w)]
+    else:
+        g = w[col.reshape(-1).long()]
+        prods = [(s * BD, a[:, s * CSUB:(s + 1) * CSUB] @ g[s * CSUB:(s + 1) * CSUB])
+                 for s in range(GROUP)]
+    acc = torch.zeros((SBK * BD, win.shape[1]), dtype=torch.float32, device=win.device)
+    for _ in range(iters):
+        for r0, prod in prods:
+            acc[r0:r0 + BD] += prod
+    return acc.to(torch.bfloat16)
+
+
+def _item_lib() -> ctypes.CDLL:
+    from ..utils.cuda_build import load_library
+
+    lib = load_library("compact_item")
+    if lib.adaqp_compact_item.argtypes is None:
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.adaqp_compact_item.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, vp]
+        lib.adaqp_compact_item.restype = ci
+        lib.adaqp_compact_item_error_string.argtypes = [ci]
+        lib.adaqp_compact_item_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _compact_item_cuda(mask, col, win, kind, iters):
+    fc = win.shape[1]
+    out = torch.empty((SBK * BD, fc), dtype=torch.bfloat16, device=win.device)
+    if mask.data_ptr() % 16:
+        raise ValueError("compact_item reads the mask 16 bytes at a time: align it to 16 bytes")
+    lib = _item_lib()
+    rc = lib.adaqp_compact_item(
+        mask.data_ptr(), col.data_ptr(), win.data_ptr(), out.data_ptr(), fc, kind, iters,
+        win.device.index, torch.cuda.current_stream(win.device).cuda_stream,
+    )
+    raise_on(lib.adaqp_compact_item_error_string, rc, "compact_item")
+    compact_item.launches += 1
+    return out
+
+
+def compact_item(mask: torch.Tensor, col: torch.Tensor, win: torch.Tensor, kind: int,
+                 iters: int) -> torch.Tensor:
+    """One compact work item summed over ``iters`` iterations -> bf16
+    [2048, fc]. ``mask`` int16 [256, 128] (A[r, l] is bit ``l // 128`` of
+    halfword ``mask[r, l % 128]``), ``col`` int32 with 2,048 entries in
+    [0, 2048) (read for kind 1), ``win`` contiguous bf16 [2048, fc]. Kind 0:
+    rows 0..255 are ``iters`` times A @ win, the rest zero; kind 1: rows
+    256s..256s+255 are ``iters`` times A[:, 256s:256s+256] @
+    win[col[256s:256s+256]]. Sums in f32, rounded once to bf16.
+
+    CUDA ``win``: the kernel (one more ``compact_item.launches`` per
+    launch); ``col`` is trusted. CPU ``win``: the plain version. Any other
+    device raises."""
+    if mask.shape != (BD, WORDS) or mask.dtype != torch.int16:
+        raise ValueError(f"mask must be int16 [{BD}, {WORDS}], got {mask.dtype} "
+                         f"{tuple(mask.shape)}")
+    if col.numel() != BS or col.dtype != torch.int32:
+        raise ValueError(f"col must be int32 with {BS} entries, got {col.dtype} {col.numel()}")
+    if win.dim() != 2 or win.shape[0] != BS or win.dtype != torch.bfloat16 or win.shape[1] < 1:
+        raise ValueError(f"win must be bf16 [{BS}, fc], got {win.dtype} {tuple(win.shape)}")
+    if kind not in (0, 1) or iters < 1:
+        raise ValueError(f"kind must be 0 or 1 and iters at least 1, got {kind}, {iters}")
+    if not (mask.device == col.device == win.device):
+        raise ValueError("mask, col and win must lie on one device")
+    if win.device.type == "cuda":
+        return _compact_item_cuda(mask.contiguous(), col.contiguous().reshape(-1),
+                                  win.contiguous(), kind, iters)
+    if win.device.type == "cpu":
+        return _compact_item_torch(mask, col, win, kind, iters)
+    raise ValueError(f"no compact_item for device {win.device}")
+
+
+compact_item.launches = 0
+
+
+def item_within(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """compact_item's tolerance: ``|got - want| <= 2^-7 |want| + 1e-6``."""
+    err = (got.float() - want.float()).abs()
+    return bool((err <= ITEM_RTOL * want.float().abs() + ITEM_ATOL).all())
+
+
+# ---------------------------------------------------------------------------
+# the probe
+# ---------------------------------------------------------------------------
+
+
+def library_gather(x: torch.Tensor, i: torch.Tensor, iters: int) -> torch.Tensor:
+    """The script's ``xla_gather`` in torch ops: ``x[i]`` added into an
+    accumulator like x ``iters`` times."""
+    acc = torch.zeros_like(x)
+    for _ in range(iters):
+        acc = acc + x.index_select(0, i)
+    return acc
+
+
+def _checked(what: str, ok: bool) -> bool:
+    if not ok:
+        raise RuntimeError(f"{what}: the kernel differs from its plain version")
+    return ok
+
+
+def main(argv=None) -> dict:
+    """Print the probe's lines; returns the launches of each TPU kernel's
+    counterpart: ``{"microbench_gather.py:72": ..., ":130": ..., ":212":
+    ...}``."""
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--iters", type=int, default=200, help="iterations in one call")
+    p.add_argument("--device", type=str, default=None,
+                   help="torch device (default: the CUDA card; raises without one)")
+    p.add_argument("--seed", type=int, default=0)
+    args = p.parse_args(argv)
+    dev = resolve_device(args.device)
+    iters = args.iters
+    rng = np.random.default_rng(args.seed)
+    launches = {}
+
+    def on(t):
+        return t.to(dev)
+
+    def per_iter(fn):
+        return time_call(fn, dev) / iters
+
+    x_host = torch.from_numpy(rng.normal(size=(R, F)).astype(np.float32))
+    idx_rows = torch.from_numpy(rng.integers(0, R, R).astype(np.int32))
+    idx_full = idx_rows[:, None].expand(R, F).contiguous()
+
+    # --- the library row gather (the ELL path's primitive)
+    x, i = on(x_host), on(idx_rows)
+    t = per_iter(lambda: library_gather(x, i, iters))
+    print(f"library row gather  [{R},{F}] f32 : {t * 1e6:8.1f} us/iter ({t / R * 1e9:.1f} ns/row)",
+          flush=True)
+
+    # --- the element gather over a whole window
+    before = window_gather.launches
+    for name, xx_host in (("f32", x_host), ("bf16", x_host.to(torch.bfloat16))):
+        xx, ii = on(xx_host), on(idx_full)
+        t = per_iter(lambda: window_gather(xx, ii, iters, 0))
+        ok = _checked(f"element gather {name}", torch.equal(
+            window_gather(xx, ii, 1, 0).cpu(), window_gather(xx_host, idx_full, 1, 0)))
+        print(f"element gather      [{R},{F}] {name:4s}: {t * 1e6:8.1f} us/iter "
+              f"({t / R * 1e9:.1f} ns/row) correct={ok}", flush=True)
+
+    # --- smaller depth variants
+    for depth in (8, 256, 1024):
+        xx_host = x_host[:depth].contiguous()
+        ii_host = torch.from_numpy(rng.integers(0, depth, depth).astype(np.int32)
+                                   )[:, None].expand(depth, F).contiguous()
+        xx, ii = on(xx_host), on(ii_host)
+        t = per_iter(lambda: window_gather(xx, ii, iters, 0))
+        ok = _checked(f"element gather depth={depth}", torch.equal(
+            window_gather(xx, ii, 1, 0).cpu(), window_gather(xx_host, ii_host, 1, 0)))
+        print(f"element gather      [{depth},{F}] f32 : {t * 1e6:8.1f} us/iter "
+              f"({t / depth * 1e9:.1f} ns/row) correct={ok}", flush=True)
+    launches["microbench_gather.py:72"] = window_gather.launches - before
+
+    # --- the compact kernel's primitive: a square-window permutation, along
+    # axis 0 ([D, F] window) and axis 1 ([F, D]), with a full index and with
+    # a 1-D column list broadcast inside the kernel
+    before = window_gather.launches
+    for ff in (256, 640):
+        for axis in (0, 1):
+            shape = (D, ff) if axis == 0 else (ff, D)
+            xx_host = torch.from_numpy(rng.normal(size=shape).astype(np.float32)
+                                       ).to(torch.bfloat16)
+            col = torch.from_numpy(rng.integers(0, D, D).astype(np.int32))
+            for iname, ii_host in (
+                    ("full-idx", (col[:, None] if axis == 0 else col[None, :]
+                                  ).expand(shape).contiguous()),
+                    ("1d-idx", col[None, :])):
+                xx, ii = on(xx_host), on(ii_host)
+                t = per_iter(lambda: window_gather(xx, ii, iters, axis))
+                ok = _checked(f"window perm ax={axis} {iname} F={ff}", torch.equal(
+                    window_gather(xx, ii, 1, axis).cpu(),
+                    window_gather(xx_host, ii_host, 1, axis)))
+                print(f"window perm ax={axis} {iname:8s} [{shape[0]},{shape[1]}] bf16: "
+                      f"{t * 1e6:8.2f} us/iter ({t / D * 1e9:.2f} ns/vcol) correct={ok}",
+                      flush=True)
+    launches["microbench_gather.py:130"] = window_gather.launches - before
+
+    # --- the library gather over F (bytes against descriptors at the
+    # tail's widths)
+    for ff in (256, 640):
+        xx = on(torch.from_numpy(rng.normal(size=(R, ff)).astype(np.float32)
+                                 ).to(torch.bfloat16))
+        t = per_iter(lambda: library_gather(xx, i, iters))
+        print(f"library row gather  [{R},{ff}] bf16: {t * 1e6:8.1f} us/iter "
+              f"({t / R * 1e9:.1f} ns/row)", flush=True)
+
+    # --- one compact work item (expand, [gather +] products into f32)
+    before = compact_item.launches
+    for fc in (256, 384):
+        mask_host = torch.from_numpy(
+            rng.integers(0, 1 << 16, (BD, WORDS)).astype(np.uint16).view(np.int16))
+        col_host = torch.from_numpy(rng.integers(0, BS, BS).astype(np.int32).reshape(16, 128))
+        win_host = torch.from_numpy(rng.normal(size=(BS, fc)).astype(np.float32)
+                                    ).to(torch.bfloat16)
+        mask, col, win = on(mask_host), on(col_host), on(win_host)
+        for kind, name in ((0, "full"), (1, "group")):
+            t = per_iter(lambda: compact_item(mask, col, win, kind, iters))
+            ok = _checked(f"compact {name}-item fc={fc}", item_within(
+                compact_item(mask, col, win, kind, 1).cpu(),
+                compact_item(mask_host, col_host, win_host, kind, 1)))
+            print(f"compact {name}-item  fc={fc}: {t * 1e6:8.2f} us/item correct={ok}",
+                  flush=True)
+    launches["microbench_gather.py:212"] = compact_item.launches - before
+    return launches
+
+
+if __name__ == "__main__":
+    main()

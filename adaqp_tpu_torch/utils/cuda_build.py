@@ -92,3 +92,10 @@ def load_library(name: str) -> ctypes.CDLL:
         build([name])
     _LIBS[name] = ctypes.CDLL(lib)
     return _LIBS[name]
+
+
+def raise_on(error_string, rc: int, what: str) -> None:
+    """Raise when a launcher returned a CUDA error code (``error_string`` is
+    the library's code -> message function)."""
+    if rc:
+        raise RuntimeError(f"{what} launch failed: {error_string(rc).decode()}")

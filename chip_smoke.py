@@ -16,10 +16,15 @@ ragged wire and, with the breakdown probe on, on the padded dense wire
 -> 47) at K=1 through each aggregation (``spmm_impl`` strip, block,
 compact, segment). It checks that each training ran through the kernels
 (their launch counts), and times every kernel beside its bound, its plain
-version and a library call where one exists. Phases: env, build, agg
+version and a library call where one exists. It also drives the gather
+micro-benchmarks (``python -m adaqp_tpu_torch.scripts.microbench_dma_gather``
+and ``...microbench_gather``) through their mains. Phases: env, build, agg
 (block_spmm, compact_spmm and gather_rows), pad (quant_rows and
-dequant_rows), setup, kernel (strip SpMM), quant (quant_pack and
-unpack_dequant), e2e (a small K=1 run on the card against the same run on
+dequant_rows), quant (quant_pack and unpack_dequant), gather (ring_gather,
+window_gather and compact_item against their plain versions, the two
+mains with their launches checked, then each kernel timed with its
+per-iteration slope, ring_gather also with L2 flushed), setup, kernel
+(strip SpMM), e2e (a small K=1 run on the card against the same run on
 the CPU), e2e_k (the same at K=2, Vanilla and AdaQP), e2e_pad (e2e_k on
 the padded wire), train (K=1), train_k (K=4), train_pad (K=4 AdaQP on the
 padded wire, with the probe), e2e_agg (K=2 card against CPU for block,
@@ -99,7 +104,8 @@ def phase_build():
     from adaqp_tpu_torch.utils.cuda_build import build
 
     t0 = time.perf_counter()
-    logs = build(["spmm_strip", "quant_pack", "quant_rows", "spmm_block", "spmm_compact"])
+    logs = build(["spmm_strip", "quant_pack", "quant_rows", "spmm_block", "spmm_compact",
+                  "ring_gather", "window_gather", "compact_item"])
     say(f"[build] nvcc sm_90a: {time.perf_counter() - t0:.1f} s")
     for name, log in logs.items():
         for line in log.splitlines():
@@ -1446,6 +1452,300 @@ def phase_time_agg(torch, card, runs):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the gather micro-benchmarks (scripts/microbench_dma_gather.py and
+# scripts/microbench_gather.py)
+# ---------------------------------------------------------------------------
+
+# the f32 rate outside the tensor cores (window_gather's adds)
+PEAK_F32_FLOP_S = 67e12
+
+
+def _gather_wrappers():
+    from adaqp_tpu_torch.scripts import microbench_dma_gather as dg
+    from adaqp_tpu_torch.scripts import microbench_gather as gb
+
+    return {"ring_gather": dg.ring_gather, "window_gather": gb.window_gather,
+            "compact_item": gb.compact_item}
+
+
+def _item_inputs(torch, rng, gen, fc):
+    """mask int16 [256, 128] and col int32 [2048] drawn from ``rng`` as the
+    script draws them, and bf16 win [2048, fc] from ``gen``, on the card."""
+    import numpy as np
+
+    from adaqp_tpu_torch.ops.spmm_compact import BD, BS, WORDS
+
+    mask = torch.from_numpy(rng.integers(0, 1 << 16, (BD, WORDS)).astype(np.uint16).view(np.int16))
+    col = torch.from_numpy(rng.integers(0, BS, BS).astype(np.int32))
+    win = torch.randn(BS, fc, generator=gen, device="cuda").to(torch.bfloat16)
+    return mask.cuda(), col.cuda(), win
+
+
+def phase_gather(torch, seed):
+    """The gather probes' kernels against their plain versions on the card:
+    ring_gather bit for bit with h[idx] at every depth 1/4/8/16/32/64, idx
+    uniform, sorted, banded and rows 0 and N-1 alternating, bf16 and f32, F
+    256 and 640, chunk 8 and 4,096, one to three passes, and an empty idx;
+    window_gather bit for bit with its torch.gather loop over axis 0 and 1,
+    full and 1-D index, f32 and bf16, a gather axis of 8 to 4,096, F 256
+    and 640, 1/3/200 iterations; compact_item within 2^-7 |plain| + 1e-6
+    at kind 0 and 1, fc 256/384/136, 1 and 200 iterations (kind 0's rows
+    past 256 zero). Then both scripts' mains at their default sizes, with
+    each kernel's launches checked against the plan. Returns each kernel's
+    max |kernel - plain| and the mains' launches."""
+    import numpy as np
+
+    from adaqp_tpu_torch.scripts import microbench_dma_gather as dg
+    from adaqp_tpu_torch.scripts import microbench_gather as gb
+
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 matmuls are on: compact_item's plain version needs full f32 products")
+    wrappers = _gather_wrappers()
+    saved = {k: w.launches for k, w in wrappers.items()}
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    errs = dict.fromkeys(wrappers, 0.0)
+
+    def worst(name, got, want):
+        errs[name] = max(errs[name], float((got.float() - want.float()).abs().max()))
+
+    cases = 0
+    for dtype in (torch.bfloat16, torch.float32):
+        for f in (256, 640):
+            h = torch.randn(dg.N, f, generator=gen, device="cuda").to(dtype)
+            for chunk in (8, dg.CHUNK):
+                variants = dg.idx_variants(rng, dg.N, chunk)
+                variants["ends"] = np.resize(np.array([0, dg.N - 1], np.int32), chunk)
+                for vname, vi in variants.items():
+                    i = torch.from_numpy(vi).cuda()
+                    want = dg._ring_gather_torch(h, i)
+                    for depth in (1, 4, 8, 16, 32, 64):
+                        iters = 1 + depth % 3  # 1 to 3 passes: the ring wraps across them
+                        got = dg.ring_gather(h, i, iters, depth)
+                        worst("ring_gather", got, want)
+                        check(torch.equal(got, want), f"ring_gather {str(dtype)[6:]} F={f} "
+                              f"chunk={chunk} {vname} depth={depth}: differs from h[idx]")
+                        cases += 1
+    before = dg.ring_gather.launches
+    got = dg.ring_gather(h, torch.empty(0, dtype=torch.int32, device="cuda"), 1, 4)
+    check(got.shape == (0, h.shape[1]) and dg.ring_gather.launches == before,
+          "ring_gather launched for an empty idx")
+    say(f"[gather] ring_gather: {cases} cases equal h[idx] bit for bit; an empty idx launches "
+        "nothing")
+
+    cases = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for length in (8, 256, 1024, 2048, 4096):
+            for f in (256, 640):
+                for axis in (0, 1):
+                    shape = (length, f) if axis == 0 else (f, length)
+                    x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                    full = torch.randint(0, length, shape, generator=gen, device="cuda",
+                                         dtype=torch.int32)
+                    col = torch.randint(0, length, (1, length), generator=gen, device="cuda",
+                                        dtype=torch.int32)
+                    for form, ii in (("full", full), ("1-D", col)):
+                        for iters in (1, 3, 200):
+                            got = gb.window_gather(x, ii, iters, axis)
+                            want = gb._window_gather_torch(x, ii, iters, axis)
+                            worst("window_gather", got, want)
+                            check(torch.equal(got, want),
+                                  f"window_gather {str(dtype)[6:]} {tuple(shape)} axis={axis} "
+                                  f"{form} iters={iters}: differs from the torch.gather loop")
+                            cases += 1
+    say(f"[gather] window_gather: {cases} cases equal the torch.gather loop bit for bit")
+
+    cases, ratio = 0, 0.0
+    for fc in (256, 384, 136):
+        mask, col, win = _item_inputs(torch, rng, gen, fc)
+        for kind in (0, 1):
+            for iters in (1, 200):
+                got = gb.compact_item(mask, col, win, kind, iters)
+                want = gb._compact_item_torch(mask, col, win, kind, iters)
+                err, r = compare(torch, got, want, gb.ITEM_ATOL, gb.ITEM_RTOL)
+                errs["compact_item"], ratio = max(errs["compact_item"], err), max(ratio, r)
+                check(r <= 1, f"compact_item fc={fc} kind={kind} iters={iters}: |kernel - "
+                      f"plain| {err:g} exceeds 2^-7 |plain| + 1e-6 ({r:.3f} of it)")
+                check(kind == 1 or not got[256:].any(), f"compact_item fc={fc}: kind 0 wrote "
+                      "rows past 256")
+                cases += 1
+    torch.cuda.synchronize()
+    say(f"[gather] compact_item: {cases} cases within 2^-7 |plain| + 1e-6 (worst {ratio:.3f} of "
+        f"it, max |difference| {errs['compact_item']:g})")
+    for k, w in wrappers.items():
+        w.launches = saved[k]
+
+    # the main path: both probes at their default sizes, through their mains
+    for w in wrappers.values():
+        w.launches = 0
+    said = {**dg.main([]), **gb.main([])}
+    torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in wrappers.items()}
+    # dma: one dtype x two idx x five depths; gather: sections of 2 + 3 and
+    # 8 windows, 4 items; each a timed call, its warm-up and a check
+    plan = {"ring_gather": 30, "microbench_gather.py:72": 15,
+            "microbench_gather.py:130": 24, "microbench_gather.py:212": 12}
+    check(said == plan, f"the mains' launches {said}, planned {plan}")
+    check(launches == {"ring_gather": 30, "window_gather": 39, "compact_item": 12},
+          f"launch counts {launches} disagree with the mains' plan")
+    say(f"[gather] mains launched {launches} as planned")
+    return errs, said
+
+
+def _cold_ms(torch, fn, reps=20):
+    """Mean milliseconds of ``fn`` with L2 flushed before each call (a 256 MB
+    write evicts the 50 MB cache); CUDA events around the call alone."""
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    fn()
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(reps)]
+    for a, b in events:
+        flush.zero_()
+        a.record()
+        fn()
+        b.record()
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in events) / reps
+
+
+def _bound(nbytes, ops, rate):
+    """(bound ms, what bounds it) for ``nbytes`` moved and ``ops`` done at
+    ``rate`` operations a second."""
+    b_ms, o_ms = nbytes / PEAK_BYTES_S * 1e3, ops / rate * 1e3
+    return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
+
+
+def phase_time_gather(torch, card, seed):
+    """Each gather kernel at its script's shapes with CUDA events: its time
+    at one iteration (one pass) beside its bound, its plain version and the
+    library call; its time at the script's I iterations and at 2I, and the
+    per-iteration slope (t(2I) - t(I)) / I, which must be nonzero (work
+    hoisted out of the loop would make it vanish). ring_gather warm (I =
+    50 passes over the same 4,096 rows, L2-resident) and cold (one pass,
+    L2 flushed) at every depth and index locality."""
+    import numpy as np
+
+    from adaqp_tpu_torch.ops.spmm_block import expand_masks
+    from adaqp_tpu_torch.ops.spmm_compact import BD, BS, CSUB, GROUP
+    from adaqp_tpu_torch.scripts import microbench_dma_gather as dg
+    from adaqp_tpu_torch.scripts import microbench_gather as gb
+
+    wrappers = _gather_wrappers()
+    saved = {k: w.launches for k, w in wrappers.items()}
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    rows = {}
+
+    # ring_gather: bf16 h [233,472, 256], 4,096 rows a pass
+    f, chunk = 256, dg.CHUNK
+    h = torch.randn(dg.N, f, generator=gen, device="cuda").to(torch.bfloat16)
+    row_b = f * 2
+    bound_ms, bound_by = _bound(chunk * (2 * row_b + 4), 0, 1)
+    say(f"[time] {card} | ring_gather bf16 [{chunk}, {f}] of [{dg.N}]: bound {bound_ms:.5f} ms a "
+        f"pass by bytes ({bound_ms * 1e6 / chunk:.3f} ns/row)")
+    cold = {}
+    for vname, vi in dg.idx_variants(rng, dg.N, chunk).items():
+        i = torch.from_numpy(vi).cuda()
+        lib = _cold_ms(torch, lambda: torch.index_select(h, 0, i))
+        warm_lib = cuda_ms(torch, lambda: dg.library_gather(h, i, 50), reps=5) / (50 * chunk)
+        say(f"[time] {card} | ring_gather {vname:8s} torch.index_select (plain and library) cold "
+            f"{lib:.5f} ms a pass; the script's library loop warm {warm_lib * 1e6:.3f} ns/row")
+        cold[(vname, "index_select")] = lib
+        for depth in (1, 4, 8, 16, 32, 64):
+            c = _cold_ms(torch, lambda: dg.ring_gather(h, i, 1, depth))
+            cold[(vname, depth)] = c
+            line = f"[time] {card} | ring_gather {vname:8s} depth={depth:2d}: cold {c:.5f} ms a pass"
+            if depth > 1:
+                t1 = cuda_ms(torch, lambda: dg.ring_gather(h, i, 50, depth), reps=5)
+                t2 = cuda_ms(torch, lambda: dg.ring_gather(h, i, 100, depth), reps=5)
+                slope = (t2 - t1) / 50
+                check(slope > 0.05 * t1 / 50, f"ring_gather depth={depth}: the slope {slope:g} "
+                      "ms a pass is near zero: work left the loop")
+                line += (f"; warm {t1 / (50 * chunk) * 1e6:.3f} ns/row at 50 passes "
+                         f"({t1:.4f} ms), 100 passes {t2:.4f} ms, slope {slope * 1e3:.3f} us a pass")
+            say(line)
+    # the kernels line: uniform idx at depth 4, where a block's four rows of
+    # a pass are all in flight
+    lib = cold[("uniform", "index_select")]
+    rows["ring_gather"] = dict(ms=cold[("uniform", 4)], plain_ms=lib, bound_ms=bound_ms,
+                               bound_by=bound_by, library_ms=lib)
+
+    def window_case(tag, x, ii, axis, iters_i=200):
+        """Times one window_gather case; returns its row at one iteration."""
+        full = gb.full_index(x, ii, axis)
+        t1 = cuda_ms(torch, lambda: gb.window_gather(x, ii, 1, axis), reps=20)
+        ti = cuda_ms(torch, lambda: gb.window_gather(x, ii, iters_i, axis), reps=5)
+        t2 = cuda_ms(torch, lambda: gb.window_gather(x, ii, 2 * iters_i, axis), reps=5)
+        slope = (t2 - ti) / iters_i
+        check(slope > 0.05 * ti / iters_i, f"window_gather {tag}: the slope {slope:g} ms an "
+              "iteration is near zero: work left the loop")
+        plain = cuda_ms(torch, lambda: gb._window_gather_torch(x, ii, 1, axis), reps=20)
+        plain_i = cuda_ms(torch, lambda: gb._window_gather_torch(x, ii, iters_i, axis), reps=2,
+                          warmup=1)
+        lib = cuda_ms(torch, lambda: torch.gather(x, axis, full), reps=20)
+        nbytes = x.numel() * x.element_size() * 2 + ii.numel() * 4
+        b1, by1 = _bound(nbytes, x.numel(), PEAK_F32_FLOP_S)
+        bi, byi = _bound(nbytes, x.numel() * iters_i, PEAK_F32_FLOP_S)
+        say(f"[time] {card} | window_gather {tag}: 1 iteration {t1:.5f} ms (bound {b1:.5f} by "
+            f"{by1}; plain {plain:.5f}; torch.gather {lib:.5f}); {iters_i} iterations {ti:.4f} ms "
+            f"(bound {bi:.5f} by {byi}; plain {plain_i:.3f}), {2 * iters_i} {t2:.4f} ms, slope "
+            f"{slope * 1e3:.4f} us an iteration")
+        return dict(ms=t1, plain_ms=plain, bound_ms=b1, bound_by=by1, library_ms=lib)
+
+    # the element gather (:72) at [4096, 256], full index (rows broadcast),
+    # axis 0; the square window (:130) at D = 2048, F 256 and 640
+    idx_rows = torch.from_numpy(rng.integers(0, 4096, 4096).astype(np.int32)).cuda()
+    x = torch.randn(4096, 256, generator=gen, device="cuda")
+    ii = idx_rows[:, None].expand(4096, 256).contiguous()
+    rows["window_gather"] = window_case("[4096, 256] f32 full idx axis 0", x, ii, 0)
+    window_case("[4096, 256] bf16 full idx axis 0", x.to(torch.bfloat16), ii, 0)
+    for ff in (256, 640):
+        for axis in (0, 1):
+            shape = (2048, ff) if axis == 0 else (ff, 2048)
+            x = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+            col = torch.randint(0, 2048, (1, 2048), generator=gen, device="cuda",
+                                dtype=torch.int32)
+            fi = (col.reshape(-1, 1) if axis == 0 else col).expand(shape).contiguous()
+            for form, ii in (("full", fi), ("1-D", col)):
+                row = window_case(f"{list(shape)} bf16 {form} idx axis {axis}", x, ii, axis)
+                if (ff, axis, form) == (256, 0, "1-D"):
+                    rows["window_gather_square"] = row
+
+    # compact_item at fc 256 and 384, kinds 0 and 1
+    for fc in (256, 384):
+        mask, col, win = _item_inputs(torch, rng, gen, fc)
+        a = expand_masks(mask[None])[0].to(torch.bfloat16)
+        g = win[col.long()]
+        a_sub = a.reshape(BD, GROUP, CSUB).transpose(0, 1).contiguous()
+        g_sub = g.reshape(GROUP, CSUB, fc)
+        for kind, name in ((0, "full"), (1, "group")):
+            t1 = cuda_ms(torch, lambda: gb.compact_item(mask, col, win, kind, 1), reps=20)
+            ti = cuda_ms(torch, lambda: gb.compact_item(mask, col, win, kind, 200), reps=3)
+            t2 = cuda_ms(torch, lambda: gb.compact_item(mask, col, win, kind, 400), reps=3)
+            slope = (t2 - ti) / 200
+            check(slope > 0.05 * ti / 200, f"compact_item {name} fc={fc}: the slope {slope:g} "
+                  "ms an iteration is near zero: work left the loop")
+            plain = cuda_ms(torch, lambda: gb._compact_item_torch(mask, col, win, kind, 1),
+                            reps=5, warmup=1)
+            yard = cuda_ms(torch, (lambda: a @ win) if kind == 0 else
+                           (lambda: torch.bmm(a_sub, g_sub)), reps=20)
+            nbytes = mask.numel() * 2 + kind * col.numel() * 4 + 2 * win.numel() * 2
+            flops = 2.0 * BD * BS * fc
+            b1, by1 = _bound(nbytes, flops, PEAK_BF16_FLOP_S)
+            bi, byi = _bound(nbytes, flops * 200, PEAK_BF16_FLOP_S)
+            say(f"[time] {card} | compact_item {name} fc={fc}: 1 iteration {t1:.5f} ms (bound "
+                f"{b1:.5f} by {by1}; plain {plain:.4f}; library none); 200 iterations "
+                f"{ti:.4f} ms (bound {bi:.4f} by {byi}), 400 {t2:.4f} ms, slope "
+                f"{slope * 1e3:.3f} us an iteration; torch.matmul on the pre-expanded bf16 A "
+                f"(the products alone) {yard:.5f} ms")
+            if (fc, kind) == (384, 1):
+                rows["compact_item"] = dict(ms=t1, plain_ms=plain, bound_ms=b1, bound_by=by1,
+                                            library_ms=None)
+    for k, w in wrappers.items():
+        w.launches = saved[k]
+    return rows
+
 
 def main():
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1463,7 +1763,7 @@ def main():
                    help="nodes of the products-degree graph of train_agg")
     p.add_argument("--epochs_agg", type=int, default=8, help="epochs of each train_agg run")
     p.add_argument("--only", type=str, default=None,
-                   help="comma-separated phases to run (agg, pad, quant, e2e, e2e_k, e2e_pad, "
+                   help="comma-separated phases to run (agg, pad, quant, gather, e2e, e2e_k, e2e_pad, "
                         "k1, train_k, train_pad, e2e_agg, train_agg); build always runs, and the "
                         "result lines print only for a full run")
     p.add_argument("--profile", action="store_true",
@@ -1497,6 +1797,9 @@ def main():
     agg_errs = run("agg", phase_agg, torch, SEED) if want("agg") else None
     pad_q_err, pad_d_err = run("pad", phase_pad, torch, SEED) if want("pad") else (None, None)
     pack_err, quant_err = run("quant", phase_quant, torch, SEED) if want("quant") else (None, None)
+    if want("gather"):
+        gather_errs, gather_l = run("gather", phase_gather, torch, SEED)
+        gtimes = run("time", phase_time_gather, torch, card, SEED)
     if want("e2e"):
         run("e2e", phase_e2e, torch, SEED)
     if want("e2e_k"):
@@ -1574,6 +1877,26 @@ def main():
          "source": "adaqp_tpu_torch/csrc/quant_rows.cu",
          "replaces": "adaqp_tpu/ops/quant_pallas.py:271",
          "launches": pad_d, "max_abs_err": max(pad_d_err, pad_path_err[1]), **ptimes[1]},
+        {"name": "ring_gather", "route": "cuda",
+         "source": "adaqp_tpu_torch/csrc/ring_gather.cu",
+         "replaces": "scripts/microbench_dma_gather.py:72",
+         "launches": gather_l["ring_gather"], "max_abs_err": gather_errs["ring_gather"],
+         **gtimes["ring_gather"]},
+        {"name": "window_gather", "route": "cuda",
+         "source": "adaqp_tpu_torch/csrc/window_gather.cu",
+         "replaces": "scripts/microbench_gather.py:72",
+         "launches": gather_l["microbench_gather.py:72"],
+         "max_abs_err": gather_errs["window_gather"], **gtimes["window_gather"]},
+        {"name": "window_gather_square", "route": "cuda",
+         "source": "adaqp_tpu_torch/csrc/window_gather.cu",
+         "replaces": "scripts/microbench_gather.py:130",
+         "launches": gather_l["microbench_gather.py:130"],
+         "max_abs_err": gather_errs["window_gather"], **gtimes["window_gather_square"]},
+        {"name": "compact_item", "route": "cuda",
+         "source": "adaqp_tpu_torch/csrc/compact_item.cu",
+         "replaces": "scripts/microbench_gather.py:212",
+         "launches": gather_l["microbench_gather.py:212"],
+         "max_abs_err": gather_errs["compact_item"], **gtimes["compact_item"]},
     ]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

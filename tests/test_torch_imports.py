@@ -28,7 +28,9 @@ def test_import_leaves_jax_out():
         "need = ['adaqp_tpu_torch.__main__', 'adaqp_tpu_torch.comm.exchange_ragged',\n"
         "        'adaqp_tpu_torch.ops.quant_cuda', 'adaqp_tpu_torch.assigner.profile',\n"
         "        'adaqp_tpu_torch.ops.spmm_compact', 'adaqp_tpu_torch.graph.compact_shards',\n"
-        "        'adaqp_tpu_torch.ops.spmm', 'adaqp_tpu_torch.comm.exchange']\n"
+        "        'adaqp_tpu_torch.ops.spmm', 'adaqp_tpu_torch.comm.exchange',\n"
+        "        'adaqp_tpu_torch.scripts.microbench_dma_gather',\n"
+        "        'adaqp_tpu_torch.scripts.microbench_gather']\n"
         "assert all(m in sys.modules for m in need), need\n"
         "from adaqp_tpu_torch.comm.exchange import exchange_fp, exchange_quant, padded_start\n"
         "from adaqp_tpu_torch.ops.quant_cuda import quant_rows, dequant_rows\n"
@@ -40,7 +42,8 @@ def test_import_leaves_jax_out():
         cwd=PKG.parent,
     ).stdout.split()
     assert int(out[0]) >= 30 and out[1] == "[]", out
-    for src in ("quant_rows.cu", "quant_pack.cu", "counter_hash.cuh"):
+    for src in ("quant_rows.cu", "quant_pack.cu", "counter_hash.cuh", "ring_gather.cu",
+                "window_gather.cu", "compact_item.cu"):
         assert (PKG / "csrc" / src).is_file(), src
 
 
