@@ -13,25 +13,26 @@
 // with a masked reduce, because Mosaic cannot slice one row of a tiled HBM
 // buffer (the script's docstring). Here each copy moves one row.
 //
-// The design. One warp per thread block owns a contiguous range of at most
-// kMaxRows output rows and walks k = 0 .. iters * rows - 1 (pass-major, as
-// the TPU's k walked passes of the chunk). Shared memory holds `depth` ring
-// slots of one row each, one mbarrier per slot, and the block's indices.
-// Lane 0 fills slot k % depth with one cp.async.bulk global -> shared copy
-// of row idx[k % rows] that completes on the slot's mbarrier (the
-// counterpart of make_async_copy plus a DMA semaphore); the warp waits on
-// that barrier (phase parity (k / depth) & 1), writes the slot to its
-// output row with 16-byte stores, and lane 0 then refills the slot with
-// copy k + depth. So each block keeps up to `depth` row copies in flight,
-// and the ring wraps across passes.
+// The design. One warp per thread block owns a contiguous range of
+// rows_per_block output rows and walks k = 0 .. iters * rows - 1 (pass-major,
+// as the TPU's k walked passes of the chunk). Shared memory holds `depth`
+// ring slots of one row each, one mbarrier per slot, and the block's
+// indices. Lane 0 fills slot k % depth with one cp.async.bulk global ->
+// shared copy of row idx[k % rows] that completes on the slot's mbarrier
+// (the counterpart of make_async_copy plus a DMA semaphore); the warp waits
+// on that barrier (phase parity (k / depth) & 1), writes the slot to its
+// output row with 16-byte stores, and lane 0 then refills the slot with copy
+// k + depth. So each block keeps min(depth, rows * iters) row copies in
+// flight, and the ring wraps across passes.
 //
-// One warp's wait / store / re-issue loop, not the copies in flight,
-// bounded the first version: with 32 rows a block (128 blocks for 4,096
-// rows) it gathered 1.6 ns a row at every depth from 4 to 64 (warm, L2-
-// resident; chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W), some 360
-// cycles a row per warp. So a block owns at most kMaxRows = 4 rows and
-// many warps share each SM: 4,096 rows run as 1,024 blocks. With fewer
-// rows than SMs the grid still takes a block a row.
+// The caller picks the grid (ring_plan in scripts/microbench_dma_gather.py):
+// one block over the whole chunk is the reference's form, `depth` copies in
+// flight for the stream; many blocks of a few rows each put
+// blocks * min(depth, rows * iters) copies in flight. One warp's wait /
+// store / re-issue loop bounds a block at some 360 cycles a row (1.6 ns a
+// row warm at 32 rows a block, chip_smoke.py on an NVIDIA H100 80GB HBM3 at
+// 700 W), so the many-block form runs 4 rows a block, 1,024 blocks for
+// 4,096 rows, and takes a block a row when there are fewer rows than SMs.
 //
 // What bounds it: bytes. Each row is read once and written once, with a
 // 4-byte index: chunk * (2 * row_bytes + 4) bytes a pass, 0.31 ns a row for
@@ -51,7 +52,6 @@
 namespace {
 
 constexpr int kThreads = 32;  // one warp a block
-constexpr int kMaxRows = 4;  // output rows a block owns at most
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -147,33 +147,32 @@ ring_gather_kernel(const uint8_t* h, const int32_t* idx, uint8_t* out, int chunk
 
 }  // namespace
 
-// Shared memory a launch takes at most: `depth` slots of `row_bytes` with
-// their barriers and kMaxRows indices. The wrapper checks it against the
+// Shared memory a launch takes: `depth` slots of `row_bytes` with their
+// barriers and rows_per_block indices. The wrapper checks it against the
 // card's 227 KB a block.
-extern "C" size_t adaqp_ring_gather_smem(int depth, int row_bytes) {
-  return ring_offset(depth, kMaxRows) + static_cast<size_t>(depth) * row_bytes;
+extern "C" size_t adaqp_ring_gather_smem(int depth, int row_bytes, int rows_per_block) {
+  return ring_offset(depth, rows_per_block) + static_cast<size_t>(depth) * row_bytes;
 }
 
 // h [n_rows, row_bytes] (any element type, row_bytes a multiple of 16 and
 // h 16-byte aligned); idx int32 [chunk] in [0, n_rows); out [chunk,
 // row_bytes], 16-byte aligned; iters >= 1 passes, depth >= 1 copies in
-// flight a block. Launches on `stream` of CUDA device `device` and returns
-// cudaGetLastError() (0 on success); it does not synchronise.
+// flight a block; `blocks` blocks of rows_per_block rows each (the last
+// may hold fewer; blocks * rows_per_block >= chunk). Launches on `stream`
+// of CUDA device `device` and returns cudaGetLastError() (0 on success),
+// or cudaErrorInvalidValue for a grid that does not cover the chunk; it
+// does not synchronise.
 extern "C" int adaqp_ring_gather(const void* h, const void* idx, void* out, int chunk,
-                                 int iters, int depth, int row_bytes, int device,
-                                 void* stream) {
+                                 int iters, int depth, int row_bytes, int blocks,
+                                 int rows_per_block, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (chunk <= 0) return 0;
-  int sms = 0;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  // at least one block an SM, at most kMaxRows rows a block
-  int blocks = (chunk + kMaxRows - 1) / kMaxRows;
-  if (blocks < sms) blocks = sms < chunk ? sms : chunk;
-  const int rows_per_block = (chunk + blocks - 1) / blocks;
-  blocks = (chunk + rows_per_block - 1) / rows_per_block;
-  const size_t smem = ring_offset(depth, rows_per_block) + static_cast<size_t>(depth) * row_bytes;
+  if (blocks < 1 || rows_per_block < 1 ||
+      static_cast<long long>(blocks) * rows_per_block < chunk) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem = adaqp_ring_gather_smem(depth, row_bytes, rows_per_block);
   err = cudaFuncSetAttribute(ring_gather_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -260,12 +260,15 @@ def expand_masks(words: torch.Tensor) -> torch.Tensor:
 
 
 def run_tiles_torch(masks: torch.Tensor, src_start: torch.Tensor, tile_dst: torch.Tensor,
-                    n_pad: int, h: torch.Tensor) -> torch.Tensor:
+                    n_pad: int, h: torch.Tensor,
+                    expand: Callable[[torch.Tensor], torch.Tensor] = expand_masks,
+                    ) -> torch.Tensor:
     """Plain ``A^T h`` over the first ``len(tile_dst)`` tiles: expand each
-    tile's bits, multiply with its source window in f32, ``index_add_`` into
-    the f32 output at its destination block, and round once to ``h.dtype``.
-    Tiles go ``_PLAIN_TILES`` at a time, so all masks are never expanded at
-    once; no tile gives zeros."""
+    tile's bits (``expand``: int16 [c, BD, WORDS] -> f32 [c, BD, BS]),
+    multiply with its source window in f32, ``index_add_`` into the f32
+    output at its destination block, and round once to ``h.dtype``. Tiles
+    go ``_PLAIN_TILES`` at a time, so all masks are never expanded at once;
+    no tile gives zeros."""
     dev, f = h.device, h.shape[1]
     out = torch.zeros((n_pad, f), dtype=torch.float32, device=dev)
     win = torch.arange(BS, device=dev)
@@ -273,7 +276,7 @@ def run_tiles_torch(masks: torch.Tensor, src_start: torch.Tensor, tile_dst: torc
     tile_dst = tile_dst.to(dev, torch.int64)
     for s in range(0, tile_dst.numel(), _PLAIN_TILES):
         e = min(s + _PLAIN_TILES, tile_dst.numel())
-        a = expand_masks(masks[s:e].to(dev))
+        a = expand(masks[s:e].to(dev))
         src_rows = src_start[s:e].to(dev, torch.int64)[:, None] + win
         tile_out = torch.bmm(a, h[src_rows].to(torch.float32))  # [c, BD, F]
         dst_rows = (tile_dst[s:e, None] * BD + rows).reshape(-1)

@@ -5,8 +5,10 @@ hand-written CUDA kernel on a CUDA tensor and runs its plain PyTorch
 version on a CPU tensor, with a launch count) and a ``main()`` that prints
 the probe's lines:
 
-    python -m adaqp_tpu_torch.scripts.microbench_dma_gather [--f32] [--device cpu]
+    python -m adaqp_tpu_torch.scripts.microbench_dma_gather [--f32] [--many_blocks] [--device cpu]
     python -m adaqp_tpu_torch.scripts.microbench_gather [--iters N] [--device cpu]
+    python -m adaqp_tpu_torch.scripts.microbench_expand [--f 640] [--n N --e E] [--device cpu]
+    python -m adaqp_tpu_torch.scripts.probe_r5 [--device cpu]
 
 The mains run on the CUDA card unless ``--device cpu`` is given, and raise
 where the script they replace printed ``FAILED`` and went on.

@@ -10,8 +10,14 @@ slot). It asks how fast the card gathers rows by index, and how much index
 locality (uniform, sorted or banded indices) matters, against the library
 gather (``index_select`` summed over the same passes).
 
+The grid is a second knob (:func:`ring_plan`): by default the reference's
+form, one program keeping ``depth`` copies in flight over the whole
+stream; ``--many_blocks`` the many-block form, 4 rows a block. Each line
+prints the copies in flight for the stream.
+
     python -m adaqp_tpu_torch.scripts.microbench_dma_gather            # bf16
     python -m adaqp_tpu_torch.scripts.microbench_dma_gather --f32      # and f32
+    python -m adaqp_tpu_torch.scripts.microbench_dma_gather --many_blocks
     python -m adaqp_tpu_torch.scripts.microbench_dma_gather --device cpu --f 8
 
 Flags take the place of the script's environment variables: ``--iters``
@@ -38,6 +44,7 @@ N = 233_472        # source rows (Reddit scale)
 CHUNK = 4096       # gathered rows a pass
 DEPTHS = (4, 8, 16, 32, 64)
 MAX_SMEM = 227 * 1024  # shared memory a block can use on Hopper
+ROWS_A_BLOCK = 4  # rows a block owns in the many-block form
 
 
 def idx_variants(rng: np.random.Generator, n: int = N, chunk: int = CHUNK) -> dict:
@@ -53,6 +60,28 @@ def idx_variants(rng: np.random.Generator, n: int = N, chunk: int = CHUNK) -> di
     }
 
 
+def ring_plan(chunk: int, iters: int, depth: int, many_blocks: bool = False,
+              sms: int = 1) -> tuple:
+    """``(blocks, rows a block, copies in flight)`` of one launch.
+
+    By default the reference's form: one block over the whole stream.
+    ``many_blocks``: ``ROWS_A_BLOCK`` rows a block, and at least one block
+    an SM (``sms``) while rows last. A block keeps ``min(depth, its rows *
+    iters)`` row copies in flight; the third entry sums them over blocks."""
+    if chunk <= 0:
+        return 0, 0, 0
+    blocks = 1
+    if many_blocks:
+        blocks = -(-chunk // ROWS_A_BLOCK)
+        if blocks < sms:
+            blocks = min(sms, chunk)
+    rows = -(-chunk // blocks)
+    blocks = -(-chunk // rows)
+    last = chunk - (blocks - 1) * rows
+    in_flight = (blocks - 1) * min(depth, rows * iters) + min(depth, last * iters)
+    return blocks, rows, in_flight
+
+
 def _ring_gather_torch(h: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return h.index_select(0, idx)
 
@@ -63,42 +92,52 @@ def _lib() -> ctypes.CDLL:
     lib = load_library("ring_gather")
     if lib.adaqp_ring_gather.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.adaqp_ring_gather.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, vp]
+        lib.adaqp_ring_gather.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, vp]
         lib.adaqp_ring_gather.restype = ci
-        lib.adaqp_ring_gather_smem.argtypes = [ci, ci]
+        lib.adaqp_ring_gather_smem.argtypes = [ci, ci, ci]
         lib.adaqp_ring_gather_smem.restype = ctypes.c_size_t
         lib.adaqp_ring_gather_error_string.argtypes = [ci]
         lib.adaqp_ring_gather_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _ring_gather_cuda(h, idx, iters, depth):
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device (1 for the CPU)."""
+    if device.type != "cuda":
+        return 1
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _ring_gather_cuda(h, idx, iters, depth, many_blocks):
     chunk, row_bytes = idx.numel(), h.shape[1] * h.element_size()
     out = torch.empty((chunk, h.shape[1]), dtype=h.dtype, device=h.device)
     if chunk == 0:
         return out
     if h.data_ptr() % 16 or out.data_ptr() % 16:
         raise ValueError("ring_gather's bulk copies need 16-byte-aligned h and out")
+    grid, rows, _ = ring_plan(chunk, iters, depth, many_blocks, sm_count(h.device))
     lib = _lib()
-    smem = lib.adaqp_ring_gather_smem(depth, row_bytes)
+    smem = lib.adaqp_ring_gather_smem(depth, row_bytes, rows)
     if smem > MAX_SMEM:
-        raise ValueError(f"depth {depth} of {row_bytes}-byte rows needs {smem} bytes of "
-                         f"shared memory, more than a block's {MAX_SMEM}")
+        raise ValueError(f"depth {depth} of {row_bytes}-byte rows and {rows} rows a block need "
+                         f"{smem} bytes of shared memory, more than a block's {MAX_SMEM}")
     rc = lib.adaqp_ring_gather(
-        h.data_ptr(), idx.data_ptr(), out.data_ptr(), chunk, iters, depth, row_bytes,
-        h.device.index, torch.cuda.current_stream(h.device).cuda_stream,
+        h.data_ptr(), idx.data_ptr(), out.data_ptr(), chunk, iters, depth, row_bytes, grid,
+        rows, h.device.index, torch.cuda.current_stream(h.device).cuda_stream,
     )
     raise_on(lib.adaqp_ring_gather_error_string, rc, "ring_gather")
     ring_gather.launches += 1
     return out
 
 
-def ring_gather(h: torch.Tensor, idx: torch.Tensor, iters: int, depth: int) -> torch.Tensor:
+def ring_gather(h: torch.Tensor, idx: torch.Tensor, iters: int, depth: int,
+                many_blocks: bool = False) -> torch.Tensor:
     """``h[idx]`` for contiguous 2-D ``h`` and int32 ``idx`` [chunk] in
     ``[0, h.shape[0])``, computed ``iters`` times over in one launch with
-    ``depth`` row copies in flight per thread block. Rows must be a
-    multiple of 16 bytes (the bulk copy's unit). An empty ``idx`` launches
-    nothing.
+    ``depth`` row copies in flight per thread block, on the grid of
+    :func:`ring_plan` (one block over the whole stream, the reference's
+    form; ``many_blocks``: 4 rows a block). Rows must be a multiple of 16
+    bytes (the bulk copy's unit). An empty ``idx`` launches nothing.
 
     CUDA ``h``: the kernel (one more ``ring_gather.launches`` per launch);
     the indices are trusted, as by the library's gather on the card. CPU
@@ -114,7 +153,7 @@ def ring_gather(h: torch.Tensor, idx: torch.Tensor, iters: int, depth: int) -> t
     if iters < 1 or depth < 1:
         raise ValueError(f"iters ({iters}) and depth ({depth}) must be at least 1")
     if h.device.type == "cuda":
-        return _ring_gather_cuda(h, idx.contiguous(), iters, depth)
+        return _ring_gather_cuda(h, idx.contiguous(), iters, depth, many_blocks)
     if h.device.type == "cpu":
         return _ring_gather_torch(h, idx)
     raise ValueError(f"no ring_gather for device {h.device}")
@@ -138,6 +177,9 @@ def main(argv=None) -> dict:
     p.add_argument("--iters", type=int, default=50, help="passes over the chunk in one call")
     p.add_argument("--f", type=int, default=256, help="columns of h")
     p.add_argument("--f32", action="store_true", help="also run f32 rows after bf16")
+    p.add_argument("--many_blocks", action="store_true",
+                   help="the many-block form, 4 rows a block (default: the reference's one "
+                        "program over the stream)")
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: the CUDA card; raises without one)")
     p.add_argument("--seed", type=int, default=0)
@@ -160,13 +202,15 @@ def main(argv=None) -> dict:
             want = ring_gather(h_host, i_host, 1, 1)  # the plain version, on the host
             i = i_host.to(dev)
             for depth in DEPTHS:
-                ok = torch.equal(ring_gather(h, i, iters, depth).cpu(), want)
+                ok = torch.equal(ring_gather(h, i, iters, depth, args.many_blocks).cpu(), want)
                 if not ok:
                     raise RuntimeError(f"ring_gather {name} {vname} depth={depth} differs "
                                        "from h[idx]")
-                t = time_call(lambda: ring_gather(h, i, iters, depth), dev)
-                print(f"ring gather {name} {vname:8s} depth={depth:3d}: "
-                      f"{t / (iters * CHUNK) * 1e9:7.1f} ns/row  correct={ok}", flush=True)
+                t = time_call(lambda: ring_gather(h, i, iters, depth, args.many_blocks), dev)
+                grid, _, flight = ring_plan(CHUNK, iters, depth, args.many_blocks, sm_count(dev))
+                print(f"ring gather {name} {vname:8s} depth={depth:3d} blocks={grid:4d} "
+                      f"in_flight={flight:5d}: {t / (iters * CHUNK) * 1e9:7.1f} ns/row  "
+                      f"correct={ok}", flush=True)
         if not args.f32:
             break
     return {"ring_gather": ring_gather.launches - before}

@@ -16,14 +16,22 @@ ragged wire and, with the breakdown probe on, on the padded dense wire
 -> 47) at K=1 through each aggregation (``spmm_impl`` strip, block,
 compact, segment). It checks that each training ran through the kernels
 (their launch counts), and times every kernel beside its bound, its plain
-version and a library call where one exists. It also drives the gather
-micro-benchmarks (``python -m adaqp_tpu_torch.scripts.microbench_dma_gather``
-and ``...microbench_gather``) through their mains. Phases: env, build, agg
+version and a library call where one exists. It also drives the probes of
+``adaqp_tpu_torch.scripts`` (``microbench_dma_gather``, ``microbench_gather``,
+``microbench_expand``, ``probe_r5``) through their mains, and runs the
+card-only pytest cases. Phases: env, build, agg
 (block_spmm, compact_spmm and gather_rows), pad (quant_rows and
 dequant_rows), quant (quant_pack and unpack_dequant), gather (ring_gather,
 window_gather and compact_item against their plain versions, the two
 mains with their launches checked, then each kernel timed with its
-per-iteration slope, ring_gather also with L2 flushed), setup, kernel
+per-iteration slope, ring_gather also with L2 flushed, one block over the
+stream and many), expand (expand_spmm's four variants against their plain
+versions, its main on a Reddit-degree layout of 32,768 nodes, 2,048 dense
+tiles (``--full``: Reddit's size), then each variant timed beside
+block_spmm, torch.sparse.mm and its bound), r5 (transpose_u32 bit for bit
+and timed, then the probe's main with its scatter and plane lines),
+gpu_tests (``pytest -m gpu tests/test_torch_gpu.py`` in a subprocess,
+every case passed and none skipped), setup, kernel
 (strip SpMM), e2e (a small K=1 run on the card against the same run on
 the CPU), e2e_k (the same at K=2, Vanilla and AdaQP), e2e_pad (e2e_k on
 the padded wire), train (K=1), train_k (K=4), train_pad (K=4 AdaQP on the
@@ -105,7 +113,8 @@ def phase_build():
 
     t0 = time.perf_counter()
     logs = build(["spmm_strip", "quant_pack", "quant_rows", "spmm_block", "spmm_compact",
-                  "ring_gather", "window_gather", "compact_item"])
+                  "ring_gather", "window_gather", "compact_item", "expand_tile",
+                  "transpose_u32"])
     say(f"[build] nvcc sm_90a: {time.perf_counter() - t0:.1f} s")
     for name, log in logs.items():
         for line in log.splitlines():
@@ -113,11 +122,16 @@ def phase_build():
                 say(f"[build] {name}: {line.strip()}")
 
 
-def cuda_ms(torch, fn, reps, warmup=2):
-    """Mean milliseconds per call from CUDA events around ``reps`` calls."""
+def cuda_ms(torch, fn, reps, warmup=2, backlog=False):
+    """Mean milliseconds per call from CUDA events around ``reps`` calls.
+    ``backlog``: queue them behind a spin of some 10 ms on the card, so
+    that calls shorter than their host time run back to back and the
+    events read the card's time, not the host's."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    if backlog:
+        torch.cuda._sleep(20_000_000)  # clock cycles
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     a.record()
     for _ in range(reps):
@@ -1484,7 +1498,8 @@ def _item_inputs(torch, rng, gen, fc):
 
 def phase_gather(torch, seed):
     """The gather probes' kernels against their plain versions on the card:
-    ring_gather bit for bit with h[idx] at every depth 1/4/8/16/32/64, idx
+    ring_gather bit for bit with h[idx] at every depth 1/4/8/16/32/64, in
+    the many-block form and as one block over the stream, idx
     uniform, sorted, banded and rows 0 and N-1 alternating, bf16 and f32, F
     256 and 640, chunk 8 and 4,096, one to three passes, and an empty idx;
     window_gather bit for bit with its torch.gather loop over axis 0 and 1,
@@ -1522,11 +1537,13 @@ def phase_gather(torch, seed):
                     want = dg._ring_gather_torch(h, i)
                     for depth in (1, 4, 8, 16, 32, 64):
                         iters = 1 + depth % 3  # 1 to 3 passes: the ring wraps across them
-                        got = dg.ring_gather(h, i, iters, depth)
-                        worst("ring_gather", got, want)
-                        check(torch.equal(got, want), f"ring_gather {str(dtype)[6:]} F={f} "
-                              f"chunk={chunk} {vname} depth={depth}: differs from h[idx]")
-                        cases += 1
+                        for many in (True, False):  # many blocks; one over the stream
+                            got = dg.ring_gather(h, i, iters, depth, many)
+                            worst("ring_gather", got, want)
+                            check(torch.equal(got, want), f"ring_gather {str(dtype)[6:]} F={f} "
+                                  f"chunk={chunk} {vname} depth={depth} many_blocks={many}: "
+                                  "differs from h[idx]")
+                            cases += 1
     before = dg.ring_gather.launches
     got = dg.ring_gather(h, torch.empty(0, dtype=torch.int32, device="cuda"), 1, 4)
     check(got.shape == (0, h.shape[1]) and dg.ring_gather.launches == before,
@@ -1582,7 +1599,8 @@ def phase_gather(torch, seed):
     said = {**dg.main([]), **gb.main([])}
     torch.cuda.synchronize()
     launches = {k: w.launches for k, w in wrappers.items()}
-    # dma: one dtype x two idx x five depths; gather: sections of 2 + 3 and
+    # dma: one dtype x two idx x five depths, one block over the stream (the
+    # main's default, the reference's form); gather: sections of 2 + 3 and
     # 8 windows, 4 items; each a timed call, its warm-up and a check
     plan = {"ring_gather": 30, "microbench_gather.py:72": 15,
             "microbench_gather.py:130": 24, "microbench_gather.py:212": 12}
@@ -1623,7 +1641,9 @@ def phase_time_gather(torch, card, seed):
     per-iteration slope (t(2I) - t(I)) / I, which must be nonzero (work
     hoisted out of the loop would make it vanish). ring_gather warm (I =
     50 passes over the same 4,096 rows, L2-resident) and cold (one pass,
-    L2 flushed) at every depth and index locality."""
+    L2 flushed) at every depth and index locality, as one block over the
+    stream (the reference's form, depths 4-64) and as many blocks of 4
+    rows, each time beside the copies in flight for the stream."""
     import numpy as np
 
     from adaqp_tpu_torch.ops.spmm_block import expand_masks
@@ -1644,6 +1664,7 @@ def phase_time_gather(torch, card, seed):
     bound_ms, bound_by = _bound(chunk * (2 * row_b + 4), 0, 1)
     say(f"[time] {card} | ring_gather bf16 [{chunk}, {f}] of [{dg.N}]: bound {bound_ms:.5f} ms a "
         f"pass by bytes ({bound_ms * 1e6 / chunk:.3f} ns/row)")
+    sms = dg.sm_count(h.device)
     cold = {}
     for vname, vi in dg.idx_variants(rng, dg.N, chunk).items():
         i = torch.from_numpy(vi).cuda()
@@ -1652,23 +1673,36 @@ def phase_time_gather(torch, card, seed):
         say(f"[time] {card} | ring_gather {vname:8s} torch.index_select (plain and library) cold "
             f"{lib:.5f} ms a pass; the script's library loop warm {warm_lib * 1e6:.3f} ns/row")
         cold[(vname, "index_select")] = lib
-        for depth in (1, 4, 8, 16, 32, 64):
-            c = _cold_ms(torch, lambda: dg.ring_gather(h, i, 1, depth))
-            cold[(vname, depth)] = c
-            line = f"[time] {card} | ring_gather {vname:8s} depth={depth:2d}: cold {c:.5f} ms a pass"
-            if depth > 1:
-                t1 = cuda_ms(torch, lambda: dg.ring_gather(h, i, 50, depth), reps=5)
-                t2 = cuda_ms(torch, lambda: dg.ring_gather(h, i, 100, depth), reps=5)
-                slope = (t2 - t1) / 50
-                check(slope > 0.05 * t1 / 50, f"ring_gather depth={depth}: the slope {slope:g} "
-                      "ms a pass is near zero: work left the loop")
-                line += (f"; warm {t1 / (50 * chunk) * 1e6:.3f} ns/row at 50 passes "
-                         f"({t1:.4f} ms), 100 passes {t2:.4f} ms, slope {slope * 1e3:.3f} us a pass")
-            say(line)
-    # the kernels line: uniform idx at depth 4, where a block's four rows of
-    # a pass are all in flight
+        # the reference's form (one block keeps `depth` copies in flight for
+        # the stream) at its depths, then the many-block form (4 rows a block)
+        for many, depths in ((False, (4, 8, 16, 32, 64)), (True, (1, 4, 8, 16, 32, 64))):
+            for depth in depths:
+                c = _cold_ms(torch, lambda: dg.ring_gather(h, i, 1, depth, many))
+                cold[(vname, many, depth)] = c
+                grid, _, flight = dg.ring_plan(chunk, 1, depth, many, sms)
+                line = (f"[time] {card} | ring_gather {vname:8s} blocks={grid:4d} "
+                        f"depth={depth:2d}: cold {c:.5f} ms a pass, {flight} in flight")
+                if depth > 1:
+                    # a many-block call of 0.05-0.1 ms is as short as its
+                    # host time: queued behind a spin, the calls run back to
+                    # back and a slow host call does not swamp the slope
+                    reps = 20 if many else 3
+                    t1 = cuda_ms(torch, lambda: dg.ring_gather(h, i, 50, depth, many),
+                                 reps=reps, backlog=True)
+                    t2 = cuda_ms(torch, lambda: dg.ring_gather(h, i, 100, depth, many),
+                                 reps=reps, backlog=True)
+                    slope = (t2 - t1) / 50
+                    check(slope > 0.05 * t1 / 50, f"ring_gather blocks={grid} depth={depth}: "
+                          f"the slope {slope:g} ms a pass is near zero: work left the loop")
+                    flight50 = dg.ring_plan(chunk, 50, depth, many, sms)[2]
+                    line += (f"; warm {t1 / (50 * chunk) * 1e6:.3f} ns/row at 50 passes "
+                             f"({t1:.4f} ms, {flight50} in flight), 100 passes {t2:.4f} ms, "
+                             f"slope {slope * 1e3:.3f} us a pass")
+                say(line)
+    # the kernels line: uniform idx in the main's form, one block over the
+    # stream, at its deepest ring
     lib = cold[("uniform", "index_select")]
-    rows["ring_gather"] = dict(ms=cold[("uniform", 4)], plain_ms=lib, bound_ms=bound_ms,
+    rows["ring_gather"] = dict(ms=cold[("uniform", False, 64)], plain_ms=lib, bound_ms=bound_ms,
                                bound_by=bound_by, library_ms=lib)
 
     def window_case(tag, x, ii, axis, iters_i=200):
@@ -1747,10 +1781,261 @@ def phase_time_gather(torch, card, seed):
     return rows
 
 
+# the Reddit-degree layout of the expand probe's timing: 32,768 nodes at
+# Reddit's mean degree (2,048 dense tiles); --full: Reddit's own size
+EXPAND_N = 32_768
+EXPAND_ITERS = 5  # the script's --iters
+
+
+def _hold_expand(torch, me, lay, h, variant, tag):
+    """expand_spmm (one launch, not counted) against its plain version, both
+    bf16: within F32_ATOL + 2^-7 |plain| + F32_RTOL times the sum of the
+    terms' magnitudes (exact products summed in f32 in another order, the
+    tensor cores', then each sum rounded once to bf16; v3's products reach
+    3e4 |h| and cancel). Returns max |kernel - plain|."""
+    saved = me.expand_spmm.launches
+    got = me.expand_spmm(lay, h, variant)
+    torch.cuda.synchronize()
+    check(me.expand_spmm.launches == saved + 1, f"expand_spmm {tag}: the kernel did not launch")
+    me.expand_spmm.launches = saved
+    want = me._run_expand_torch(lay, h, variant).float()
+    err = (got.float() - want).abs()
+    tol = F32_ATOL + BF16_RTOL * want.abs() + F32_RTOL * me.term_magnitudes(lay, h, variant)
+    ratio = float((err / tol).max())
+    check(ratio <= 1.0, f"expand_spmm {tag}: disagrees with the plain version "
+          f"({ratio:.3f} of the limit)")
+    say(f"[expand] {tag}: max |kernel - plain| {float(err.max()):.3g}, {ratio:.3f} of "
+        "F32_ATOL + 2^-7 |plain| + F32_RTOL sum|terms|")
+    return float(err.max())
+
+
+def phase_expand(torch, args):
+    """expand_spmm's four variants against their plain versions, one pass
+    each: on a small layout (a random 5,000-node graph, F=128 and 640, with
+    and without the all-zero tiles that cover destination blocks with no
+    dense tile, so a block with no tiles must give zeros) and on the
+    Reddit-degree layout at F=640 (the main's shapes; built here and kept
+    for the timing); then the script's main at that size, with its
+    launches checked against the plan. Returns (max |kernel - plain|, the
+    main's launches, the device layout, host seconds of its build)."""
+    import numpy as np
+
+    from adaqp_tpu_torch.ops import spmm_block as sb
+    from adaqp_tpu_torch.scripts import microbench_expand as me
+
+    rng = np.random.default_rng(SEED)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    worst = dict.fromkeys(me.VARIANTS, 0.0)  # max |kernel - plain| a variant
+    n = 5000
+    src = rng.integers(0, n, 200_000).astype(np.int32)
+    dst = np.where(rng.random(200_000) < 0.7, (src + rng.integers(-300, 300, 200_000)) % n,
+                   rng.integers(0, n, 200_000)).astype(np.int32)
+    lay = sb.block_layout(src, dst, n, min_edges=64).to_device("cuda")
+    keep = lay.masks.flatten(1).any(dim=1)
+    t = int(lay.blk_ptr[-1])
+    keep[t:] = False
+    dst_blk = lay.dst_blk[keep]
+    holed = sb.BlockDevice(lay.n, lay.n_pad, lay.n_src_pad, lay.masks[keep].contiguous(),
+                           lay.src_start[keep].contiguous(), dst_blk.contiguous(),
+                           torch.as_tensor(sb.block_pointers(dst_blk.cpu().numpy(), lay.n_pad),
+                                           device="cuda"), None)
+    empty = (holed.blk_ptr[1:] == holed.blk_ptr[:-1]).nonzero().flatten()
+    check(empty.numel() > 0 and int(holed.blk_ptr[-1]) > lay.n_pad // sb.BD,
+          "the holed layout has no empty destination block, or too few tiles")
+    for f in (128, 640):
+        h = torch.randn(lay.n_pad, f, generator=gen, device="cuda").to(torch.bfloat16)
+        for variant in me.VARIANTS:
+            worst[variant] = max(worst[variant], _hold_expand(
+                torch, me, lay, h, variant, f"{variant} {t} tiles F={f}"))
+            worst[variant] = max(worst[variant], _hold_expand(
+                torch, me, holed, h, variant, f"{variant} {int(holed.blk_ptr[-1])} tiles, "
+                f"{empty.numel()} empty blocks, F={f}"))
+        rows = (empty[:, None] * sb.BD + torch.arange(sb.BD, device="cuda")).flatten()
+        check(not me.expand_spmm(holed, h, "v0")[rows].any(),
+              "expand_spmm: a destination block without tiles is not zero")
+
+    from adaqp_tpu_torch.helper.dataset import REDDIT_E, REDDIT_N
+
+    n_e = REDDIT_N if args.full else EXPAND_N
+    e_e = REDDIT_E if args.full else n_e * round(REDDIT_E / REDDIT_N)
+    cache = os.path.join(WORK, "expand_cache")
+    host, secs, hit = me.reddit_layout(n_e, e_e, SEED, torch.device("cuda"), cache)
+    check(not hit, "the expand layout came from an old cache")
+    say(f"[expand] layout n={n_e} e={e_e}: {host.masks.shape[0]} tiles, built on the host in "
+        f"{secs:.1f} s (synth_reddit on the card, block_layout in numpy); cached for the main")
+    dev = host.to_device("cuda")
+    # one pass of every variant at the main's shapes: this layout, F=640
+    h = torch.randn(dev.n_pad, 640, generator=gen, device="cuda").to(torch.bfloat16)
+    for variant in me.VARIANTS:
+        worst[variant] = max(worst[variant], _hold_expand(
+            torch, me, dev, h, variant, f"{variant} Reddit-degree layout F=640"))
+    del h
+    say("[expand] max |kernel - plain| a variant over these comparisons: "
+        + ", ".join(f"{v} {e:.3g}" for v, e in worst.items()))
+
+    # the main path: the script's main at the Reddit-degree size
+    me.expand_spmm.launches = 0
+    said = me.main(["--n", str(n_e), "--e", str(e_e), "--f", "640",
+                    "--iters", str(EXPAND_ITERS), "--cache_dir", cache])
+    torch.cuda.synchronize()
+    launches = me.expand_spmm.launches
+    plan = 4 * 2 * EXPAND_ITERS  # four variants, a warm-up and a timed chain each
+    check(said == {"expand_spmm": plan} and launches == plan,
+          f"the main launched expand_spmm {launches} times ({said}), planned {plan}")
+    say(f"[expand] main launched expand_spmm {launches} times as planned")
+    return worst, launches, dev, secs
+
+
+def phase_time_expand(torch, card, dev, host_s):
+    """Each variant at F=640 on the Reddit-degree layout: one pass (CUDA
+    events) beside the bound of the function A^T h (the masks, index
+    arrays, the h rows the edges read and out once at the memory rate, or
+    the edges' products at the bf16 rate, as for block_spmm), the dense
+    tiles' tensor-core time (every tile's 256 x 2048 x F product at the
+    bf16 rate: the floor of this design, not of the function), the plain
+    version, block_spmm (the set-bit walk) and torch.sparse.mm of the
+    tiles' edges; and the per-pass slope of chains of I and 2I passes,
+    which must be nonzero."""
+    from adaqp_tpu_torch.ops import spmm_block as sb
+    from adaqp_tpu_torch.scripts import microbench_expand as me
+
+    saved = (me.expand_spmm.launches, sb.block_spmm.launches)
+    f = 640
+    t = int(dev.blk_ptr[-1])
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    h = torch.randn(dev.n_pad, f, generator=gen, device="cuda").to(torch.bfloat16)
+    csr, nnz = tile_csr(torch, dev, torch.bfloat16)
+    h_rows = int(torch.unique(csr.col_indices()).numel())
+    nbytes = (t * sb.BD * sb.WORDS * 2 + t * 4 + dev.blk_ptr.numel() * 4
+              + h_rows * f * 2 + dev.n_pad * f * 2)
+    bound_ms, bound_by = _bound(nbytes, 2.0 * nnz * f, PEAK_BF16_FLOP_S)
+    dense_flops = 2.0 * sb.BD * sb.BS * f * t
+    dense_ms = dense_flops / PEAK_BF16_FLOP_S * 1e3
+    walk = cuda_ms(torch, lambda: sb.block_spmm(dev, h), reps=10)
+    lib = cuda_ms(torch, lambda: torch.sparse.mm(csr, h), reps=10)
+    del csr
+    say(f"[time] {card} | expand layout n_pad={dev.n_pad}: {t} tiles, {nnz} tile edges "
+        f"({nnz / (t * sb.BD * sb.BS):.4%} dense), {h_rows} source rows read, host build "
+        f"{host_s:.1f} s; F={f}: bound of A^T h {bound_ms:.4f} ms by {bound_by} "
+        f"({nbytes / 1e9:.3f} GB, {2.0 * nnz * f / 1e12:.4f} TFLOP); dense tiles on the tensor "
+        f"cores {dense_ms:.4f} ms ({dense_flops / 1e12:.3f} TFLOP); block_spmm (set-bit walk) "
+        f"{walk:.4f} ms; torch.sparse.mm {lib:.4f} ms")
+    rows = {}
+
+    def chain(variant, passes):
+        cur = h
+        for _ in range(passes):
+            cur = me.expand_spmm(dev, cur, variant)
+        return cur
+
+    for variant in me.VARIANTS:
+        ms = cuda_ms(torch, lambda: me.expand_spmm(dev, h, variant), reps=10)
+        ti = cuda_ms(torch, lambda: chain(variant, EXPAND_ITERS), reps=3)
+        t2 = cuda_ms(torch, lambda: chain(variant, 2 * EXPAND_ITERS), reps=3)
+        slope = (t2 - ti) / EXPAND_ITERS
+        check(slope > 0.05 * ti / EXPAND_ITERS, f"expand_spmm {variant}: the slope {slope:g} ms "
+              "a pass is near zero: work left the loop")
+        plain = cuda_ms(torch, lambda: me._run_expand_torch(dev, h, variant), reps=2, warmup=1)
+        say(f"[time] {card} | expand_spmm {variant} F={f}: {ms:.4f} ms a pass "
+            f"({ms / t * 1e3:.3f} us a tile; {bound_ms / ms:.2%} of the bound of A^T h, "
+            f"{dense_ms / ms:.1%} of the dense tiles' tensor-core time, "
+            f"{walk / ms:.2f}x block_spmm's speed); chains of {EXPAND_ITERS} / "
+            f"{2 * EXPAND_ITERS} passes {ti:.3f} / {t2:.3f} ms, slope {slope:.4f} ms a pass; "
+            f"plain {plain:.2f} ms")
+        rows[variant] = dict(ms=ms, plain_ms=plain, bound_ms=bound_ms, bound_by=bound_by,
+                             library_ms=lib)
+    me.expand_spmm.launches, sb.block_spmm.launches = saved
+    return rows
+
+
+# the transpose's shapes: the probe's, odd ones, and the wire's (the plane
+# probe's k1 * cnt rows of wpr = 25 words)
+TRANSPOSE_SHAPES = ((4096, 25), (1, 1), (33, 31), (1000, 7), (7, 1000), (4097, 65),
+                    (100_003, 25), (1_856_512, 25))
+
+
+def phase_r5(torch, card):
+    """transpose_u32 bit for bit with x.t().contiguous() at the probe's
+    shape, odd shapes and the wire's; its time at the probe's and the
+    wire's shapes beside its byte bound and the plain (and library) call;
+    then the script's main at its own sizes (the scatter and plane lines),
+    with its launches checked."""
+    from adaqp_tpu_torch.scripts import probe_r5 as pr
+
+    saved = pr.transpose_u32.launches
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    xs, err = {}, 0.0
+    for shape in TRANSPOSE_SHAPES:
+        x = torch.randint(-2**31, 2**31 - 1, shape, generator=gen, device="cuda",
+                          dtype=torch.int32)
+        before = pr.transpose_u32.launches
+        got = pr.transpose_u32(x)
+        torch.cuda.synchronize()
+        check(pr.transpose_u32.launches == before + 1, f"transpose_u32 {shape}: no launch")
+        want = pr._transpose_torch(x)
+        if got.numel():
+            err = max(err, float((got.long() - want.long()).abs().max()))
+        check(torch.equal(got, want), f"transpose_u32 {list(shape)}: differs from "
+              "x.t().contiguous()")
+        xs[shape] = x
+    say(f"[r5] transpose_u32: {len(TRANSPOSE_SHAPES)} shapes equal x.t().contiguous() bit for bit "
+        f"({', '.join(str(list(s)) for s in TRANSPOSE_SHAPES)})")
+    rows = {}
+    for shape in ((4096, 25), (1_856_512, 25)):
+        x = xs[shape]
+        ms = cuda_ms(torch, lambda: pr.transpose_u32(x), reps=20)
+        plain = cuda_ms(torch, lambda: pr._transpose_torch(x), reps=20)
+        bound_ms, bound_by = _bound(2 * x.numel() * 4, 0, 1)
+        say(f"[time] {card} | transpose_u32 {list(shape)} u32: {ms:.5f} ms (bound {bound_ms:.5f} "
+            f"by {bound_by}, {bound_ms / ms:.1%} of it); x.t().contiguous() (plain and library) "
+            f"{plain:.5f} ms")
+        rows[shape] = dict(ms=ms, plain_ms=plain, bound_ms=bound_ms, bound_by=bound_by,
+                           library_ms=plain)
+    pr.transpose_u32.launches = saved
+    del xs
+
+    # the main path: the script's main at its own sizes
+    pr.transpose_u32.launches = 0
+    said = pr.main([])
+    torch.cuda.synchronize()
+    launches = pr.transpose_u32.launches
+    check(said == {"transpose_u32": 1} and launches == 1,
+          f"the main launched transpose_u32 {launches} times ({said}), planned 1")
+    say("[r5] main launched transpose_u32 once, as planned")
+    return launches, err, rows[(1_856_512, 25)]
+
+
+def phase_gpu_tests():
+    """The card-only pytest cases (tests/test_torch_gpu.py; no JAX, no
+    conftest) in a subprocess: fails on a nonzero exit, on any skip, or on
+    fewer passes than the file's collected cases."""
+    import re
+
+    base = [sys.executable, "-m", "pytest", "--noconftest", "-p", "no:cacheprovider", "-m", "gpu"]
+    test = os.path.join("tests", "test_torch_gpu.py")
+    # pytest.ini's -q already makes --collect-only print one line a case
+    col = subprocess.run(base + ["--collect-only", test], cwd=HERE, capture_output=True,
+                         text=True, timeout=300)
+    cases = [x for x in col.stdout.splitlines() if x.startswith(test + "::")]
+    check(col.returncode == 0 and cases, f"collecting {test} failed:\n{col.stdout[-3000:]}"
+          f"{col.stderr[-2000:]}")
+    run = subprocess.run(base + ["-rs", test], cwd=HERE, capture_output=True, text=True,
+                         timeout=900)
+    tail = run.stdout.strip().splitlines()[-1] if run.stdout.strip() else ""
+    passed = int(m.group(1)) if (m := re.search(r"(\d+) passed", tail)) else 0
+    skipped = re.search(r"(\d+) skipped", tail)
+    say(f"[gpu_tests] {passed} passed of {len(cases)} cases ({tail})")
+    check(run.returncode == 0 and skipped is None and passed >= len(cases),
+          f"the gpu tests did not all pass (exit {run.returncode}):\n{run.stdout[-6000:]}"
+          f"{run.stderr[-2000:]}")
+    return passed
+
+
 def main():
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--full", action="store_true",
-                   help="K=1 on the full Reddit-size graph (232,965 nodes, 114.6M edges)")
+                   help="K=1 and the expand probe on the full Reddit-size graph (232,965 "
+                        "nodes, 114.6M edges)")
     p.add_argument("--nodes", type=int, default=65_536,
                    help="nodes of the K=1 graph (edges keep Reddit's mean degree)")
     p.add_argument("--epochs", type=int, default=10)
@@ -1763,9 +2048,10 @@ def main():
                    help="nodes of the products-degree graph of train_agg")
     p.add_argument("--epochs_agg", type=int, default=8, help="epochs of each train_agg run")
     p.add_argument("--only", type=str, default=None,
-                   help="comma-separated phases to run (agg, pad, quant, gather, e2e, e2e_k, e2e_pad, "
-                        "k1, train_k, train_pad, e2e_agg, train_agg); build always runs, and the "
-                        "result lines print only for a full run")
+                   help="comma-separated phases to run (agg, pad, quant, gather, expand, r5, "
+                        "gpu_tests, e2e, e2e_k, e2e_pad, k1, train_k, train_pad, e2e_agg, "
+                        "train_agg); build always runs, and the result lines print only for a "
+                        "full run")
     p.add_argument("--profile", action="store_true",
                    help="also trace a few K=1 training steps with torch.profiler (the "
                         "Reddit run and each train_agg run)")
@@ -1800,6 +2086,16 @@ def main():
     if want("gather"):
         gather_errs, gather_l = run("gather", phase_gather, torch, SEED)
         gtimes = run("time", phase_time_gather, torch, card, SEED)
+    if want("expand"):
+        expand_err, expand_l, expand_lay, expand_host = run("expand", phase_expand, torch, args)
+        etimes = run("time", phase_time_expand, torch, card, expand_lay, expand_host)
+        del expand_lay
+        torch.cuda.empty_cache()
+    if want("r5"):
+        r5_l, r5_err, r5_time = run("r5", phase_r5, torch, card)
+        torch.cuda.empty_cache()
+    if want("gpu_tests"):
+        run("gpu_tests", phase_gpu_tests)
     if want("e2e"):
         run("e2e", phase_e2e, torch, SEED)
     if want("e2e_k"):
@@ -1897,6 +2193,14 @@ def main():
          "replaces": "scripts/microbench_gather.py:212",
          "launches": gather_l["microbench_gather.py:212"],
          "max_abs_err": gather_errs["compact_item"], **gtimes["compact_item"]},
+        {"name": "expand_spmm", "route": "cuda",
+         "source": "adaqp_tpu_torch/csrc/expand_tile.cu",
+         "replaces": "scripts/microbench_expand.py:48",
+         "launches": expand_l, "max_abs_err": expand_err["v0"], **etimes["v0"]},
+        {"name": "transpose_u32", "route": "cuda",
+         "source": "adaqp_tpu_torch/csrc/transpose_u32.cu",
+         "replaces": "scripts/probe_r5.py:63",
+         "launches": r5_l, "max_abs_err": r5_err, **r5_time},
     ]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,8 +5,8 @@ script is imported by path, ``pallas_call`` runs in interpret mode and the
 script's ``F`` is set to the test width. Its output (``h[idx]`` through a
 ring of DMA semaphores, 8-row tiles and a masked reduce) must equal the
 port's ``ring_gather`` bit for bit; on the CPU the port runs its plain
-version, which ``chip_smoke.py`` and the ``gpu`` test below hold the CUDA
-kernel against on the card.
+version, which ``chip_smoke.py`` and the ``gpu`` tests of ``tests/test_torch_gpu.py``
+hold the CUDA kernel against on the card.
 """
 import functools
 import importlib.util
@@ -81,6 +81,36 @@ def test_ring_gather_takes_the_edges_and_no_rows():
     assert empty.shape == (0, 8)
 
 
+@pytest.mark.parametrize("chunk,iters,depth,many,sms,want", [
+    # the reference's form: one block keeps `depth` copies in flight for the stream
+    (4096, 1, 4, False, 132, (1, 4096, 4)),
+    (4096, 1, 64, False, 132, (1, 4096, 64)),
+    (4097, 1, 64, False, 132, (1, 4097, 64)),
+    (8, 1, 64, False, 132, (1, 8, 8)),
+    (8, 3, 64, False, 132, (1, 8, 24)),
+    # the many-block form: 4 rows a block, at least a block an SM
+    (4096, 1, 4, True, 132, (1024, 4, 4096)),
+    (4096, 1, 64, True, 132, (1024, 4, 4096)),
+    (4096, 50, 64, True, 132, (1024, 4, 65536)),
+    (4096, 1, 1, True, 132, (1024, 4, 1024)),
+    (300, 1, 8, True, 132, (100, 3, 300)),
+    (8, 1, 4, True, 132, (8, 1, 8)),
+    (10, 2, 64, True, 132, (10, 1, 20)),
+    (0, 1, 4, False, 132, (0, 0, 0)),
+])
+def test_ring_plan(chunk, iters, depth, many, sms, want):
+    assert dg.ring_plan(chunk, iters, depth, many, sms) == want
+
+
+@pytest.mark.parametrize("depth", [1, 64])
+@pytest.mark.parametrize("many", [False, True])
+def test_ring_gather_plain_version_takes_either_form(many, depth):
+    rng = np.random.default_rng(11)
+    h = torch.from_numpy(rng.normal(size=(512, 16)).astype(np.float32))
+    idx = torch.from_numpy(dg.idx_variants(rng, 512, 64)["uniform"])
+    assert torch.equal(dg.ring_gather(h, idx, 2, depth, many), h[idx.long()])
+
+
 @pytest.mark.parametrize("bad,match", [
     (dict(h=torch.zeros(8, 6)), "multiple of the bulk copy"),      # 24-byte rows
     (dict(h=torch.zeros(8, 12, dtype=torch.bfloat16)), "multiple of the bulk copy"),
@@ -89,11 +119,13 @@ def test_ring_gather_takes_the_edges_and_no_rows():
     (dict(h=torch.zeros(8, 8).t()), "contiguous"),
     (dict(depth=0), "at least 1"),
     (dict(iters=0), "at least 1"),
+    (dict(depth=-1), "at least 1"),
     (dict(h=torch.zeros(8, 8, device="meta"), idx=torch.zeros(4, dtype=torch.int32,
                                                                 device="meta")), "no ring_gather"),
 ])
 def test_ring_gather_refuses(bad, match):
-    args = dict(h=torch.zeros(8, 8), idx=torch.zeros(4, dtype=torch.int32), iters=1, depth=4)
+    args = dict(h=torch.zeros(8, 8), idx=torch.zeros(4, dtype=torch.int32), iters=1, depth=4,
+                many_blocks=True)
     args.update(bad)
     with pytest.raises(ValueError, match=match):
         dg.ring_gather(**args)
@@ -109,6 +141,14 @@ def test_main_prints_the_probe_on_the_cpu(capsys):
         assert [x.split()[0] for x in mine] == ["library"] * 3 + ["ring"] * 10
         assert all(x.endswith("correct=True") for x in mine if x.startswith("ring"))
     assert "[4096,8] of [233472]" in lines[0]
+    assert all(" blocks=   1 in_flight=" in x for x in lines if x.startswith("ring"))
+
+
+def test_main_runs_the_many_block_form(capsys):
+    dg.main(["--device", "cpu", "--f", "8", "--iters", "1", "--many_blocks"])
+    ring = [x for x in capsys.readouterr().out.splitlines() if x.startswith("ring")]
+    assert len(ring) == 2 * len(dg.DEPTHS)
+    assert all(" blocks=1024 in_flight=" in x and x.endswith("correct=True") for x in ring)
 
 
 def test_main_needs_a_card_unless_cpu_is_asked():
@@ -116,24 +156,3 @@ def test_main_needs_a_card_unless_cpu_is_asked():
         pytest.skip("a CUDA card is present: the no-card behaviour cannot show")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         dg.main(["--iters", "1"])
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
-    return torch.device("cuda")
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_cuda_kernel_matches_plain(cuda_device, dtype):
-    rng = np.random.default_rng(0)
-    h = torch.from_numpy(rng.normal(size=(dg.N, 256)).astype(np.float32)).to(cuda_device, dtype)
-    for vname, vi in dg.idx_variants(rng).items():
-        i = torch.from_numpy(vi).to(cuda_device)
-        for depth in (1, 4, 64):
-            before = dg.ring_gather.launches
-            got = dg.ring_gather(h, i, 3, depth)
-            assert dg.ring_gather.launches == before + 1
-            assert torch.equal(got, dg._ring_gather_torch(h, i)), (vname, depth)

@@ -30,7 +30,9 @@ def test_import_leaves_jax_out():
         "        'adaqp_tpu_torch.ops.spmm_compact', 'adaqp_tpu_torch.graph.compact_shards',\n"
         "        'adaqp_tpu_torch.ops.spmm', 'adaqp_tpu_torch.comm.exchange',\n"
         "        'adaqp_tpu_torch.scripts.microbench_dma_gather',\n"
-        "        'adaqp_tpu_torch.scripts.microbench_gather']\n"
+        "        'adaqp_tpu_torch.scripts.microbench_gather',\n"
+        "        'adaqp_tpu_torch.scripts.microbench_expand',\n"
+        "        'adaqp_tpu_torch.scripts.probe_r5']\n"
         "assert all(m in sys.modules for m in need), need\n"
         "from adaqp_tpu_torch.comm.exchange import exchange_fp, exchange_quant, padded_start\n"
         "from adaqp_tpu_torch.ops.quant_cuda import quant_rows, dequant_rows\n"
@@ -43,7 +45,7 @@ def test_import_leaves_jax_out():
     ).stdout.split()
     assert int(out[0]) >= 30 and out[1] == "[]", out
     for src in ("quant_rows.cu", "quant_pack.cu", "counter_hash.cuh", "ring_gather.cu",
-                "window_gather.cu", "compact_item.cu"):
+                "window_gather.cu", "compact_item.cu", "expand_tile.cu", "transpose_u32.cu"):
         assert (PKG / "csrc" / src).is_file(), src
 
 

@@ -15,7 +15,7 @@ TPU's hardware generator and has no interpret mode, so ``_quant_rows_torch``
 is held against ``quantize_rows`` with injected uniforms, and against the
 ragged wire's ``quant_pack`` (the same generator, the same codes). The card's
 kernels are held against these plain versions by ``chip_smoke.py`` and by
-the ``gpu`` test at the end.
+the ``gpu`` tests of ``tests/test_torch_gpu.py``.
 """
 import jax
 import jax.numpy as jnp
@@ -155,24 +155,3 @@ def test_other_devices_raise(rng):
         qc.dequant_rows(q, s, r)
     with pytest.raises(ValueError, match="bits"):
         qc.quant_rows(x, 3, 16, 1)
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
-    return torch.device("cuda")
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("bits", [2, 4, 8])
-def test_cuda_kernels_match_plain(rng, cuda_device, bits, dtype):
-    n, f, ft = 1000, 640, 602
-    x = torch.tensor(_rows(rng, n, f, ft), device=cuda_device).to(dtype)
-    before = (qc.quant_rows.launches, qc.dequant_rows.launches)
-    q, s, r = qc.quant_rows(x, bits, ft, 123)
-    q0, s0, r0 = qc._quant_rows_torch(x, bits, ft, 123)
-    assert torch.equal(q, q0) and torch.equal(s, s0) and torch.equal(r, r0)
-    assert torch.equal(qc.dequant_rows(q, s, r), qc._dequant_rows_torch(q0, s0, r0))
-    assert (qc.quant_rows.launches, qc.dequant_rows.launches) == (before[0] + 1, before[1] + 1)

@@ -8,7 +8,7 @@ then words, scales and rmins must agree bit for bit. XLA:CPU may fuse
 a code whose ``y + u`` lies within an ulp of an integer can differ: those
 are counted and bounded (at most 1e-4 of the codes). The card's kernels are
 held against the same plain versions by ``chip_smoke.py`` and by the
-``gpu`` test at the end.
+``gpu`` tests of ``tests/test_torch_gpu.py``.
 """
 import jax
 import jax.numpy as jnp
@@ -136,24 +136,3 @@ def test_cpu_wrappers_run_the_plain_versions(rng):
         qc.quant_pack(x.to("meta"), 4, 60, 64, 1)
     with pytest.raises(ValueError, match="f_wire"):
         qc.quant_pack(x, 4, 60, 61, 1)
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
-    return torch.device("cuda")
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("bits", [2, 4, 8])
-def test_cuda_kernels_match_plain(rng, cuda_device, bits, dtype):
-    n, f, ft = 1000, 640, 602
-    x = torch.tensor(_rows(rng, n, f, ft), device=cuda_device).to(dtype)
-    fw = wire_cols(ft, bits)
-    w, s, r = qc.quant_pack(x, bits, ft, fw, 123)
-    w0, s0, r0 = qc._quant_pack_torch(x, bits, ft, fw, 123)
-    assert torch.equal(w, w0) and torch.equal(s, s0) and torch.equal(r, r0)
-    y = qc.unpack_dequant(w, s, r, bits, ft, fw, f)
-    assert torch.equal(y, qc.dequantize_words(w0, s0, r0, bits, ft, fw, f))

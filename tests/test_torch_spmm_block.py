@@ -10,7 +10,7 @@ tolerance, 0.05 + 1% of the value), and the port's autograd must give the
 JAX custom VJP's gradient. The block shards must hold each rank's JAX
 shard without the JAX package's inert padding tiles. The CUDA kernel itself
 is held against the plain version by ``chip_smoke.py`` on the card, and by
-the ``gpu`` test below.
+the ``gpu`` tests of ``tests/test_torch_gpu.py``.
 """
 import importlib
 
@@ -210,27 +210,3 @@ def test_wrapper_takes_the_plain_version_only_on_the_cpu():
     before = tblock.block_spmm.launches
     out = tblock.block_spmm(lay, torch.ones(lay.n_src_pad, 8))
     assert not out.any() and tblock.block_spmm.launches == before
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
-    return torch.device("cuda")
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_cuda_kernel_matches_plain(rng, cuda_device, dtype):
-    src, dst = _edges(rng, 5000, 60000)
-    lay = tblock.block_layout(src, dst, 5000, min_edges=4).to_device(cuda_device)
-    h = torch.from_numpy(rng.normal(size=(lay.n_src_pad, 640)).astype(np.float32))
-    h = h.to(cuda_device, dtype)
-    before = tblock.block_spmm.launches
-    got = tblock.block_spmm(lay, h)
-    torch.cuda.synchronize()
-    assert tblock.block_spmm.launches == before + 1
-    want = tblock._run_block_torch(lay, h)
-    # f32 sums in another order, then (bf16) one rounding step
-    rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
-    torch.testing.assert_close(got.float(), want.float(), atol=1e-3, rtol=rtol)

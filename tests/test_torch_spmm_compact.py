@@ -10,7 +10,7 @@ VJP: both sum exactly in f32, so only the order differs (1e-4 absolute on
 sums of a few dozen N(0, 1) values). The compact shards must hold each
 rank's JAX shard without the JAX package's inert padding items. The CUDA
 kernels are held against their plain versions by ``chip_smoke.py`` on the
-card, and by the ``gpu`` tests below.
+card, and by the ``gpu`` tests of ``tests/test_torch_gpu.py``.
 """
 import importlib
 
@@ -220,36 +220,3 @@ def test_wrappers_take_the_plain_version_only_on_the_cpu():
     x = torch.ones(4, 4, device="meta")
     with pytest.raises(ValueError, match="no row gather"):
         tc.gather_rows(x, torch.zeros(4, 4, dtype=torch.int32, device="meta"))
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
-    return torch.device("cuda")
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_cuda_kernel_matches_plain(rng, cuda_device, dtype):
-    src, dst = _tiered_edges(rng, 8192, 8192, 60000)
-    lay = tc.compact_layout(src, dst, 8192).to_device(cuda_device)
-    h = torch.from_numpy(rng.normal(size=(lay.n_src_pad, 384)).astype(np.float32))
-    h = h.to(cuda_device, dtype)
-    before = tc.compact_spmm.launches
-    got = tc.compact_spmm(lay, h)
-    torch.cuda.synchronize()
-    assert tc.compact_spmm.launches == before + 1
-    want = tc._run_compact_torch(lay, h)
-    # f32 sums in another order, then (bf16) one rounding step
-    rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
-    torch.testing.assert_close(got.float(), want.float(), atol=1e-3, rtol=rtol)
-
-
-@pytest.mark.gpu
-def test_cuda_gather_rows_is_bit_exact(rng, cuda_device):
-    tc.dynamic_gather_supported.cache_clear()
-    assert tc.dynamic_gather_supported() is True
-    x = torch.from_numpy(rng.normal(size=(1000, 37)).astype(np.float32)).to(cuda_device)
-    idx = torch.from_numpy(rng.integers(0, 1000, (1000, 37)).astype(np.int32)).to(cuda_device)
-    assert torch.equal(tc.gather_rows(x, idx), torch.take_along_dim(x, idx.long(), dim=0))

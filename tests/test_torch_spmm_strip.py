@@ -5,7 +5,8 @@ the layouts must be the same arrays, the port's plain version must match
 the JAX portable twin (exact f32 sums) and the JAX kernel in interpret mode
 (which rounds f32 windows to bf16), and the port's autograd must give the
 JAX custom VJP's gradient. The CUDA kernel itself is held against the plain
-version by ``chip_smoke.py`` on the card, and by the ``gpu`` test below.
+version by ``chip_smoke.py`` on the card, and by the ``gpu`` tests of
+``tests/test_torch_gpu.py``.
 """
 import jax
 import jax.numpy as jnp
@@ -208,26 +209,3 @@ def test_select_keeps_one_shard(rng):
             sel.devices((rank + 1) % 3)
         with pytest.raises(ValueError):
             sel.select(rank)
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
-    return torch.device("cuda")
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_cuda_kernel_matches_plain(rng, cuda_device, dtype):
-    src, dst = _edges(rng, 5000, 60000)
-    lay = tstrip.strip_layout(src, dst, 5000, min_edges=4).to_device(cuda_device)
-    h = torch.from_numpy(_feats(rng, lay.n_src_pad, 640)).to(cuda_device, dtype)
-    before = tstrip.strip_spmm.launches
-    got = tstrip.strip_spmm(lay, h)
-    torch.cuda.synchronize()
-    assert tstrip.strip_spmm.launches == before + 1
-    want = tstrip._run_strip_torch(lay, h)
-    # f32 sums in another order, then (bf16) one rounding step
-    rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
-    torch.testing.assert_close(got.float(), want.float(), atol=1e-3, rtol=rtol)

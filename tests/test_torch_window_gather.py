@@ -10,8 +10,8 @@ the script never zeroes its VMEM accumulator (it reads NaN in interpret
 mode). The port's plain versions must equal the window gathers bit for bit
 (sums in x's dtype, one rounding an iteration) and the items within
 ``2^-7 |ref| + 1e-6`` (f32 products summed in another order, then one bf16
-rounding). ``chip_smoke.py`` and the ``gpu`` tests below hold the CUDA
-kernels against these plain versions on the card.
+rounding). ``chip_smoke.py`` and the ``gpu`` tests of ``tests/test_torch_gpu.py``
+hold the CUDA kernels against these plain versions on the card.
 """
 import jax
 import jax.numpy as jnp
@@ -231,41 +231,3 @@ def test_main_needs_a_card_unless_cpu_is_asked():
         pytest.skip("a CUDA card is present: the no-card behaviour cannot show")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         gb.main(["--iters", "1"])
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
-    return torch.device("cuda")
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("axis", [0, 1])
-def test_cuda_window_gather_matches_plain(cuda_device, axis, dtype):
-    g = torch.Generator(device=cuda_device).manual_seed(axis)
-    shape = (2048, 256) if axis == 0 else (256, 2048)
-    x = torch.randn(shape, generator=g, device=cuda_device).to(dtype)
-    full = torch.randint(0, 2048, shape, generator=g, device=cuda_device, dtype=torch.int32)
-    col = torch.randint(0, 2048, (1, 2048), generator=g, device=cuda_device, dtype=torch.int32)
-    for idx in (full, col):
-        for iters in (1, 3, 200):
-            before = gb.window_gather.launches
-            got = gb.window_gather(x, idx, iters, axis)
-            assert gb.window_gather.launches == before + 1
-            assert torch.equal(got, gb._window_gather_torch(x, idx, iters, axis))
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("fc", [256, 136])
-@pytest.mark.parametrize("kind", [0, 1])
-def test_cuda_compact_item_matches_plain(cuda_device, kind, fc):
-    mask, col, win = (torch.from_numpy(a).to(cuda_device)
-                      for a in _item_inputs(np.random.default_rng(fc), fc))
-    win = win.to(torch.bfloat16)
-    for iters in (1, 200):
-        before = gb.compact_item.launches
-        got = gb.compact_item(mask, col, win, kind, iters)
-        assert gb.compact_item.launches == before + 1
-        assert gb.item_within(got, gb._compact_item_torch(mask, col, win, kind, iters))
