@@ -5,25 +5,57 @@ layouts and stacked on a leading ``[K, ...]`` axis, like the JAX package's
 the ELL straggler stacking are shared with the block and compact shards
 (``block_shards.py``, which describes the four groups); each shard's
 destination-block tile ranges (``blk_ptr``) are computed from its own tiles
-before the tile arrays are padded, so the padding is never read.
+before the tile arrays are padded, so the padding is never read. Moved to a
+device (``to``), each group also carries each shard's walk arrays for the
+CUDA kernel (``strip_walk``), built on that device.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
+import torch
+
+from ..common.backend import DeviceLike
 from ..ops.spmm_block import MIN_EDGES
-from ..ops.spmm_strip import STRIP, StripDevice, block_pointers, strip_layout
+from ..ops.spmm_strip import (
+    STRIP, StripDevice, StripWalk, block_pointers, strip_layout, strip_walk,
+)
 from .block_shards import TileShards, build_tile_shards
 from .layout import PartitionLayout
 
 
+def _stack_walks(group):
+    """A group's first three fields, then each shard's walk arrays stacked
+    [K, ...] and zero-padded to the longest (the pointers never reach the
+    padding)."""
+    masks, tile_src, blk_ptr = group[:3]
+    walks = [strip_walk(masks[p], tile_src[p], blk_ptr[p]).tensors()
+             for p in range(masks.shape[0])]
+    stacked = []
+    for field in zip(*walks):
+        n = max(x.shape[0] for x in field)
+        stacked.append(torch.stack([
+            torch.cat([x, x.new_zeros((n - x.shape[0],) + x.shape[1:])]) for x in field
+        ]))
+    return (masks, tile_src, blk_ptr, *stacked)
+
+
 class StripShards(TileShards):
     """Strip layouts, per group (masks [K, T, BD, WORDS], tile_src [K, T],
-    blk_ptr [K, n_pad // BD + 1])."""
+    blk_ptr [K, n_pad // BD + 1]; after ``to``, the six walk arrays)."""
 
     @staticmethod
     def _device(tensors, n_pad, n_src_pad, straggler):
-        return StripDevice(n_pad, n_pad, n_src_pad, *tensors, straggler)
+        walk = StripWalk(*tensors[3:]) if len(tensors) > 3 else None
+        return StripDevice(n_pad, n_pad, n_src_pad, *tensors[:3], straggler, walk)
+
+    def to(self, device: DeviceLike) -> "StripShards":
+        out = super().to(device)
+        return dataclasses.replace(out, **{
+            name: None if getattr(out, name) is None else _stack_walks(getattr(out, name))
+            for name in ("fwd_local", "bwd_local", "fwd_halo", "bwd_halo")
+        })
 
 
 def build_strip_shards(

@@ -8,11 +8,12 @@ gradients on its ``bwd_graph``, ``AdaQP/model/ops.py:83-95``).
 
 Host side: :func:`strip_layout` packs the dense tiles exactly as the JAX
 package's ``strip_layout`` does (masks in destination-block-major order).
-The JAX package also builds a step schedule for its accelerator's
-sequential grid and window ring (``w_ord``, ``out_idx``, ``sub``,
-``flags``, ``mask_idx``, ``win_src``); the CUDA kernel needs only each
-destination block's tile range, :func:`block_pointers`, so the schedule
-is not built here.
+When a layout reaches its device, :func:`strip_walk` derives what the CUDA
+kernel walks (a :class:`StripWalk`): each strip's schedule of source
+windows with each destination block's tile in them (the idea of the JAX
+package's ``w_ord``/``sub``/``mask_idx`` for its window ring, packed for
+the kernel's grid), and every tile row's set columns decoded once into a
+list, so that no column slice of a pass re-reads the masks.
 
 Device side: :func:`strip_spmm` is the kernel wrapper. On a CUDA tensor it
 launches the hand-written kernel (``csrc/spmm_strip.cu``), on a CPU tensor
@@ -41,6 +42,9 @@ from .spmm_block import (
 from .spmm_fast import EllDevice, EllLayout, ell_from_csr
 
 SB = 8             # dst blocks per strip
+SLICE_BYTES = 32   # bytes of a source row in one column slice of the CUDA kernel
+GROUP = 16         # tile rows a warp of the CUDA kernel walks together
+BATCH = 8          # columns a row in one batch of that walk (one 16-byte read)
 STRIP = SB * BD    # 2048 dst rows: output rows are padded to this multiple
 MIN_EDGES = 192
 STRIP_SCHEME = 1   # cache-format version
@@ -60,20 +64,56 @@ class StripLayout:
 
     def to_device(self, device: DeviceLike = None) -> "StripDevice":
         dev = resolve_device(device)
+        masks = torch.as_tensor(self.masks, device=dev)
+        tile_src = torch.as_tensor(self.tile_src, device=dev)
+        blk_ptr = torch.as_tensor(block_pointers(self.tile_dst, self.n_pad), device=dev)
         return StripDevice(
-            self.n, self.n_pad, self.n_src_pad,
-            torch.as_tensor(self.masks, device=dev),
-            torch.as_tensor(self.tile_src, device=dev),
-            torch.as_tensor(block_pointers(self.tile_dst, self.n_pad), device=dev),
+            self.n, self.n_pad, self.n_src_pad, masks, tile_src, blk_ptr,
             self.straggler.to_device(dev) if self.straggler else None,
+            strip_walk(masks, tile_src, blk_ptr),
         )
+
+
+@dataclass
+class StripWalk:
+    """What the CUDA kernel walks, derived from a device layout's masks,
+    tile_src and blk_ptr by :func:`strip_walk`. The rows of tile ``t`` go
+    in groups of ``GROUP`` (a warp's rows): group ``g = t * BD // GROUP +
+    i`` (rows ``GROUP i`` ..) holds ``grp_len[g]`` columns a row (its
+    longest row's) in batches ``grp_ptr[g]`` .. ``grp_ptr[g + 1]`` of
+    ``cols`` viewed as ``[batches, GROUP, BATCH]``: row ``GROUP i + p``'s
+    columns of its window, ascending, at ``[:, p, :]``, padded with ``BS``
+    (the kernel's zero row). Strip ``s`` (destination blocks ``SB s`` ..
+    ``SB s + SB - 1``) takes steps ``strip_ptr[s]`` .. ``strip_ptr[s + 1]``;
+    step ``k`` reads the window at row ``step_win[k]`` (ascending within a
+    strip), where block ``SB s + b`` has tile ``step_tile[k, b]`` (-1 for
+    none)."""
+
+    grp_ptr: torch.Tensor    # int32 [T * BD // GROUP + 1]
+    grp_len: torch.Tensor    # int32 [T * BD // GROUP]
+    cols: torch.Tensor       # int16 [batches * GROUP * BATCH] (uint16 for the kernel)
+    strip_ptr: torch.Tensor  # int32 [n_pad // STRIP + 1]
+    step_win: torch.Tensor   # int32 [S]
+    step_tile: torch.Tensor  # int32 [S, SB]
+
+    def tensors(self):
+        return (self.grp_ptr, self.grp_len, self.cols, self.strip_ptr, self.step_win,
+                self.step_tile)
+
+    def to(self, device: DeviceLike) -> "StripWalk":
+        return StripWalk(*(x.to(device) for x in self.tensors()))
+
+    @property
+    def nbytes(self) -> int:
+        return sum(x.numel() * x.element_size() for x in self.tensors())
 
 
 @dataclass
 class StripDevice:
     """A strip layout's tensors on one device. Tiles ``blk_ptr[b]`` ..
     ``blk_ptr[b + 1]`` of ``masks``/``tile_src`` belong to destination
-    block ``b``; rows of ``masks`` past ``blk_ptr[-1]`` are padding."""
+    block ``b``; rows of ``masks`` past ``blk_ptr[-1]`` are padding. The
+    plain version reads the masks, the CUDA kernel ``walk``."""
 
     n: int
     n_pad: int
@@ -82,12 +122,14 @@ class StripDevice:
     tile_src: torch.Tensor  # int32 [T'']
     blk_ptr: torch.Tensor   # int32 [n_pad // BD + 1]
     straggler: Optional[EllDevice]
+    walk: Optional[StripWalk] = None  # what the CUDA kernel reads
 
     def to(self, device: DeviceLike) -> "StripDevice":
         return StripDevice(
             self.n, self.n_pad, self.n_src_pad, self.masks.to(device),
             self.tile_src.to(device), self.blk_ptr.to(device),
             self.straggler.to(device) if self.straggler else None,
+            self.walk.to(device) if self.walk else None,
         )
 
 
@@ -188,6 +230,87 @@ def strip_layout(
 
 
 # ---------------------------------------------------------------------------
+# the walk arrays of the CUDA kernel
+# ---------------------------------------------------------------------------
+
+_WALK_TILES = 64  # tiles whose bits are expanded at once
+
+
+def strip_columns(masks: torch.Tensor, n_tiles: int):
+    """Each of the first ``n_tiles`` tiles' rows decoded into its set
+    columns, ascending: ``(row_ptr int32 [n_tiles * BD + 1], cols int16)``
+    on the masks' device (torch ops, ``_WALK_TILES`` tiles at a time)."""
+    dev = masks.device
+    shifts = torch.arange(16, dtype=torch.int32, device=dev)
+    counts = torch.zeros(n_tiles * BD, dtype=torch.int64, device=dev)
+    cols = []
+    for s in range(0, n_tiles, _WALK_TILES):
+        e = min(s + _WALK_TILES, n_tiles)
+        words = masks[s:e].to(torch.int32) & 0xFFFF
+        # column j is bit j // WORDS of halfword j % WORDS: planes major
+        bits = ((words[..., None] >> shifts) & 1).bool().transpose(2, 3)
+        ti, r, j = bits.reshape(e - s, BD, BS).nonzero(as_tuple=True)
+        counts[s * BD:e * BD] = torch.bincount(ti * BD + r, minlength=(e - s) * BD)
+        cols.append(j.to(torch.int16))
+    total = int(counts.sum())
+    if total >= 2 ** 31:
+        raise ValueError(f"{total} tile edges overflow the int32 row pointers")
+    row_ptr = torch.zeros(n_tiles * BD + 1, dtype=torch.int32, device=dev)
+    row_ptr[1:] = counts.cumsum(0)
+    cols = torch.cat(cols) if cols else torch.zeros(0, dtype=torch.int16, device=dev)
+    return row_ptr, cols
+
+
+def strip_schedule(tile_src: np.ndarray, blk_ptr: np.ndarray):
+    """Each strip's source windows, ascending, and each of its ``SB``
+    blocks' tile in them: ``(strip_ptr [n_strips + 1], step_win [S],
+    step_tile [S, SB])`` int32, from the tiles of one layout (``blk_ptr``
+    ranges, ``tile_src`` window starts, windows ascending within a block)."""
+    blk_ptr = np.asarray(blk_ptr, np.int64)
+    n_blocks = len(blk_ptr) - 1
+    if n_blocks % SB:
+        raise ValueError(f"{n_blocks} destination blocks are not whole strips of {SB}")
+    t = int(blk_ptr[-1])
+    tile_blk = np.repeat(np.arange(n_blocks), np.diff(blk_ptr))
+    win = np.asarray(tile_src[:t], np.int64) // BS
+    n_win = int(win.max()) + 1 if t else 1
+    steps, step_of = np.unique(tile_blk // SB * n_win + win, return_inverse=True)
+    step_tile = np.full((len(steps), SB), -1, np.int32)
+    step_tile[step_of.reshape(-1), tile_blk % SB] = np.arange(t)
+    strip_ptr = np.searchsorted(steps // n_win, np.arange(n_blocks // SB + 1))
+    return (strip_ptr.astype(np.int32), (steps % n_win * BS).astype(np.int32), step_tile)
+
+
+def strip_groups(row_ptr: torch.Tensor, cols: torch.Tensor):
+    """Per-row column lists (:func:`strip_columns`) laid out for the
+    kernel's warps: ``(grp_ptr int32 [G + 1], grp_len int32 [G], cols int16
+    [batches * GROUP * BATCH])`` for the ``G`` groups of ``GROUP`` rows
+    (torch ops, on the lists' device)."""
+    dev = cols.device
+    lens = row_ptr.diff().long()
+    grp_len = lens.view(-1, GROUP).amax(1)
+    grp_ptr = torch.zeros(grp_len.numel() + 1, dtype=torch.int64, device=dev)
+    grp_ptr[1:] = ((grp_len + BATCH - 1) // BATCH).cumsum(0)
+    if int(grp_ptr[-1]) * GROUP * BATCH >= 2 ** 31:
+        raise ValueError("the column batches overflow the kernel's int32 offsets")
+    out = torch.full((int(grp_ptr[-1]) * GROUP * BATCH,), BS, dtype=torch.int16, device=dev)
+    row = torch.repeat_interleave(torch.arange(lens.numel(), device=dev), lens)
+    i = torch.arange(row.numel(), device=dev) - row_ptr[row].long()
+    out[(grp_ptr[row // GROUP] + i // BATCH) * (GROUP * BATCH) + row % GROUP * BATCH
+        + i % BATCH] = cols
+    return grp_ptr.to(torch.int32), grp_len.to(torch.int32), out
+
+
+def strip_walk(masks: torch.Tensor, tile_src: torch.Tensor, blk_ptr: torch.Tensor) -> StripWalk:
+    """The CUDA kernel's walk arrays of one device layout, on its device:
+    the column lists decoded from the masks there, the schedule from the
+    (small) tile arrays on the host."""
+    sched = strip_schedule(tile_src.cpu().numpy(), blk_ptr.cpu().numpy())
+    groups = strip_groups(*strip_columns(masks, int(blk_ptr[-1])))
+    return StripWalk(*groups, *(torch.as_tensor(a, device=masks.device) for a in sched))
+
+
+# ---------------------------------------------------------------------------
 # plain PyTorch version
 # ---------------------------------------------------------------------------
 
@@ -217,31 +340,44 @@ def _lib() -> ctypes.CDLL:
     lib = load_library("spmm_strip")
     if lib.adaqp_strip_spmm.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.adaqp_strip_spmm.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
+        lib.adaqp_strip_spmm.argtypes = [vp] * 8 + [ci] * 6 + [vp]
         lib.adaqp_strip_spmm.restype = ci
+        lib.adaqp_strip_kernel_info.argtypes = [ci, ci, ctypes.POINTER(ci)]
+        lib.adaqp_strip_kernel_info.restype = ci
         lib.adaqp_cuda_error_string.argtypes = [ci]
         lib.adaqp_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _run_strip_cuda(layout: StripDevice, h: torch.Tensor) -> torch.Tensor:
-    """Launch the CUDA kernel on ``h``'s device and current stream."""
+def _run_strip_cuda(layout: StripDevice, h: torch.Tensor, cluster: int = 1) -> torch.Tensor:
+    """Launch the CUDA kernel on ``h``'s device and current stream.
+    ``cluster``: 1, the kept form (a CTA per strip and column slice), or
+    ``SB``, the form kept only to be timed against it (a cluster of ``SB``
+    CTAs per strip and slice, one destination block each)."""
+    walk = layout.walk
+    if walk is None:
+        raise ValueError("the layout has no walk arrays: build it with "
+                         "StripLayout.to_device or StripShards.to")
     check_cuda_operands(h, layout.n_src_pad, (
-        ("masks", layout.masks, torch.int16),
-        ("tile_src", layout.tile_src, torch.int32),
-        ("blk_ptr", layout.blk_ptr, torch.int32),
+        ("grp_ptr", walk.grp_ptr, torch.int32), ("grp_len", walk.grp_len, torch.int32),
+        ("cols", walk.cols, torch.int16),
+        ("strip_ptr", walk.strip_ptr, torch.int32), ("step_win", walk.step_win, torch.int32),
+        ("step_tile", walk.step_tile, torch.int32),
     ))
-    f = h.shape[1]
-    n_blocks = layout.n_pad // BD
-    if layout.blk_ptr.numel() != n_blocks + 1 or tuple(layout.masks.shape[1:]) != (BD, WORDS):
+    n_strips = layout.n_pad // STRIP
+    if layout.n_pad % STRIP or layout.n_src_pad % BS or walk.strip_ptr.numel() != n_strips + 1:
         raise ValueError("layout shapes do not match n_pad")
+    if walk.cols.data_ptr() % 16:
+        raise ValueError("the column batches must be 16-byte aligned")
+    if cluster not in (1, SB):
+        raise ValueError(f"cluster must be 1 or {SB}, got {cluster}")
+    f = h.shape[1]
     out = torch.empty((layout.n_pad, f), dtype=h.dtype, device=h.device)
     lib = _lib()
     rc = lib.adaqp_strip_spmm(
-        layout.masks.data_ptr(), layout.tile_src.data_ptr(),
-        layout.blk_ptr.data_ptr(), h.data_ptr(), out.data_ptr(),
-        n_blocks, f, int(h.dtype == torch.bfloat16), h.device.index,
-        torch.cuda.current_stream(h.device).cuda_stream,
+        *(x.data_ptr() for x in walk.tensors()), h.data_ptr(), out.data_ptr(),
+        n_strips, layout.n_src_pad, f, int(h.dtype == torch.bfloat16), cluster,
+        h.device.index, torch.cuda.current_stream(h.device).cuda_stream,
     )
     if rc:
         raise RuntimeError(
@@ -249,6 +385,17 @@ def _run_strip_cuda(layout: StripDevice, h: torch.Tensor) -> torch.Tensor:
         )
     strip_spmm.launches += 1
     return out
+
+
+def strip_kernel_info(dtype: torch.dtype, cluster: int = 1) -> dict:
+    """The compiled kernel form's registers a thread, static and dynamic
+    shared-memory bytes, spill bytes a thread and columns a slice."""
+    lib = _lib()
+    info = (ctypes.c_int * 5)()
+    rc = lib.adaqp_strip_kernel_info(int(dtype == torch.bfloat16), cluster, info)
+    if rc:
+        raise RuntimeError(f"strip kernel attributes: {lib.adaqp_cuda_error_string(rc).decode()}")
+    return dict(zip(("registers", "static_smem", "dynamic_smem", "spill_bytes", "columns"), info))
 
 
 def strip_spmm(layout: StripDevice, h: torch.Tensor) -> torch.Tensor:

@@ -108,6 +108,27 @@ def phase_env(torch):
     return card
 
 
+def sm_clock_mhz():
+    """(current, maximum) SM clock in MHz as nvidia-smi reports them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True, text=True, timeout=60)
+    check(smi.returncode == 0 and smi.stdout.strip(), f"nvidia-smi failed: {smi.stderr}")
+    cur, top = smi.stdout.strip().splitlines()[0].split(",")
+    return float(cur), float(top)
+
+
+def strip_floor(lay, f, nnz, clock_mhz):
+    """The strip kernel design's own floor for bf16 h: the shared-memory
+    bytes it moves (every tile edge reads its row's 32-byte column slice,
+    every window step's slice is written once by TMA, per column slice)
+    over 132 SMs at 128 bytes a clock. Returns (ms, bytes)."""
+    from adaqp_tpu_torch.ops import spmm_strip as ss
+
+    slices = -(-f * 2 // ss.SLICE_BYTES)
+    nbytes = slices * (nnz * ss.SLICE_BYTES + lay.walk.step_win.numel() * ss.BS * ss.SLICE_BYTES)
+    return nbytes / (132 * 128 * clock_mhz * 1e6) * 1e3, nbytes
+
+
 def phase_build():
     from adaqp_tpu_torch.utils.cuda_build import build
 
@@ -175,6 +196,25 @@ def phase_setup(torch, args):
                                   t.blocks.counts):
         say(f"[setup] {name}: dense tiles {tiles}, ELL edges {ell}")
     check(t.blocks.counts[0][0] > 0, "no dense tile in the forward layout")
+    from adaqp_tpu_torch.ops import spmm_strip as ss
+
+    for name, lay in zip(("fwd_local", "bwd_local", "fwd_halo", "bwd_halo"), t.blocks.devices()):
+        w = lay.walk
+        check(w is not None, f"{name}: the layout carries no walk arrays")
+        groups = w.cols.numel() * 2 + (w.grp_ptr.numel() + w.grp_len.numel()) * 4
+        say(f"[setup] {name} walk arrays (built on the card with torch ops): column batches "
+            f"{w.cols.numel() * 2 / 1e6:.1f} MB ({w.cols.numel()} slots) + group pointers "
+            f"{(groups - w.cols.numel() * 2) / 1e6:.1f} MB + schedule "
+            f"{(w.nbytes - groups) / 1e3:.1f} kB ({w.step_win.numel()} window steps) = "
+            f"{w.nbytes / 1e6:.1f} MB, beside {lay.masks.numel() * 2 / 1e6:.1f} MB of masks")
+    fl = t.blocks.devices()[0]
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    again = ss.strip_walk(fl.masks, fl.tile_src, fl.blk_ptr)
+    torch.cuda.synchronize()
+    say(f"[setup] fwd_local walk arrays rebuilt in {time.perf_counter() - t3:.2f} s")
+    check(all(torch.equal(a, b) for a, b in zip(again.tensors(), fl.walk.tensors())),
+          "the walk arrays differ from one build to the next")
     say(f"[setup] l_max={t.layout.l_max} r_pad={t.layout.plan_fwd.r_pad} "
         f"f_pad={t.static.f_pad} hidden={t.static.hidden} classes={t.static.num_classes}")
     return t
@@ -216,6 +256,24 @@ def phase_kernel(torch, trainer, seed):
             out = run(tag, lay, f)
             check(not out.any(), f"{tag}: the empty layout did not give zeros")
 
+    # the same launch twice: bit for bit the same (one thread a sum, fixed order)
+    h = torch.randn(fl.n_src_pad, 640, generator=gen, device=dev).to(torch.bfloat16)
+    first, second = ss.strip_spmm(fl, h), ss.strip_spmm(fl, h)
+    torch.cuda.synchronize()
+    say(f"[kernel] fwd_local F=640 launched twice: bit for bit the same {torch.equal(first, second)}")
+    check(torch.equal(first, second), "two launches of strip_spmm differ")
+    # the form kept only for timing (a cluster of 8 CTAs a strip, the windows
+    # multicast) on the main path's layout
+    for f in (640, 256):
+        h = torch.randn(fl.n_src_pad, f, generator=gen, device=dev).to(torch.bfloat16)
+        got = ss._run_strip_cuda(fl, h, cluster=ss.SB)
+        torch.cuda.synchronize()
+        err, ratio = compare(torch, got, ss._run_strip_torch(fl, h), BF16_ATOL, BF16_RTOL)
+        worst = max(worst, ratio)
+        say(f"[kernel] fwd_local F={f}, cluster form: max |kernel - plain| {err:.3g}, "
+            f"{ratio:.3f} of the tolerance")
+        check(ratio <= 1.0, f"F={f}: the cluster form disagrees with the plain version")
+
     rng = np.random.default_rng(seed)
     n, n_src, e = 8192, 6144, 600_000
     src = rng.integers(0, n_src, e).astype(np.int32)
@@ -223,6 +281,12 @@ def phase_kernel(torch, trainer, seed):
     rect = ss.strip_layout(src, dst, n, min_edges=64, n_src=n_src).to_device(dev)
     check(int(rect.blk_ptr[-1]) > 0, "rectangular layout has no dense tile")
     run(f"rectangular {rect.n_pad}x{rect.n_src_pad}", rect, 640)
+    # a tile row with all 2,048 columns set, beside the rectangular edges
+    full = ss.strip_layout(np.concatenate([np.arange(2048, dtype=np.int32), src % 4096]),
+                           np.concatenate([np.full(2048, 300, np.int32), dst % 4096]),
+                           4096, min_edges=1).to_device(dev)
+    check(int(full.walk.grp_len.max()) == 2048, "no full tile row in the full-row layout")
+    run("full row (2,048 set columns)", full, 640)
 
     # backward: spmm_strip (kernel on the reverse layout) against autograd
     # through the plain version; dense tiles only, summed in f32 by both
@@ -346,10 +410,17 @@ def phase_time(torch, trainer, card):
     gen = torch.Generator(device=dev).manual_seed(1)
     t = int(fl.blk_ptr[-1])
     rows = {}
+    clock = sm_clock_mhz()
+    info = ss.strip_kernel_info(torch.bfloat16)
+    say(f"[time] {card} | strip_spmm form: a CTA a (strip, slice of {info['columns']} bf16 columns), "
+        f"{info['registers']} registers a thread, {info['spill_bytes']} spill bytes, shared memory "
+        f"{info['dynamic_smem']} B dynamic + {info['static_smem']} B static; SM clock "
+        f"{clock[0]:g} MHz now, {clock[1]:g} MHz max (the floor uses the max)")
     for f in (640, 256):
         h = torch.randn(fl.n_src_pad, f, generator=gen, device=dev).to(torch.bfloat16)
         saved = ss.strip_spmm.launches
         ms = cuda_ms(torch, lambda: ss.strip_spmm(fl, h), reps=10)
+        cluster_ms = cuda_ms(torch, lambda: ss._run_strip_cuda(fl, h, cluster=ss.SB), reps=10)
         ss.strip_spmm.launches = saved  # timing launches are not the main path's
         plain_ms = cuda_ms(torch, lambda: ss._run_strip_torch(fl, h), reps=2, warmup=1)
         # the library yardstick on the same edges; the port never calls it
@@ -362,10 +433,15 @@ def phase_time(torch, trainer, card):
         bytes_ms, ops_ms = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_BF16_FLOP_S * 1e3
         bound_ms = max(bytes_ms, ops_ms)
         bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+        floor_ms, floor_bytes = strip_floor(fl, f, nnz, clock[1])
         say(f"[time] {card} | fwd_local F={f}: tiles {t}, tile edges {nnz}")
         say(f"[time] {card} | kernel {ms:.3f} ms; bound {bound_ms:.3f} ms by {bound_by} "
             f"({nbytes / 1e9:.3f} GB, {flops / 1e12:.4f} TFLOP bf16); plain {plain_ms:.2f} ms; "
             f"torch.sparse.mm {lib_ms:.3f} ms (bf16 CSR)")
+        say(f"[time] {card} | the design's shared-memory floor {floor_ms:.3f} ms "
+            f"({floor_bytes / 1e9:.2f} GB at 132 x 128 B a clock; the warps walk "
+            f"{fl.walk.cols.numel() / nnz:.2f} column slots an edge); the cluster form "
+            f"{cluster_ms:.3f} ms")
         rows[f] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                        library_ms=lib_ms)
     return rows
@@ -1416,6 +1492,7 @@ def phase_time_agg(torch, card, runs):
 
     gen = torch.Generator(device="cuda").manual_seed(3)
     rows = {}
+    clock = sm_clock_mhz()
     for impl, (name, w, plain) in _tile_kernels().items():
         lay = runs[impl]["layout"]
         csr, nnz = tile_csr(torch, lay, torch.bfloat16)
@@ -1446,6 +1523,11 @@ def phase_time_agg(torch, card, runs):
             say(f"[time] {card} | {name} F={f}: kernel {ms:.4f} ms; bound {bound_ms:.4f} ms by "
                 f"{bound_by} ({nbytes / 1e9:.4f} GB, {flops / 1e12:.5f} TFLOP); plain "
                 f"{plain_ms:.2f} ms; torch.sparse.mm {lib_ms:.4f} ms (bf16 CSR of the covered edges)")
+            if impl == "strip":
+                floor_ms, floor_bytes = strip_floor(lay, f, nnz, clock[1])
+                say(f"[time] {card} | {name} F={f}: the design's shared-memory floor "
+                    f"{floor_ms:.4f} ms ({floor_bytes / 1e9:.3f} GB at 132 x 128 B a clock, "
+                    f"{clock[1]:g} MHz)")
             rows[(name, f)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                                    bound_by=bound_by, library_ms=lib_ms)
         del csr

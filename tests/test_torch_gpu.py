@@ -71,6 +71,26 @@ def _tiered_edges(rng, n, n_src, e):
             np.concatenate([d1, d2, d3]).astype(np.int32))
 
 
+def _strip_cases(rng):
+    """name -> (src, dst, n, n_src, min_edges): the layouts the strip
+    kernel's walk must take (tests/test_torch_spmm_strip.py checks their
+    walk arrays on the CPU)."""
+    e0 = np.zeros(0, np.int32)
+    rs, rd = _edges(rng, 2100, 30000, 5000)
+    fs, fd = _edges(rng, 2048, 6000, 4096)
+    blk = np.repeat(np.arange(8), 400)  # block b's edges all in window b
+    return {
+        "empty": (e0, e0, 2048, 4096, 1),
+        "rectangular": (rs, rd, 2100, 5000, 8),
+        "full row": (np.concatenate([np.arange(2048, dtype=np.int32), fs]),
+                     np.concatenate([np.full(2048, 300, np.int32), fd]), 2048, 4096, 1),
+        "single edge": (np.array([3000], np.int32), np.array([100], np.int32), 2048, 4096, 1),
+        "disjoint windows": ((blk * 2048 + rng.integers(0, 2048, blk.size)).astype(np.int32),
+                             (blk * 256 + rng.integers(0, 256, blk.size)).astype(np.int32),
+                             2048, 8 * 2048, 1),
+    }
+
+
 def _item_inputs(rng, fc):
     mask = rng.integers(0, 1 << 16, (BD, WORDS)).astype(np.uint16).view(np.int16)
     col = rng.integers(0, BS, BS).astype(np.int32).reshape(16, 128)
@@ -121,6 +141,27 @@ def test_cuda_strip_kernel_matches_plain(rng, cuda_device, dtype):
     # f32 sums in another order, then (bf16) one rounding step
     rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
     torch.testing.assert_close(got.float(), want.float(), atol=1e-3, rtol=rtol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("f", [8, 128, 256, 264, 640])
+def test_cuda_strip_kernel_walks_every_layout(rng, cuda_device, f, dtype):
+    # both forms (a CTA a strip; a cluster a strip, the windows multicast)
+    # against the plain version; a rerun is the same bit for bit
+    rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+    for name, (src, dst, n, n_src, me) in _strip_cases(rng).items():
+        lay = tstrip.strip_layout(src, dst, n, min_edges=me, n_src=n_src).to_device(cuda_device)
+        h = torch.from_numpy(rng.normal(size=(lay.n_src_pad, f)).astype(np.float32))
+        h = h.to(cuda_device, dtype)
+        want = tstrip._run_strip_torch(lay, h)
+        for cluster in (1, tstrip.SB):
+            got = tstrip._run_strip_cuda(lay, h, cluster)
+            again = tstrip._run_strip_cuda(lay, h, cluster)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got.float(), want.float(), atol=1e-3, rtol=rtol,
+                                       msg=lambda m: f"{name}, cluster {cluster}: {m}")
+            assert torch.equal(got, again), (name, cluster)
 
 
 @pytest.mark.gpu

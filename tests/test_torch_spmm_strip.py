@@ -18,6 +18,7 @@ from adaqp_tpu.ops import spmm_fast as jfast
 from adaqp_tpu.ops import spmm_strip as jstrip
 from adaqp_tpu_torch.ops import spmm_fast as tfast
 from adaqp_tpu_torch.ops import spmm_strip as tstrip
+from test_torch_gpu import _strip_cases  # the layouts the card's cases take too
 
 
 def _edges(rng, n, e, n_src=None):
@@ -209,3 +210,133 @@ def test_select_keeps_one_shard(rng):
             sel.devices((rank + 1) % 3)
         with pytest.raises(ValueError):
             sel.select(rank)
+
+
+CASE_NAMES = ["empty", "rectangular", "full row", "single edge", "disjoint windows"]
+
+
+def _case(name):
+    src, dst, n, n_src, me = _strip_cases(np.random.default_rng(5))[name]
+    return tstrip.strip_layout(src, dst, n, min_edges=me, n_src=n_src)
+
+
+def _row_lists(walk, n_tiles):
+    """Each tile row's column list, read back from the kernel's groups, and
+    whether every row's padding comes after its columns."""
+    cols = walk.cols.numpy().reshape(-1, tstrip.GROUP, tstrip.BATCH)
+    lists, tail_padded = [], True
+    for g in range(n_tiles * tstrip.BD // tstrip.GROUP):
+        batches = cols[walk.grp_ptr[g]:walk.grp_ptr[g + 1]]
+        for p in range(tstrip.GROUP):
+            row = batches[:, p, :].reshape(-1)[:int(walk.grp_len[g])]
+            real = row[row != tstrip.BS]
+            tail_padded &= bool((row[len(real):] == tstrip.BS).all())
+            lists.append(real)
+    return lists, tail_padded
+
+
+@pytest.mark.parametrize("name", CASE_NAMES)
+def test_column_lists_decode_the_masks(name):
+    # each tile row's list: the set bits of its mask row (column j is bit
+    # j // 128 of halfword j % 128), ascending; in the kernel's groups each
+    # row's list is padded with BS after its columns to the group's longest
+    lay = _case(name)
+    walk = lay.to_device("cpu").walk
+    t = len(lay.tile_src)
+    bits = np.unpackbits(lay.masks[:t].view(np.uint16)[..., None].view(np.uint8),
+                         axis=-1, bitorder="little")  # [T, BD, WORDS, 16]
+    want = bits.transpose(0, 1, 3, 2).reshape(t * tstrip.BD, tstrip.BS)
+    row_ptr, cols = tstrip.strip_columns(torch.from_numpy(lay.masks), t)
+    assert row_ptr.dtype == torch.int32 and cols.dtype == torch.int16
+    assert row_ptr.shape == (t * tstrip.BD + 1,) and int(row_ptr[-1]) == want.sum()
+    lists, tail_padded = _row_lists(walk, t)
+    assert tail_padded and len(lists) == t * tstrip.BD
+    for row in range(t * tstrip.BD):
+        np.testing.assert_array_equal(cols[row_ptr[row]:row_ptr[row + 1]].numpy(),
+                                      np.flatnonzero(want[row]))
+        np.testing.assert_array_equal(lists[row], np.flatnonzero(want[row]))
+    lens = want.sum(1).astype(np.int64).reshape(-1, tstrip.GROUP)
+    np.testing.assert_array_equal(walk.grp_len.numpy(), lens.max(1) if t else [])
+    np.testing.assert_array_equal(np.diff(walk.grp_ptr.numpy()), -(-lens.max(1) // tstrip.BATCH))
+    if name == "full row":
+        assert int(walk.grp_len.max()) == tstrip.BS
+    if name == "single edge":
+        assert len(cols) == 1 and cols[0] == 3000 % tstrip.BS
+
+
+@pytest.mark.parametrize("name", CASE_NAMES)
+def test_schedule_lists_each_tile_once_in_window_order(name):
+    lay = _case(name)
+    walk = lay.to_device("cpu").walk
+    strip_ptr, win, tiles = (x.numpy() for x in (walk.strip_ptr, walk.step_win, walk.step_tile))
+    assert strip_ptr.shape == (lay.n_pad // tstrip.STRIP + 1,) and strip_ptr[-1] == len(win)
+    assert tiles.shape == (len(win), tstrip.SB)
+    seen = tiles[tiles >= 0]
+    np.testing.assert_array_equal(np.sort(seen), np.arange(len(lay.tile_src)))
+    for s in range(len(strip_ptr) - 1):
+        steps = slice(strip_ptr[s], strip_ptr[s + 1])
+        assert (np.diff(win[steps]) > 0).all()  # ascending windows, each once
+        for k in range(strip_ptr[s], strip_ptr[s + 1]):
+            assert (tiles[k] >= 0).any()
+            for b in np.flatnonzero(tiles[k] >= 0):
+                tile = tiles[k, b]
+                assert lay.tile_dst[tile] == s * tstrip.SB + b and lay.tile_src[tile] == win[k]
+    if name == "disjoint windows":
+        assert len(win) == tstrip.SB and ((tiles >= 0).sum(1) == 1).all()
+    if name == "empty":
+        assert len(win) == 0 and (strip_ptr == 0).all()
+
+
+@pytest.mark.parametrize("name", CASE_NAMES)
+def test_walk_gives_the_plain_result(rng, name):
+    # the CUDA kernel's order of work in torch: each strip's windows in
+    # turn, each block's tile as groups of 16 rows in batches of columns,
+    # the padding column reading a zero row
+    lay = _case(name).to_device("cpu")
+    walk = lay.walk
+    h = torch.from_numpy(_feats(rng, lay.n_src_pad, 24))
+    out = torch.zeros(lay.n_pad, 24)
+    cols = walk.cols.view(-1, tstrip.GROUP, tstrip.BATCH).long()
+    groups = tstrip.BD // tstrip.GROUP
+    for s in range(lay.n_pad // tstrip.STRIP):
+        for k in range(int(walk.strip_ptr[s]), int(walk.strip_ptr[s + 1])):
+            start = int(walk.step_win[k])
+            window = torch.cat([h[start:start + tstrip.BS], torch.zeros(1, 24)])
+            for b, tile in enumerate(walk.step_tile[k].tolist()):
+                if tile < 0:
+                    continue
+                for i in range(groups):
+                    g = tile * groups + i
+                    batch = cols[walk.grp_ptr[g]:walk.grp_ptr[g + 1]]  # [nb, GROUP, BATCH]
+                    row = (s * tstrip.SB + b) * tstrip.BD + i * tstrip.GROUP
+                    out[row:row + tstrip.GROUP] += window[batch].sum((0, 2))
+    torch.testing.assert_close(out, tstrip._run_strip_torch(lay, h), atol=1e-5, rtol=1e-5)
+
+
+def test_shards_carry_each_shards_walk():
+    from adaqp_tpu_torch.common.types import GNNType
+    from adaqp_tpu_torch.graph import build_layout, partition_graph
+    from adaqp_tpu_torch.graph.strip_shards import build_strip_shards
+    from adaqp_tpu_torch.helper.dataset import sbm_graph
+
+    g = sbm_graph(n=900, blocks=3, num_feats=8, seed=2)
+    lay = build_layout(g, partition_graph(g, 3, "ldg"), GNNType.GCN, pad_multiple=2048)
+    shards = build_strip_shards(lay, min_edges=4)
+    assert all(d.walk is None for d in shards.devices(1))
+    for moved in (shards.to("cpu"), shards.select(1).to("cpu")):
+        for d in moved.devices(1):
+            want = tstrip.strip_walk(d.masks, d.tile_src, d.blk_ptr)
+            assert d.walk.cols.data_ptr() % 16 == 0
+            for got, ref in zip(d.walk.tensors(), want.tensors()):
+                # stacked over shards: zero padding past this shard's entries
+                assert torch.equal(got[:ref.shape[0]], ref)
+
+
+def test_cuda_path_refuses_what_the_kernel_cannot_take():
+    lay = _case("single edge").to_device("cpu")
+    h = torch.zeros(lay.n_src_pad, 16)
+    with pytest.raises(ValueError, match="walk"):
+        tstrip._run_strip_cuda(tstrip.StripDevice(
+            lay.n, lay.n_pad, lay.n_src_pad, lay.masks, lay.tile_src, lay.blk_ptr, None), h)
+    with pytest.raises(ValueError, match="cluster"):
+        tstrip._run_strip_cuda(lay, h, cluster=3)

@@ -63,7 +63,9 @@ def _rank_train(rank, world, device, tmp, inits):
     return out
 
 
-def _jax_run(cfg):
+def _jax_trainer(cfg):
+    """The JAX Trainer of ``cfg``, its initial parameters, and the list its
+    training steps' losses go into."""
     import jax
 
     from adaqp_tpu.trainer import Trainer as JTrainer
@@ -83,26 +85,57 @@ def _jax_run(cfg):
         return run
 
     t._make_train_step = recording_step
-    init = jax.tree.map(np.asarray, t.params)
-    rec = t.train()
-    return t, rec, init, np.asarray(losses)
+    return t, jax.tree.map(np.asarray, t.params), losses
+
+
+def spawn_beside(worker, args, tmp):
+    """Start the two CPU ranks in a thread (one torch thread a rank) and
+    return a function that joins them and gives their results, so that the
+    caller's JAX training overlaps theirs."""
+    import threading
+
+    from adaqp_tpu_torch.comm.distributed import spawn
+
+    out = {}
+
+    def launch():
+        try:
+            out["res"] = spawn(worker, 2, "cpu", args=args, workdir=f"{tmp}/launch")
+        except BaseException as exc:  # re-raised by join
+            out["exc"] = exc
+
+    mp = pytest.MonkeyPatch()
+    mp.setenv("OMP_NUM_THREADS", "1")  # one thread a rank beside other test workers
+    thread = threading.Thread(target=launch)
+    thread.start()
+
+    def join():
+        thread.join()
+        mp.undo()
+        if "exc" in out:
+            raise out["exc"]
+        return out["res"]
+
+    return join
 
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     from adaqp_tpu.trainer import RunConfig as JRunConfig
-    from adaqp_tpu_torch.comm.distributed import spawn
 
     tmp = str(tmp_path_factory.mktemp("k2"))
-    jt, jrec, init, jlosses = _jax_run(_cfg(JRunConfig, tmp, "jax", spmm_impl="block"))
-    inits, impl_losses = {"strip": init, "block": init}, {"block": jlosses}
-    for impl in ("compact", "segment"):
-        _, _, inits[impl], impl_losses[impl] = _jax_run(
-            _cfg(JRunConfig, tmp, f"jax_{impl}", spmm_impl=impl))
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("OMP_NUM_THREADS", "1")  # one thread a rank beside other test workers
-        res = spawn(_rank_train, 2, "cpu", args=(tmp, inits), workdir=f"{tmp}/launch")
-    return jt, jrec, jlosses, res, tmp, inits, impl_losses
+    jax_runs = {impl: _jax_trainer(_cfg(JRunConfig, tmp, "jax" if impl == "block" else f"jax_{impl}",
+                                        spmm_impl=impl)) for impl in IMPLS}
+    inits = {"strip": jax_runs["block"][1], **{impl: r[1] for impl, r in jax_runs.items()}}
+    # the ranks need only the initial parameters: they train while JAX does
+    join = spawn_beside(_rank_train, (tmp, inits), tmp)
+    try:
+        jrec = {impl: t.train() for impl, (t, _, _) in jax_runs.items()}
+    finally:
+        res = join()
+    jt = jax_runs["block"][0]
+    impl_losses = {impl: np.asarray(r[2]) for impl, r in jax_runs.items()}
+    return jt, jrec["block"], impl_losses["block"], res, tmp, inits, impl_losses
 
 
 def test_vanilla_matches_jax_trainer(runs):

@@ -21,6 +21,7 @@ import sys
 
 import numpy as np
 import pytest
+from test_torch_trainer_k import spawn_beside
 
 SYNTH = {"n": 600, "blocks": 4, "num_feats": 16, "seed": 9}
 EXACT = {"dropout_rate": 0.0, "num_epochs": 5, "init": True}
@@ -79,7 +80,6 @@ def runs(tmp_path_factory):
 
     from adaqp_tpu.trainer import RunConfig as JRunConfig
     from adaqp_tpu.trainer import Trainer as JTrainer
-    from adaqp_tpu_torch.comm.distributed import spawn
 
     tmp = str(tmp_path_factory.mktemp("pad"))
     over = {k: v for k, v in RUNS["Vanilla"].items() if k != "init"}
@@ -100,11 +100,13 @@ def runs(tmp_path_factory):
         return run
 
     jt._make_train_step = recording_step
-    jt.train()
+    # the ranks need only the initial parameters: they train while JAX does
+    join = spawn_beside(_rank_train, (tmp, init), tmp)
+    try:
+        jt.train()
+    finally:
+        res = join()
     assert jt.buckets_dev is None and jt.wire_fp_dev is None  # the padded fp exchange
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("OMP_NUM_THREADS", "1")  # one thread a rank beside other test workers
-        res = spawn(_rank_train, 2, "cpu", args=(tmp, init), workdir=f"{tmp}/launch")
     return np.asarray(losses), res, tmp
 
 
