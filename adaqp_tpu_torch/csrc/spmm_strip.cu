@@ -58,21 +58,15 @@
 // (chip_smoke.py, the smoke layout): 4.25 ms at F=640 and 1.72 ms at F=256,
 // against torch.sparse.mm's 11.15 and 4.49 ms and the shared-memory floor's
 // 1.31 and 0.53 ms; 128 registers a thread, no spills.
-//
-// A second form is kept to be timed against it (cluster = 8): a cluster of
-// 8 CTAs per (strip, slice), one destination block each, every window slice
-// multicast by TMA to all 8 (each CTA issues one 256-row box to all). It
-// reads L2 as often as the first form, but fills 8 times the shared memory
-// for the same adds and waits on the whole cluster at every step.
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "tile_walk.cuh"  // Elem, add_vec, pack_vec
+#include "vec.cuh"
 
 namespace {
 
-using tile_walk::Elem;
+using vec16::Elem;
 
 constexpr int kSB = 8;                           // destination blocks per strip
 constexpr int kBD = 256;                         // rows per destination block
@@ -128,26 +122,6 @@ __device__ __forceinline__ void arrive(uint64_t* bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
 }
 
-// An arrival on the barrier at `bar`'s offset in cluster CTA `cta`.
-__device__ __forceinline__ void arrive_remote(uint64_t* bar, uint32_t cta) {
-  uint32_t remote;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
-               : "=r"(remote) : "r"(smem_u32(bar)), "r"(cta));
-  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];" ::"r"(remote)
-               : "memory");
-}
-
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
-  return r;
-}
-
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n"
-               "barrier.cluster.wait.acquire.aligned;" ::: "memory");
-}
-
 // The box of `map` at (column c0, row r0) into shared `dst`, completing on `bar`.
 __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int c0, int r0,
                                          uint64_t* bar) {
@@ -156,17 +130,6 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int 
       " [%0], [%1, {%2, %3}], [%4];"
       ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(r0),
         "r"(smem_u32(bar))
-      : "memory");
-}
-
-// The same box into `dst` and onto `bar` of every CTA of the cluster in `mask`.
-__device__ __forceinline__ void tma_load_multicast(void* dst, const CUtensorMap* map, int c0,
-                                                   int r0, uint64_t* bar, uint16_t mask) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      ".multicast::cluster [%0], [%1, {%2, %3}], [%4], %5;"
-      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(r0),
-        "r"(smem_u32(bar)), "h"(mask)
       : "memory");
 }
 
@@ -186,7 +149,7 @@ __device__ __forceinline__ void add_batch(float (&acc)[Elem<kBf16>::kVec], const
   }
 #pragma unroll
   for (int u = 0; u < kBatch; ++u) {
-    if (u < r) tile_walk::add_vec<kBf16>(acc, v[u]);
+    if (u < r) vec16::add_vec<kBf16>(acc, v[u]);
   }
 }
 
@@ -208,12 +171,10 @@ __device__ __forceinline__ void walk_rows(float (&acc)[Elem<kBf16>::kVec], const
   if (n > i) add_batch<kBf16>(acc, win, cur, n - i);
 }
 
-// Grid (column slice x kCluster, strip). kCluster 1: a CTA takes the
-// strip's 8 blocks; kCluster 8: CTA `rank` of the cluster takes block rank.
-// Thread 0 also keeps the ring full: it issues the first kStages window
-// slices, and the slice of step k + kStages once every warp (of every CTA
-// of the cluster) is done with step k.
-template <bool kBf16, int kCluster>
+// Grid (column slice, strip): a CTA takes the strip's 8 blocks. Thread 0
+// also keeps the ring full: it issues the first kStages window slices, and
+// the slice of step k + kStages once every warp is done with step k.
+template <bool kBf16>
 __global__ void __launch_bounds__(kThreads, 1)
 strip_kernel(const __grid_constant__ CUtensorMap map, const int32_t* __restrict__ grp_ptr,
              const int32_t* __restrict__ grp_len, const uint4* __restrict__ cols,
@@ -223,14 +184,12 @@ strip_kernel(const __grid_constant__ CUtensorMap map, const int32_t* __restrict_
   constexpr int kVec = Elem<kBf16>::kVec;      // values in a lane's 16 bytes
   constexpr int kBytes = Elem<kBf16>::kBytes;
   constexpr int kCols = kSliceBytes / kBytes;  // columns per slice
-  constexpr int kBlocks = kSB / kCluster;      // destination blocks per CTA
   extern __shared__ __align__(1024) uint8_t win[];
   __shared__ __align__(8) uint64_t full[kStages], empty[kStages];
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int rank = kCluster == 1 ? 0 : static_cast<int>(cluster_rank());
-  const int col0 = static_cast<int>(blockIdx.x) / kCluster * kCols;
+  const int col0 = static_cast<int>(blockIdx.x) * kCols;
   const int strip = blockIdx.y;
   const int k0 = strip_ptr[strip];
   const int steps = strip_ptr[strip + 1] - k0;
@@ -242,29 +201,21 @@ strip_kernel(const __grid_constant__ CUtensorMap map, const int32_t* __restrict_
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
       barrier_init(&full[s], 1);
-      barrier_init(&empty[s], kWarps * kCluster);
+      barrier_init(&empty[s], kWarps);
     }
+    // the barriers' initialisation is seen by the TMA unit's arrivals
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  if constexpr (kCluster > 1) {
-    cluster_sync();
-  } else {
-    __syncthreads();
-  }
+  __syncthreads();
   // the window slice of step k into stage k % kStages (thread 0)
   auto load = [&](int k) {
     const int s = k % kStages;
     expect_bytes(&full[s], kStageBytes);
     const int row0 = step_win[k0 + k];
     uint8_t* stage = win + s * kStageStride;
-    if constexpr (kCluster == 1) {
 #pragma unroll
-      for (int i = 0; i < kBS / kBoxRows; ++i) {
-        tma_load(stage + i * kBoxRows * kSliceBytes, &map, col0, row0 + i * kBoxRows, &full[s]);
-      }
-    } else {
-      tma_load_multicast(stage + rank * kBoxRows * kSliceBytes, &map, col0,
-                         row0 + rank * kBoxRows, &full[s], (1u << kCluster) - 1);
+    for (int i = 0; i < kBS / kBoxRows; ++i) {
+      tma_load(stage + i * kBoxRows * kSliceBytes, &map, col0, row0 + i * kBoxRows, &full[s]);
     }
   };
   if (threadIdx.x == 0) {
@@ -274,19 +225,19 @@ strip_kernel(const __grid_constant__ CUtensorMap map, const int32_t* __restrict_
   const int pair = lane >> 1;             // the lane pair's row of each group of 16
   const int r = warp * 16 + pair;         // ... and of each destination block
   const int half = lane & 1;              // its 16 bytes of the slice
-  float acc[kBlocks][kVec];
+  float acc[kSB][kVec];
 #pragma unroll
-  for (int b = 0; b < kBlocks; ++b) {
+  for (int b = 0; b < kSB; ++b) {
 #pragma unroll
     for (int i = 0; i < kVec; ++i) acc[b][i] = 0.f;
   }
   for (int k = 0; k < steps; ++k) {
     const int s = k % kStages;
-    const int32_t* tiles = step_tile + static_cast<size_t>(k0 + k) * kSB + rank * kBlocks;
-    // lane b < kBlocks holds where the warp's group of tile b starts and its
+    const int32_t* tiles = step_tile + static_cast<size_t>(k0 + k) * kSB;
+    // lane b < kSB holds where the warp's group of tile b starts and its
     // longest row (tile t's group of rows 16 warp .. is t * kWarps + warp)
     int my_bp = 0, my_n = 0;
-    if (lane < kBlocks) {
+    if (lane < kSB) {
       const int t = __ldg(tiles + lane);
       if (t >= 0) {
         my_bp = __ldg(grp_ptr + static_cast<size_t>(t) * kWarps + warp);
@@ -300,10 +251,10 @@ strip_kernel(const __grid_constant__ CUtensorMap map, const int32_t* __restrict_
     wait(&full[s], (k / kStages) & 1);
     const uint8_t* w = win + s * kStageStride + half * 16;
 #pragma unroll
-    for (int b = 0; b < kBlocks; ++b) {
+    for (int b = 0; b < kSB; ++b) {
       const int b0 = bp, n0 = n;
       const uint4 f0 = first;
-      if (b + 1 < kBlocks) {  // the next tile's first batch loads during this walk
+      if (b + 1 < kSB) {  // the next tile's first batch loads during this walk
         bp = __shfl_sync(0xffffffffu, my_bp, b + 1);
         n = __shfl_sync(0xffffffffu, my_n, b + 1);
         if (n > 0) first = __ldg(cols + static_cast<size_t>(bp) * 16 + pair);
@@ -311,13 +262,7 @@ strip_kernel(const __grid_constant__ CUtensorMap map, const int32_t* __restrict_
       walk_rows<kBf16>(acc[b], w, cols, b0, n0, f0, pair);
     }
     __syncwarp();
-    if (lane == 0) {
-      if constexpr (kCluster == 1) {
-        arrive(&empty[s]);
-      } else {
-        for (int c = 0; c < kCluster; ++c) arrive_remote(&empty[s], c);
-      }
-    }
+    if (lane == 0) arrive(&empty[s]);
     if (threadIdx.x == 0 && k + kStages < steps) {
       wait(&empty[s], (k / kStages) & 1);
       load(k + kStages);
@@ -327,15 +272,11 @@ strip_kernel(const __grid_constant__ CUtensorMap map, const int32_t* __restrict_
   if (col < f) {  // the last slice may be part-filled
     const size_t row_bytes = static_cast<size_t>(f) * kBytes;
 #pragma unroll
-    for (int b = 0; b < kBlocks; ++b) {
-      const size_t row = static_cast<size_t>(strip) * kSB * kBD + (rank * kBlocks + b) * kBD + r;
+    for (int b = 0; b < kSB; ++b) {
+      const size_t row = (static_cast<size_t>(strip) * kSB + b) * kBD + r;
       *reinterpret_cast<uint4*>(out + row * row_bytes + static_cast<size_t>(col) * kBytes) =
-          tile_walk::pack_vec<kBf16>(acc[b]);
+          vec16::pack_vec<kBf16>(acc[b]);
     }
-  }
-  if constexpr (kCluster > 1) {
-    __syncwarp();
-    cluster_sync();  // no CTA leaves while another may still copy or arrive into it
   }
 }
 
@@ -360,30 +301,20 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-template <bool kBf16, int kCluster>
+template <bool kBf16>
 cudaError_t launch(const CUtensorMap& map, const int32_t* grp_ptr, const int32_t* grp_len,
                    const uint4* cols, const int32_t* strip_ptr, const int32_t* step_win,
                    const int32_t* step_tile,
                    uint8_t* out, int n_strips, int f, cudaStream_t stream) {
-  auto kernel = strip_kernel<kBf16, kCluster>;
+  auto kernel = strip_kernel<kBf16>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (err != cudaSuccess) return err;
   constexpr int kCols = kSliceBytes / Elem<kBf16>::kBytes;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((f + kCols - 1) / kCols * kCluster, n_strips);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = kSmemBytes;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = kCluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = kCluster > 1 ? 1 : 0;
-  return cudaLaunchKernelEx(&cfg, kernel, map, grp_ptr, grp_len, cols, strip_ptr, step_win,
-                            step_tile, out, f);
+  const dim3 grid((f + kCols - 1) / kCols, n_strips);
+  kernel<<<grid, kThreads, kSmemBytes, stream>>>(map, grp_ptr, grp_len, cols, strip_ptr,
+                                                   step_win, step_tile, out, f);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -398,19 +329,16 @@ cudaError_t launch(const CUtensorMap& map, const int32_t* grp_ptr, const int32_t
 // within a strip) and step_tile int32 [steps, 8] (each block's tile in that
 // window, -1 for none). h [n_src, f] and out bf16 (is_bf16 = 1) or f32,
 // row-major, 16-byte aligned, f a multiple of 8 (bf16) or 4 (f32), n_src a
-// multiple of 2048. cluster: 1 (a CTA per strip and slice) or 8 (a cluster
-// per strip and slice, the window multicast). Launches on `stream` of CUDA
-// device `device` and returns a cudaError_t code (0 on success); it does
-// not synchronise.
+// multiple of 2048. Launches on `stream` of CUDA device `device` and
+// returns a cudaError_t code (0 on success); it does not synchronise.
 extern "C" int adaqp_strip_spmm(const void* grp_ptr, const void* grp_len, const void* cols,
                                 const void* strip_ptr, const void* step_win,
                                 const void* step_tile, const void* h,
                                 void* out, int n_strips, int n_src, int f, int is_bf16,
-                                int cluster, int device, void* stream) {
+                                int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n_strips <= 0 || f <= 0) return 0;
-  if (cluster != 1 && cluster != kSB) return static_cast<int>(cudaErrorInvalidValue);
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
   const cuuint32_t bytes = is_bf16 ? 2 : 4;
@@ -434,27 +362,18 @@ extern "C" int adaqp_strip_spmm(const void* grp_ptr, const void* grp_len, const 
   const auto* sw = static_cast<const int32_t*>(step_win);
   const auto* st = static_cast<const int32_t*>(step_tile);
   auto* op = static_cast<uint8_t*>(out);
-  if (is_bf16) {
-    err = cluster == 1 ? launch<true, 1>(map, rp, gl, cl, sp, sw, st, op, n_strips, f, s)
-                       : launch<true, kSB>(map, rp, gl, cl, sp, sw, st, op, n_strips, f, s);
-  } else {
-    err = cluster == 1 ? launch<false, 1>(map, rp, gl, cl, sp, sw, st, op, n_strips, f, s)
-                       : launch<false, kSB>(map, rp, gl, cl, sp, sw, st, op, n_strips, f, s);
-  }
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  err = is_bf16 ? launch<true>(map, rp, gl, cl, sp, sw, st, op, n_strips, f, s)
+                : launch<false>(map, rp, gl, cl, sp, sw, st, op, n_strips, f, s);
+  return static_cast<int>(err);
 }
 
-// What the compiler gave a form of the kernel: info[0..4] = registers a
-// thread, static and dynamic shared bytes, local (spill) bytes a thread,
-// columns a slice. Returns a cudaError_t code.
-extern "C" int adaqp_strip_kernel_info(int is_bf16, int cluster, int* info) {
+// What the compiler gave the kernel: info[0..4] = registers a thread,
+// static and dynamic shared bytes, local (spill) bytes a thread, columns a
+// slice. Returns a cudaError_t code.
+extern "C" int adaqp_strip_kernel_info(int is_bf16, int* info) {
   cudaFuncAttributes a;
-  const void* kernel =
-      is_bf16 ? (cluster == 1 ? reinterpret_cast<const void*>(strip_kernel<true, 1>)
-                              : reinterpret_cast<const void*>(strip_kernel<true, kSB>))
-              : (cluster == 1 ? reinterpret_cast<const void*>(strip_kernel<false, 1>)
-                              : reinterpret_cast<const void*>(strip_kernel<false, kSB>));
+  const void* kernel = is_bf16 ? reinterpret_cast<const void*>(strip_kernel<true>)
+                               : reinterpret_cast<const void*>(strip_kernel<false>);
   cudaError_t err = cudaFuncGetAttributes(&a, kernel);
   if (err != cudaSuccess) return static_cast<int>(err);
   info[0] = a.numRegs;

@@ -6,8 +6,8 @@ the ELL straggler stacking are shared with the block and compact shards
 (``block_shards.py``, which describes the four groups); each shard's
 destination-block tile ranges (``blk_ptr``) are computed from its own tiles
 before the tile arrays are padded, so the padding is never read. Moved to a
-device (``to``), each group also carries each shard's walk arrays for the
-CUDA kernel (``strip_walk``), built on that device.
+CUDA device (``to``), each group also carries each shard's walk arrays for
+the CUDA kernel (``strip_walk``), built there.
 """
 from __future__ import annotations
 
@@ -43,19 +43,25 @@ def _stack_walks(group):
 
 class StripShards(TileShards):
     """Strip layouts, per group (masks [K, T, BD, WORDS], tile_src [K, T],
-    blk_ptr [K, n_pad // BD + 1]; after ``to``, the six walk arrays)."""
+    blk_ptr [K, n_pad // BD + 1]; after ``to`` a CUDA device, the six walk
+    arrays)."""
 
     @staticmethod
     def _device(tensors, n_pad, n_src_pad, straggler):
         walk = StripWalk(*tensors[3:]) if len(tensors) > 3 else None
         return StripDevice(n_pad, n_pad, n_src_pad, *tensors[:3], straggler, walk)
 
-    def to(self, device: DeviceLike) -> "StripShards":
-        out = super().to(device)
-        return dataclasses.replace(out, **{
-            name: None if getattr(out, name) is None else _stack_walks(getattr(out, name))
+    def with_walks(self) -> "StripShards":
+        """These shards with each group's walk arrays, built on the shards'
+        device; ``to`` a CUDA device calls it."""
+        return dataclasses.replace(self, **{
+            name: None if getattr(self, name) is None else _stack_walks(getattr(self, name))
             for name in ("fwd_local", "bwd_local", "fwd_halo", "bwd_halo")
         })
+
+    def to(self, device: DeviceLike) -> "StripShards":
+        out = super().to(device)
+        return out.with_walks() if out.fwd_local[0].is_cuda else out
 
 
 def build_strip_shards(

@@ -15,7 +15,7 @@ reads each destination block's tile range, :func:`block_pointers`.
 
 Device side: :func:`block_spmm` is the kernel wrapper. On a CUDA tensor it
 launches the hand-written kernel (``csrc/spmm_block.cu``, which walks the
-tiles with the strip kernel's row walk, ``csrc/tile_walk.cuh``); on a CPU
+tiles with the set-bit row walk of ``csrc/tile_walk.cuh``); on a CPU
 tensor it runs the plain PyTorch version :func:`_run_block_torch`; there
 is no fallback from one to the other. Both sum in f32 and round once to
 ``h.dtype``. (The JAX package's accelerator kernel rounds f32 windows to

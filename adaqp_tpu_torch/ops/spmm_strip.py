@@ -8,8 +8,8 @@ gradients on its ``bwd_graph``, ``AdaQP/model/ops.py:83-95``).
 
 Host side: :func:`strip_layout` packs the dense tiles exactly as the JAX
 package's ``strip_layout`` does (masks in destination-block-major order).
-When a layout reaches its device, :func:`strip_walk` derives what the CUDA
-kernel walks (a :class:`StripWalk`): each strip's schedule of source
+When a layout reaches a CUDA device, :func:`strip_walk` derives there what
+the CUDA kernel walks (a :class:`StripWalk`): each strip's schedule of source
 windows with each destination block's tile in them (the idea of the JAX
 package's ``w_ord``/``sub``/``mask_idx`` for its window ring, packed for
 the kernel's grid), and every tile row's set columns decoded once into a
@@ -70,7 +70,7 @@ class StripLayout:
         return StripDevice(
             self.n, self.n_pad, self.n_src_pad, masks, tile_src, blk_ptr,
             self.straggler.to_device(dev) if self.straggler else None,
-            strip_walk(masks, tile_src, blk_ptr),
+            cuda_walk(masks, tile_src, blk_ptr),
         )
 
 
@@ -113,7 +113,8 @@ class StripDevice:
     """A strip layout's tensors on one device. Tiles ``blk_ptr[b]`` ..
     ``blk_ptr[b + 1]`` of ``masks``/``tile_src`` belong to destination
     block ``b``; rows of ``masks`` past ``blk_ptr[-1]`` are padding. The
-    plain version reads the masks, the CUDA kernel ``walk``."""
+    plain version reads the masks, the CUDA kernel ``walk``, which is built
+    where a layout reaches a CUDA device."""
 
     n: int
     n_pad: int
@@ -125,11 +126,12 @@ class StripDevice:
     walk: Optional[StripWalk] = None  # what the CUDA kernel reads
 
     def to(self, device: DeviceLike) -> "StripDevice":
+        masks, tile_src, blk_ptr = (x.to(device) for x in (self.masks, self.tile_src, self.blk_ptr))
+        walk = (self.walk.to(device) if self.walk is not None
+                else cuda_walk(masks, tile_src, blk_ptr))
         return StripDevice(
-            self.n, self.n_pad, self.n_src_pad, self.masks.to(device),
-            self.tile_src.to(device), self.blk_ptr.to(device),
-            self.straggler.to(device) if self.straggler else None,
-            self.walk.to(device) if self.walk else None,
+            self.n, self.n_pad, self.n_src_pad, masks, tile_src, blk_ptr,
+            self.straggler.to(device) if self.straggler else None, walk,
         )
 
 
@@ -310,6 +312,13 @@ def strip_walk(masks: torch.Tensor, tile_src: torch.Tensor, blk_ptr: torch.Tenso
     return StripWalk(*groups, *(torch.as_tensor(a, device=masks.device) for a in sched))
 
 
+def cuda_walk(masks: torch.Tensor, tile_src: torch.Tensor,
+              blk_ptr: torch.Tensor) -> Optional[StripWalk]:
+    """:func:`strip_walk` of a layout on a CUDA device; None elsewhere, where
+    only the plain version runs, which reads the masks."""
+    return strip_walk(masks, tile_src, blk_ptr) if masks.is_cuda else None
+
+
 # ---------------------------------------------------------------------------
 # plain PyTorch version
 # ---------------------------------------------------------------------------
@@ -340,24 +349,20 @@ def _lib() -> ctypes.CDLL:
     lib = load_library("spmm_strip")
     if lib.adaqp_strip_spmm.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.adaqp_strip_spmm.argtypes = [vp] * 8 + [ci] * 6 + [vp]
+        lib.adaqp_strip_spmm.argtypes = [vp] * 8 + [ci] * 5 + [vp]
         lib.adaqp_strip_spmm.restype = ci
-        lib.adaqp_strip_kernel_info.argtypes = [ci, ci, ctypes.POINTER(ci)]
+        lib.adaqp_strip_kernel_info.argtypes = [ci, ctypes.POINTER(ci)]
         lib.adaqp_strip_kernel_info.restype = ci
         lib.adaqp_cuda_error_string.argtypes = [ci]
         lib.adaqp_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _run_strip_cuda(layout: StripDevice, h: torch.Tensor, cluster: int = 1) -> torch.Tensor:
-    """Launch the CUDA kernel on ``h``'s device and current stream.
-    ``cluster``: 1, the kept form (a CTA per strip and column slice), or
-    ``SB``, the form kept only to be timed against it (a cluster of ``SB``
-    CTAs per strip and slice, one destination block each)."""
+def _run_strip_cuda(layout: StripDevice, h: torch.Tensor) -> torch.Tensor:
+    """Launch the CUDA kernel on ``h``'s device and current stream."""
     walk = layout.walk
-    if walk is None:
-        raise ValueError("the layout has no walk arrays: build it with "
-                         "StripLayout.to_device or StripShards.to")
+    if walk is None:  # built where the layout reaches a CUDA device
+        raise ValueError(f"the strip layout is on {layout.masks.device}, h on {h.device}")
     check_cuda_operands(h, layout.n_src_pad, (
         ("grp_ptr", walk.grp_ptr, torch.int32), ("grp_len", walk.grp_len, torch.int32),
         ("cols", walk.cols, torch.int16),
@@ -369,14 +374,12 @@ def _run_strip_cuda(layout: StripDevice, h: torch.Tensor, cluster: int = 1) -> t
         raise ValueError("layout shapes do not match n_pad")
     if walk.cols.data_ptr() % 16:
         raise ValueError("the column batches must be 16-byte aligned")
-    if cluster not in (1, SB):
-        raise ValueError(f"cluster must be 1 or {SB}, got {cluster}")
     f = h.shape[1]
     out = torch.empty((layout.n_pad, f), dtype=h.dtype, device=h.device)
     lib = _lib()
     rc = lib.adaqp_strip_spmm(
         *(x.data_ptr() for x in walk.tensors()), h.data_ptr(), out.data_ptr(),
-        n_strips, layout.n_src_pad, f, int(h.dtype == torch.bfloat16), cluster,
+        n_strips, layout.n_src_pad, f, int(h.dtype == torch.bfloat16),
         h.device.index, torch.cuda.current_stream(h.device).cuda_stream,
     )
     if rc:
@@ -387,12 +390,12 @@ def _run_strip_cuda(layout: StripDevice, h: torch.Tensor, cluster: int = 1) -> t
     return out
 
 
-def strip_kernel_info(dtype: torch.dtype, cluster: int = 1) -> dict:
-    """The compiled kernel form's registers a thread, static and dynamic
+def strip_kernel_info(dtype: torch.dtype) -> dict:
+    """The compiled kernel's registers a thread, static and dynamic
     shared-memory bytes, spill bytes a thread and columns a slice."""
     lib = _lib()
     info = (ctypes.c_int * 5)()
-    rc = lib.adaqp_strip_kernel_info(int(dtype == torch.bfloat16), cluster, info)
+    rc = lib.adaqp_strip_kernel_info(int(dtype == torch.bfloat16), info)
     if rc:
         raise RuntimeError(f"strip kernel attributes: {lib.adaqp_cuda_error_string(rc).decode()}")
     return dict(zip(("registers", "static_smem", "dynamic_smem", "spill_bytes", "columns"), info))

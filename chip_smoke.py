@@ -262,17 +262,6 @@ def phase_kernel(torch, trainer, seed):
     torch.cuda.synchronize()
     say(f"[kernel] fwd_local F=640 launched twice: bit for bit the same {torch.equal(first, second)}")
     check(torch.equal(first, second), "two launches of strip_spmm differ")
-    # the form kept only for timing (a cluster of 8 CTAs a strip, the windows
-    # multicast) on the main path's layout
-    for f in (640, 256):
-        h = torch.randn(fl.n_src_pad, f, generator=gen, device=dev).to(torch.bfloat16)
-        got = ss._run_strip_cuda(fl, h, cluster=ss.SB)
-        torch.cuda.synchronize()
-        err, ratio = compare(torch, got, ss._run_strip_torch(fl, h), BF16_ATOL, BF16_RTOL)
-        worst = max(worst, ratio)
-        say(f"[kernel] fwd_local F={f}, cluster form: max |kernel - plain| {err:.3g}, "
-            f"{ratio:.3f} of the tolerance")
-        check(ratio <= 1.0, f"F={f}: the cluster form disagrees with the plain version")
 
     rng = np.random.default_rng(seed)
     n, n_src, e = 8192, 6144, 600_000
@@ -420,7 +409,6 @@ def phase_time(torch, trainer, card):
         h = torch.randn(fl.n_src_pad, f, generator=gen, device=dev).to(torch.bfloat16)
         saved = ss.strip_spmm.launches
         ms = cuda_ms(torch, lambda: ss.strip_spmm(fl, h), reps=10)
-        cluster_ms = cuda_ms(torch, lambda: ss._run_strip_cuda(fl, h, cluster=ss.SB), reps=10)
         ss.strip_spmm.launches = saved  # timing launches are not the main path's
         plain_ms = cuda_ms(torch, lambda: ss._run_strip_torch(fl, h), reps=2, warmup=1)
         # the library yardstick on the same edges; the port never calls it
@@ -440,8 +428,7 @@ def phase_time(torch, trainer, card):
             f"torch.sparse.mm {lib_ms:.3f} ms (bf16 CSR)")
         say(f"[time] {card} | the design's shared-memory floor {floor_ms:.3f} ms "
             f"({floor_bytes / 1e9:.2f} GB at 132 x 128 B a clock; the warps walk "
-            f"{fl.walk.cols.numel() / nnz:.2f} column slots an edge); the cluster form "
-            f"{cluster_ms:.3f} ms")
+            f"{fl.walk.cols.numel() / nnz:.2f} column slots an edge)")
         rows[f] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                        library_ms=lib_ms)
     return rows

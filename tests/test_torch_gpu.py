@@ -24,6 +24,7 @@ from adaqp_tpu_torch.scripts import microbench_dma_gather as dg
 from adaqp_tpu_torch.scripts import microbench_expand as me
 from adaqp_tpu_torch.scripts import microbench_gather as gb
 from adaqp_tpu_torch.scripts import probe_r5 as pr
+from torch_helpers import random_edges, strip_cases
 
 
 @pytest.fixture
@@ -45,17 +46,6 @@ def _rows(rng, n, f, ft):
     return x.astype(np.float32)
 
 
-def _edges(rng, n, e, n_src=None):
-    ns = n if n_src is None else n_src
-    src = rng.integers(0, ns, e).astype(np.int32)
-    dst = np.where(
-        rng.random(e) < 0.5,
-        (src + rng.integers(-300, 300, e)) % n,
-        rng.integers(0, n, e),
-    ).astype(np.int32)
-    return src, dst
-
-
 def _tiered_edges(rng, n, n_src, e):
     """Dense diagonal regions in the first half of the rows (full tiles), a
     hot set of 1,500 source columns there too (subtile groups, several
@@ -69,26 +59,6 @@ def _tiered_edges(rng, n, n_src, e):
     s3 = rng.integers(0, n_src, e // 40)
     return (np.concatenate([s1, s2, s3]).astype(np.int32),
             np.concatenate([d1, d2, d3]).astype(np.int32))
-
-
-def _strip_cases(rng):
-    """name -> (src, dst, n, n_src, min_edges): the layouts the strip
-    kernel's walk must take (tests/test_torch_spmm_strip.py checks their
-    walk arrays on the CPU)."""
-    e0 = np.zeros(0, np.int32)
-    rs, rd = _edges(rng, 2100, 30000, 5000)
-    fs, fd = _edges(rng, 2048, 6000, 4096)
-    blk = np.repeat(np.arange(8), 400)  # block b's edges all in window b
-    return {
-        "empty": (e0, e0, 2048, 4096, 1),
-        "rectangular": (rs, rd, 2100, 5000, 8),
-        "full row": (np.concatenate([np.arange(2048, dtype=np.int32), fs]),
-                     np.concatenate([np.full(2048, 300, np.int32), fd]), 2048, 4096, 1),
-        "single edge": (np.array([3000], np.int32), np.array([100], np.int32), 2048, 4096, 1),
-        "disjoint windows": ((blk * 2048 + rng.integers(0, 2048, blk.size)).astype(np.int32),
-                             (blk * 256 + rng.integers(0, 256, blk.size)).astype(np.int32),
-                             2048, 8 * 2048, 1),
-    }
 
 
 def _item_inputs(rng, fc):
@@ -129,7 +99,7 @@ def test_cuda_padded_kernels_match_plain(rng, cuda_device, bits, dtype):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_cuda_strip_kernel_matches_plain(rng, cuda_device, dtype):
-    src, dst = _edges(rng, 5000, 60000)
+    src, dst = random_edges(rng, 5000, 60000)
     lay = tstrip.strip_layout(src, dst, 5000, min_edges=4).to_device(cuda_device)
     h = torch.from_numpy(rng.normal(size=(lay.n_src_pad, 640)).astype(np.float32))
     h = h.to(cuda_device, dtype)
@@ -147,27 +117,25 @@ def test_cuda_strip_kernel_matches_plain(rng, cuda_device, dtype):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("f", [8, 128, 256, 264, 640])
 def test_cuda_strip_kernel_walks_every_layout(rng, cuda_device, f, dtype):
-    # both forms (a CTA a strip; a cluster a strip, the windows multicast)
     # against the plain version; a rerun is the same bit for bit
     rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
-    for name, (src, dst, n, n_src, me) in _strip_cases(rng).items():
+    for name, (src, dst, n, n_src, me) in strip_cases(rng).items():
         lay = tstrip.strip_layout(src, dst, n, min_edges=me, n_src=n_src).to_device(cuda_device)
         h = torch.from_numpy(rng.normal(size=(lay.n_src_pad, f)).astype(np.float32))
         h = h.to(cuda_device, dtype)
         want = tstrip._run_strip_torch(lay, h)
-        for cluster in (1, tstrip.SB):
-            got = tstrip._run_strip_cuda(lay, h, cluster)
-            again = tstrip._run_strip_cuda(lay, h, cluster)
-            torch.cuda.synchronize()
-            torch.testing.assert_close(got.float(), want.float(), atol=1e-3, rtol=rtol,
-                                       msg=lambda m: f"{name}, cluster {cluster}: {m}")
-            assert torch.equal(got, again), (name, cluster)
+        got = tstrip._run_strip_cuda(lay, h)
+        again = tstrip._run_strip_cuda(lay, h)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), atol=1e-3, rtol=rtol,
+                                   msg=lambda m: f"{name}: {m}")
+        assert torch.equal(got, again), name
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_cuda_block_kernel_matches_plain(rng, cuda_device, dtype):
-    src, dst = _edges(rng, 5000, 60000)
+    src, dst = random_edges(rng, 5000, 60000)
     lay = tblock.block_layout(src, dst, 5000, min_edges=4).to_device(cuda_device)
     h = torch.from_numpy(rng.normal(size=(lay.n_src_pad, 640)).astype(np.float32))
     h = h.to(cuda_device, dtype)
@@ -272,7 +240,7 @@ def test_cuda_compact_item_matches_plain(cuda_device, kind, fc):
 @pytest.mark.parametrize("f", [128, 640])
 @pytest.mark.parametrize("variant", me.VARIANTS)
 def test_cuda_expand_spmm_matches_plain(rng, cuda_device, variant, f):
-    src, dst = _edges(rng, 5000, 200_000)
+    src, dst = random_edges(rng, 5000, 200_000)
     lay = tblock.block_layout(src, dst, 5000, min_edges=64).to_device(cuda_device)
     assert int(lay.blk_ptr[-1]) > lay.n_pad // BD  # more tiles than destination blocks
     h = torch.from_numpy(rng.normal(size=(lay.n_pad, f)).astype(np.float32)).to(

@@ -18,18 +18,7 @@ from adaqp_tpu.ops import spmm_fast as jfast
 from adaqp_tpu.ops import spmm_strip as jstrip
 from adaqp_tpu_torch.ops import spmm_fast as tfast
 from adaqp_tpu_torch.ops import spmm_strip as tstrip
-from test_torch_gpu import _strip_cases  # the layouts the card's cases take too
-
-
-def _edges(rng, n, e, n_src=None):
-    ns = n if n_src is None else n_src
-    src = rng.integers(0, ns, e).astype(np.int32)
-    dst = np.where(
-        rng.random(e) < 0.5,
-        (src + rng.integers(-300, 300, e)) % n,
-        rng.integers(0, n, e),
-    ).astype(np.int32)
-    return src, dst
+from torch_helpers import random_edges, strip_cases
 
 
 def _both(src, dst, n, min_edges, n_src=None):
@@ -61,7 +50,7 @@ CASES = [(3000, 20000, 64, None), (3000, 50000, 1, None), (2100, 30000, 8, 5000)
 
 @pytest.mark.parametrize("n,e,min_edges,n_src", CASES)
 def test_layout_arrays_match_jax(rng, n, e, min_edges, n_src):
-    src, dst = _edges(rng, n, e, n_src)
+    src, dst = random_edges(rng, n, e, n_src)
     jl, tl = _both(src, dst, n, min_edges, n_src)
     assert (jl.n, jl.n_pad, jl.n_src_pad) == (tl.n, tl.n_pad, tl.n_src_pad)
     for name in ("masks", "tile_src", "tile_dst"):
@@ -87,7 +76,7 @@ def test_ell_from_csr_matches_jax(rng):
 def test_run_ell_matches_jax(rng, dtype):
     # rows gathered in h's dtype, summed in f32 by both: only the order differs
     n = 700
-    src, dst = _edges(rng, n, 30000)
+    src, dst = random_edges(rng, n, 30000)
     lay = tfast.ell_from_csr(src, dst, n)
     h = _feats(rng, n, 24)
     hj = jnp.asarray(h, dtype)
@@ -99,7 +88,7 @@ def test_run_ell_matches_jax(rng, dtype):
 
 @pytest.mark.parametrize("n,e,min_edges,n_src", CASES)
 def test_plain_matches_jax_twin_f32(rng, n, e, min_edges, n_src):
-    src, dst = _edges(rng, n, e, n_src)
+    src, dst = random_edges(rng, n, e, n_src)
     jl, tl = _both(src, dst, n, min_edges, n_src)
     h = _feats(rng, tl.n_src_pad, 32)
     want = np.asarray(jstrip.run_strip(jl.to_device(), jnp.asarray(h), use_pallas=False))
@@ -110,7 +99,7 @@ def test_plain_matches_jax_twin_f32(rng, n, e, min_edges, n_src):
 
 def test_plain_matches_jax_twin_bf16(rng):
     # bf16 h: both sum in f32 and round once; only the order differs
-    src, dst = _edges(rng, 3000, 20000)
+    src, dst = random_edges(rng, 3000, 20000)
     jl, tl = _both(src, dst, 3000, 64)
     h = _feats(rng, tl.n_src_pad, 32)
     want = jstrip.run_strip(jl.to_device(), jnp.asarray(h, jnp.bfloat16), use_pallas=False)
@@ -123,7 +112,7 @@ def test_plain_matches_jax_twin_bf16(rng):
 
 def test_plain_matches_jax_interpret_kernel(rng):
     # the JAX accelerator kernel itself (interpret mode) plus its ELL tail
-    src, dst = _edges(rng, 3000, 30000)
+    src, dst = random_edges(rng, 3000, 30000)
     jl, tl = _both(src, dst, 3000, 4)
     h = _feats(rng, tl.n_src_pad, 128)
     dev = jl.to_device()
@@ -152,7 +141,7 @@ def test_empty_layout_gives_zeros(n_src):
 
 def test_grad_matches_jax_custom_vjp(rng):
     n, f = 2100, 16
-    src, dst = _edges(rng, n, 15000)
+    src, dst = random_edges(rng, n, 15000)
     jf = jstrip.strip_layout(src, dst, n, min_edges=8)
     jb = jstrip.strip_layout(dst, src, n, min_edges=8)
     tf = tstrip.strip_layout(src, dst, n, min_edges=8).to_device("cpu")
@@ -171,7 +160,7 @@ def test_grad_matches_jax_custom_vjp(rng):
 
 
 def test_layout_cache_roundtrip(rng, tmp_path):
-    src, dst = _edges(rng, 3000, 20000)
+    src, dst = random_edges(rng, 3000, 20000)
     key = str(tmp_path / "strip")
     a = tstrip.strip_layout(src, dst, 3000, min_edges=16, cache_key=key)
     b = tstrip.strip_layout(src, dst, 3000, min_edges=16, cache_key=key)
@@ -216,8 +205,15 @@ CASE_NAMES = ["empty", "rectangular", "full row", "single edge", "disjoint windo
 
 
 def _case(name):
-    src, dst, n, n_src, me = _strip_cases(np.random.default_rng(5))[name]
+    src, dst, n, n_src, me = strip_cases(np.random.default_rng(5))[name]
     return tstrip.strip_layout(src, dst, n, min_edges=me, n_src=n_src)
+
+
+def _walk(lay):
+    """The CUDA kernel's walk arrays of a device layout, built on the CPU
+    (a layout carries them only on a CUDA device)."""
+    assert lay.walk is None
+    return tstrip.strip_walk(lay.masks, lay.tile_src, lay.blk_ptr)
 
 
 def _row_lists(walk, n_tiles):
@@ -241,7 +237,7 @@ def test_column_lists_decode_the_masks(name):
     # j // 128 of halfword j % 128), ascending; in the kernel's groups each
     # row's list is padded with BS after its columns to the group's longest
     lay = _case(name)
-    walk = lay.to_device("cpu").walk
+    walk = _walk(lay.to_device("cpu"))
     t = len(lay.tile_src)
     bits = np.unpackbits(lay.masks[:t].view(np.uint16)[..., None].view(np.uint8),
                          axis=-1, bitorder="little")  # [T, BD, WORDS, 16]
@@ -267,7 +263,7 @@ def test_column_lists_decode_the_masks(name):
 @pytest.mark.parametrize("name", CASE_NAMES)
 def test_schedule_lists_each_tile_once_in_window_order(name):
     lay = _case(name)
-    walk = lay.to_device("cpu").walk
+    walk = _walk(lay.to_device("cpu"))
     strip_ptr, win, tiles = (x.numpy() for x in (walk.strip_ptr, walk.step_win, walk.step_tile))
     assert strip_ptr.shape == (lay.n_pad // tstrip.STRIP + 1,) and strip_ptr[-1] == len(win)
     assert tiles.shape == (len(win), tstrip.SB)
@@ -293,7 +289,7 @@ def test_walk_gives_the_plain_result(rng, name):
     # turn, each block's tile as groups of 16 rows in batches of columns,
     # the padding column reading a zero row
     lay = _case(name).to_device("cpu")
-    walk = lay.walk
+    walk = _walk(lay)
     h = torch.from_numpy(_feats(rng, lay.n_src_pad, 24))
     out = torch.zeros(lay.n_pad, 24)
     cols = walk.cols.view(-1, tstrip.GROUP, tstrip.BATCH).long()
@@ -322,9 +318,9 @@ def test_shards_carry_each_shards_walk():
     g = sbm_graph(n=900, blocks=3, num_feats=8, seed=2)
     lay = build_layout(g, partition_graph(g, 3, "ldg"), GNNType.GCN, pad_multiple=2048)
     shards = build_strip_shards(lay, min_edges=4)
-    assert all(d.walk is None for d in shards.devices(1))
-    for moved in (shards.to("cpu"), shards.select(1).to("cpu")):
-        for d in moved.devices(1):
+    assert all(d.walk is None for d in shards.to("cpu").devices(1))  # built on a card only
+    for built in (shards.with_walks(), shards.select(1).with_walks()):
+        for d in built.devices(1):
             want = tstrip.strip_walk(d.masks, d.tile_src, d.blk_ptr)
             assert d.walk.cols.data_ptr() % 16 == 0
             for got, ref in zip(d.walk.tensors(), want.tensors()):
@@ -334,9 +330,5 @@ def test_shards_carry_each_shards_walk():
 
 def test_cuda_path_refuses_what_the_kernel_cannot_take():
     lay = _case("single edge").to_device("cpu")
-    h = torch.zeros(lay.n_src_pad, 16)
-    with pytest.raises(ValueError, match="walk"):
-        tstrip._run_strip_cuda(tstrip.StripDevice(
-            lay.n, lay.n_pad, lay.n_src_pad, lay.masks, lay.tile_src, lay.blk_ptr, None), h)
-    with pytest.raises(ValueError, match="cluster"):
-        tstrip._run_strip_cuda(lay, h, cluster=3)
+    with pytest.raises(ValueError, match="strip layout is on cpu"):
+        tstrip._run_strip_cuda(lay, torch.zeros(lay.n_src_pad, 16))

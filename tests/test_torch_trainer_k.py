@@ -16,6 +16,7 @@ import sys
 
 import numpy as np
 import pytest
+from torch_helpers import spawn_beside
 
 SYNTH = {"n": 600, "blocks": 4, "num_feats": 16, "seed": 9}
 EPOCHS = 5
@@ -86,37 +87,6 @@ def _jax_trainer(cfg):
 
     t._make_train_step = recording_step
     return t, jax.tree.map(np.asarray, t.params), losses
-
-
-def spawn_beside(worker, args, tmp):
-    """Start the two CPU ranks in a thread (one torch thread a rank) and
-    return a function that joins them and gives their results, so that the
-    caller's JAX training overlaps theirs."""
-    import threading
-
-    from adaqp_tpu_torch.comm.distributed import spawn
-
-    out = {}
-
-    def launch():
-        try:
-            out["res"] = spawn(worker, 2, "cpu", args=args, workdir=f"{tmp}/launch")
-        except BaseException as exc:  # re-raised by join
-            out["exc"] = exc
-
-    mp = pytest.MonkeyPatch()
-    mp.setenv("OMP_NUM_THREADS", "1")  # one thread a rank beside other test workers
-    thread = threading.Thread(target=launch)
-    thread.start()
-
-    def join():
-        thread.join()
-        mp.undo()
-        if "exc" in out:
-            raise out["exc"]
-        return out["res"]
-
-    return join
 
 
 @pytest.fixture(scope="module")

@@ -21,7 +21,7 @@ import sys
 
 import numpy as np
 import pytest
-from test_torch_trainer_k import spawn_beside
+from torch_helpers import spawn_beside
 
 SYNTH = {"n": 600, "blocks": 4, "num_feats": 16, "seed": 9}
 EXACT = {"dropout_rate": 0.0, "num_epochs": 5, "init": True}
