@@ -84,7 +84,12 @@ def variance_proxy(rows: torch.Tensor, num_feats: int) -> torch.Tensor:
     else:
         rmin = rows.amin(dim=-1)
         rmax = rows.amax(dim=-1)
-    return (num_feats / 6.0) * (rmax - rmin) ** 2
+    return range_proxy(rmax - rmin, num_feats)
+
+
+def range_proxy(d: torch.Tensor, num_feats: int) -> torch.Tensor:
+    """:func:`variance_proxy` from the rows' ranges ``d = rmax - rmin``."""
+    return (num_feats / 6.0) * d ** 2
 
 
 def padded_all_to_all(x: torch.Tensor, async_op: bool = False

@@ -30,7 +30,13 @@ A :class:`WireDir` holds one direction of one layer for every rank (the
 lowering is the same on all of them); :meth:`WireDir.local` gives one
 rank's :class:`LocalWire` with index tensors on its device and the split
 sizes as host ``int`` lists, so that an exchange never reads sizes back
-from the device.
+from the device. It also lays out the rank's lane tables
+(``ops/quant_cuda.py::Lanes``), once per wire: in each direction the
+lanes of all buckets in bucket order, each with its row (source or
+destination), bucket, index inside the bucket, and word and parameter-word
+offsets in the buffer above, which the ``quant_pack`` and
+``unpack_dequant`` kernels read and write directly (the JAX package's
+``q_off``/``q_poff`` and ``d_off``/``d_poff``).
 """
 from __future__ import annotations
 
@@ -43,6 +49,7 @@ import torch
 from ..assigner.assignment import Assignment
 from ..common.types import BITS_SET, WIRE_BITS_SET
 from ..graph.layout import ExchangePlan
+from ..ops.quant_cuda import Lanes
 
 
 def wire_cols(f_true: int, bits: int) -> int:
@@ -113,6 +120,39 @@ class WireDir:
             q_rows=tuple(idx(self.q_rows[b][rank]) for b in range(nb)),
             d_rows=tuple(idx(self.d_rows[b][rank]) for b in range(nb)),
             d_inv=inv,
+            send_lanes=self._lanes(self.cnt[rank], self.send_sz[rank],
+                                   [self.q_rows[b][rank] for b in range(nb)], idx),
+            recv_lanes=self._lanes(self.cnt[:, rank], self.recv_sz[rank],
+                                   [self.d_rows[b][rank] for b in range(nb)], idx),
+        )
+
+    def _lanes(self, cnt: np.ndarray, sizes: np.ndarray, rows: Sequence[np.ndarray],
+               idx) -> Lanes:
+        """One side's lane table. ``cnt`` int [K, nb]: lanes per (peer in
+        buffer order, bucket), 0 for the rank itself; ``sizes`` the words
+        of each peer's slice; ``rows`` per bucket the lanes' rows, peer
+        after peer. A slice holds its buckets' words, then (with params)
+        its buckets' parameter words."""
+        wpr = np.asarray(self.wpr, np.int64)
+        words = cnt * wpr  # [K, nb]
+        base = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int64)
+        if not np.array_equal(words.sum(1) + (cnt.sum(1) if self.has_params else 0), sizes):
+            raise ValueError("lane counts disagree with the split sizes")
+        w_off, p_off = [], []
+        for bi in range(len(self.bits)):
+            for p in np.nonzero(cnt[:, bi])[0]:
+                lane = np.arange(cnt[p, bi], dtype=np.int64)
+                w_off.append(base[p] + words[p, :bi].sum() + lane * wpr[bi])
+                p_off.append(base[p] + words[p].sum() + cnt[p, :bi].sum() + lane)
+        counts = tuple(int(len(r)) for r in rows)
+        cat = lambda parts: np.concatenate(parts) if parts else np.zeros(0, np.int64)
+        return Lanes(
+            counts=counts,
+            row=idx(cat(list(rows))),
+            bucket=idx(np.repeat(np.arange(len(counts)), counts)),
+            index=idx(cat([np.arange(n) for n in counts])),
+            word_off=idx(cat(w_off)),
+            param_off=idx(cat(p_off)) if self.has_params else None,
         )
 
 
@@ -132,14 +172,14 @@ class LocalWire:
     q_rows: Tuple[torch.Tensor, ...]
     d_rows: Tuple[torch.Tensor, ...]
     d_inv: Optional[torch.Tensor]
+    send_lanes: Lanes  # this rank's lanes to send, buckets in order
+    recv_lanes: Lanes  # the lanes it receives, buckets in order
 
     def quant_launches(self) -> Tuple[int, int]:
         """(quant_pack, unpack_dequant) launches one exchange over this
-        wire makes: one per quantized bucket with lanes to send, one per
-        quantized bucket with lanes to receive."""
-        pack = sum(1 for b, c in zip(self.bits, self.send_cnt) if b != 32 and sum(c))
-        unpack = sum(1 for b, c in zip(self.bits, self.recv_cnt) if b != 32 and sum(c))
-        return pack, unpack
+        wire makes: one if it sends any lane, one if it receives any, for
+        all buckets (32-bit lanes included) together."""
+        return int(self.send_lanes.n > 0), int(self.recv_lanes.n > 0)
 
 
 def _build_dir(channels: dict, k: int, f_true: int, bits_set: Sequence[int],

@@ -1,10 +1,23 @@
 """The quantized wires' kernels.
 
-The ragged wire's pair: ``quant_pack`` replaces the JAX package's TPU
-kernel ``ops/quant_pallas.py::_quant_pack_kernel`` (rows -> per-row range
--> stochastic codes -> word-interleaved u32 words) and ``unpack_dequant``
-replaces ``_unpack_dequant_kernel`` (words -> f32 rows), both in
-``csrc/quant_pack.cu``. The padded dense wire's pair: ``quant_rows``
+The ragged wire's pair, both in ``csrc/quant_pack.cu``: the ``quant_pack``
+kernel replaces the JAX package's TPU kernel
+``ops/quant_pallas.py::_quant_pack_kernel`` (rows -> per-row range ->
+stochastic codes -> word-interleaved u32 words) and the ``unpack_dequant``
+kernel replaces ``_unpack_dequant_kernel`` (words -> f32 rows). One launch
+serves one direction of one layer's exchange: :func:`pack_lanes` gathers
+each lane's source row, quantizes it with its bucket's width and key and
+writes its words and parameter word at the lane's offsets in the send
+buffer (32-bit lanes copy their f32 bits); :func:`unpack_lanes` reads each
+lane's words at its offsets and writes its f32 row straight into the
+output (forward: at its destination, through the inverse map; backward:
+added into its destination). The lane
+tables (:class:`Lanes`) come from ``comm/wire.py``. :func:`quant_pack` and
+:func:`unpack_dequant` are the contiguous forms (row ``l`` is lane ``l``)
+and launch the same two kernels. ``_pack_lanes_torch`` and
+``_unpack_lanes_torch`` are the plain versions: the gather, the per-bucket
+``_quant_pack_torch`` / ``dequantize_words`` and the placement, driven by
+the same tables. The padded dense wire's pair: ``quant_rows``
 replaces ``_quant_kernel`` (rows -> u8 codes, one per column, with the
 per-row scale and rmin) and ``dequant_rows`` replaces ``_dequant_kernel``
 (u8 codes -> f32 rows), both in ``csrc/quant_rows.cu``. All four are CUDA
@@ -35,12 +48,34 @@ and dequantized rows agree bit for bit.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import dataclasses
+from typing import Optional, Sequence, Tuple
 
 import torch
 
 from ..utils.cuda_build import raise_on as _raise_on
-from .quant import dequantize_rows, dequantize_words, pack_words, quantize_rows, to_width
+from .quant import (dequantize_rows, dequantize_words, pack_words, param_words, quantize_rows,
+                    row_minmax, split_param_words, to_width)
+
+MAX_BUCKETS = 4  # the kernels' bucket vocabulary: 2, 4, 8 and 32 bits
+
+
+@dataclasses.dataclass
+class Lanes:
+    """One direction's lanes on one rank: the lanes of all buckets
+    concatenated in bucket order, each bucket's lanes in peer order.
+    Int64 tensors of one entry a lane, on the rank's device."""
+
+    counts: Tuple[int, ...]  # lanes per bucket (host)
+    row: torch.Tensor  # send: the source row; receive: the destination row
+    bucket: torch.Tensor
+    index: torch.Tensor  # the lane's index inside its bucket
+    word_off: torch.Tensor  # its first word in the buffer
+    param_off: Optional[torch.Tensor]  # its parameter word (None: the wire has none)
+
+    @property
+    def n(self) -> int:
+        return sum(self.counts)
 
 _M1, _M2 = 0x7FEB352D, 0x846CA68B
 _MASK = 0xFFFFFFFF
@@ -115,6 +150,67 @@ def _quant_pack_torch(x: torch.Tensor, bits: int, f_true: int, f_wire: int,
     return pack_words(to_width(q, f_wire), bits), scale, rmin
 
 
+def _bucket_slices(lanes: Lanes):
+    start = 0
+    for bi, n in enumerate(lanes.counts):
+        if n:
+            yield bi, slice(start, start + n)
+        start += n
+
+
+def _pack_lanes_torch(x: torch.Tensor, lanes: Lanes, bits: Sequence[int], wpr: Sequence[int],
+                      keys: Sequence[int], f_true: int, n_words: int, with_range: bool = False
+                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    dev = x.device
+    buf = torch.empty(n_words, dtype=torch.int32, device=dev)
+    ranges = []
+    for bi, sl in _bucket_slices(lanes):
+        b, n = bits[bi], sl.stop - sl.start
+        rows = x[lanes.row[sl]]
+        if b == 32:
+            words = to_width(rows.float(), wpr[bi]).contiguous().view(torch.int32)
+            pw = torch.zeros(n, dtype=torch.int32, device=dev)
+        else:
+            words, scale, rmin = _quant_pack_torch(rows, b, f_true, wpr[bi] * 32 // b, keys[bi])
+            pw = param_words(scale, rmin)
+        buf[lanes.word_off[sl, None] + torch.arange(wpr[bi], device=dev)] = words
+        if lanes.param_off is not None:
+            buf[lanes.param_off[sl]] = pw
+        if with_range:
+            lo, hi = row_minmax(rows.float(), f_true)
+            ranges.append(hi - lo)
+    if not with_range:
+        return buf, None
+    return buf, (torch.cat(ranges) if ranges else torch.empty(0, device=dev))
+
+
+def _unpack_lanes_torch(buf: torch.Tensor, lanes: Lanes, bits: Sequence[int],
+                        wpr: Sequence[int], f_true: int, f_pad: int,
+                        inv: Optional[torch.Tensor] = None,
+                        add_into: Optional[torch.Tensor] = None) -> torch.Tensor:
+    dev, s_tot = buf.device, lanes.n
+    # one f32 row per lane, buckets in order; with inv, one zero row past
+    # the end for the output rows that receive nothing
+    rows = torch.empty((s_tot + (0 if inv is None else 1), f_pad), dtype=torch.float32,
+                       device=dev)
+    for bi, sl in _bucket_slices(lanes):
+        b = bits[bi]
+        words = buf[lanes.word_off[sl, None] + torch.arange(wpr[bi], device=dev)]
+        part = rows[sl]
+        if b == 32:  # wpr == f_true: 32-bit lanes carry exact width
+            part[:, :wpr[bi]] = words.view(torch.float32)
+            part[:, wpr[bi]:] = 0.0
+        else:
+            scale, rmin = split_param_words(buf[lanes.param_off[sl]])
+            part.copy_(dequantize_words(words, scale, rmin, b, f_true, wpr[bi] * 32 // b, f_pad))
+    if add_into is not None:
+        return add_into.index_add_(0, lanes.row, rows) if s_tot else add_into
+    if inv is None:
+        return rows
+    rows[s_tot] = 0.0
+    return rows[inv]
+
+
 # ---------------------------------------------------------------------------
 # CUDA kernels
 # ---------------------------------------------------------------------------
@@ -124,17 +220,76 @@ def _lib() -> ctypes.CDLL:
     from ..utils.cuda_build import load_library
 
     lib = load_library("quant_pack")
-    if lib.adaqp_quant_pack.argtypes is None:
-        vp, ci, cu = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
-        lib.adaqp_quant_pack.argtypes = [
-            vp, ci, ci, ci, ci, ci, ci, cu, vp, vp, vp, ci, vp]
-        lib.adaqp_quant_pack.restype = ci
-        lib.adaqp_unpack_dequant.argtypes = [
-            vp, vp, vp, ci, ci, ci, ci, ci, vp, ci, vp]
-        lib.adaqp_unpack_dequant.restype = ci
+    if lib.adaqp_pack_lanes.argtypes is None:
+        vp, ci, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+        lib.adaqp_pack_lanes.argtypes = [
+            vp, ci, ci, ci, ci, ci, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, vp]
+        lib.adaqp_pack_lanes.restype = ci
+        lib.adaqp_unpack_lanes.argtypes = [
+            vp, ci, i64, ci, ci, ci, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, ci, vp]
+        lib.adaqp_unpack_lanes.restype = ci
         lib.adaqp_quant_error_string.argtypes = [ci]
         lib.adaqp_quant_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _bucket_args(bits: Sequence[int], wpr: Sequence[int], keys: Sequence[int] = ()):
+    nb = len(bits)
+    if not 1 <= nb <= MAX_BUCKETS or len(wpr) != nb:
+        raise ValueError(f"{nb} buckets: the kernels take 1 to {MAX_BUCKETS}, one wpr each")
+    return (nb, (ctypes.c_int * nb)(*bits), (ctypes.c_int * nb)(*wpr),
+            (ctypes.c_uint32 * nb)(*[k & _MASK for k in keys]) if keys else None)
+
+
+def _check_lanes(lanes: Lanes, dev: torch.device):
+    for name in ("row", "bucket", "index", "word_off", "param_off"):
+        t = getattr(lanes, name)
+        if t is None and name == "param_off":
+            continue
+        if (t.device != dev or t.dtype != torch.int64 or not t.is_contiguous()
+                or t.shape != (lanes.n,)):
+            raise ValueError(f"lane table {name} must be contiguous int64 [{lanes.n}] on {dev}, "
+                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def _rows_operand(x: torch.Tensor) -> torch.Tensor:
+    if x.dim() != 2 or x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"x must be a 2-D f32 or bf16 tensor, got {x.dtype} {tuple(x.shape)}")
+    return x.contiguous()
+
+
+def _launch_pack(x, n_lanes, f_true, bucket_args, tables, words, scale, rmin, rng):
+    dev = x.device
+    lib = _lib()
+    rc = lib.adaqp_pack_lanes(
+        x.data_ptr(), int(x.dtype == torch.bfloat16), n_lanes, x.shape[1],
+        min(f_true, x.shape[1]), *bucket_args, *tables, words.data_ptr(), _ptr(scale),
+        _ptr(rmin), _ptr(rng), PACK_MIN_BLOCKS, dev.index,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(lib.adaqp_quant_error_string, rc, "quant_pack")
+    quant_pack.launches += 1
+
+
+# quant_pack's register budget: the blocks an SM should hold at once (1, 6
+# or 8; 1 leaves the compiler free); the same bits at every budget
+PACK_MIN_BLOCKS = 1
+
+
+def _launch_unpack(words, n_out, n_lanes, f_true, f_pad, bucket_args, tables, scale, rmin, out):
+    dev = words.device
+    lib = _lib()
+    rc = lib.adaqp_unpack_lanes(
+        words.data_ptr(), n_out, n_lanes, f_true, f_pad, *bucket_args[:3], *tables,
+        _ptr(scale), _ptr(rmin), out.data_ptr(), dev.index,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(lib.adaqp_quant_error_string, rc, "unpack_dequant")
+    unpack_dequant.launches += 1
 
 
 def _rows_lib() -> ctypes.CDLL:
@@ -161,25 +316,16 @@ def _check_bits(bits: int, f_true: int, f_wire: int):
 
 
 def _quant_pack_cuda(x, bits, f_true, f_wire, key):
-    if x.dim() != 2 or x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"x must be a 2-D f32 or bf16 tensor, got {x.dtype} {tuple(x.shape)}")
-    x = x.contiguous()
+    x = _rows_operand(x)
     n, f = x.shape
     wpr = f_wire * bits // 32
     dev = x.device
     words = torch.empty((n, wpr), dtype=torch.int32, device=dev)
     scale = torch.empty(n, dtype=torch.float32, device=dev)
     rmin = torch.empty(n, dtype=torch.float32, device=dev)
-    if n == 0:
-        return words, scale, rmin
-    lib = _lib()
-    rc = lib.adaqp_quant_pack(
-        x.data_ptr(), int(x.dtype == torch.bfloat16), n, f, min(f_true, f), bits,
-        wpr, key & _MASK, words.data_ptr(), scale.data_ptr(), rmin.data_ptr(),
-        dev.index, torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _raise_on(lib.adaqp_quant_error_string, rc, "quant_pack")
-    quant_pack.launches += 1
+    if n:
+        _launch_pack(x, n, f_true, _bucket_args((bits,), (wpr,), (key,)), (None,) * 5,
+                     words, scale, rmin, None)
     return words, scale, rmin
 
 
@@ -197,16 +343,56 @@ def _unpack_dequant_cuda(words, scale, rmin, bits, f_true, f_wire, f_pad, out):
     elif (out.shape != (n, f_pad) or out.dtype != torch.float32 or out.device != dev
           or not out.is_contiguous()):
         raise ValueError(f"out must be contiguous f32 [{n}, {f_pad}] on {dev}")
-    if n == 0:
-        return out
-    lib = _lib()
-    rc = lib.adaqp_unpack_dequant(
-        words.data_ptr(), scale.data_ptr(), rmin.data_ptr(), n, bits, f_true,
-        wpr, f_pad, out.data_ptr(), dev.index,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _raise_on(lib.adaqp_quant_error_string, rc, "unpack_dequant")
-    unpack_dequant.launches += 1
+    if n and f_pad:
+        _launch_unpack(words, n, n, f_true, f_pad, _bucket_args((bits,), (wpr,)), (None,) * 5,
+                       scale, rmin, out)
+    return out
+
+
+def _pack_lanes_cuda(x, lanes, bits, wpr, keys, f_true, n_words, with_range):
+    x = _rows_operand(x)
+    dev = x.device
+    _check_lanes(lanes, dev)
+    args = _bucket_args(bits, wpr, keys)
+    words = torch.empty(n_words, dtype=torch.int32, device=dev)
+    rng = torch.empty(lanes.n, dtype=torch.float32, device=dev) if with_range else None
+    if lanes.n:
+        tables = (lanes.row, lanes.bucket, lanes.index, lanes.word_off, lanes.param_off)
+        _launch_pack(x, lanes.n, f_true, args, [_ptr(t) for t in tables], words, None, None,
+                     rng)
+    return words, rng
+
+
+def _unpack_lanes_cuda(buf, lanes, bits, wpr, f_true, f_pad, inv, add_into):
+    dev = buf.device
+    if buf.dtype != torch.int32 or buf.dim() != 1 or not buf.is_contiguous():
+        raise ValueError(f"the buffer must be contiguous 1-D int32, got {buf.dtype} "
+                         f"{tuple(buf.shape)}")
+    _check_lanes(lanes, dev)
+    if lanes.param_off is None and any(b != 32 for b, n in zip(bits, lanes.counts) if n):
+        raise ValueError("quantized lanes need parameter words")
+    args = _bucket_args(bits, wpr)
+    if inv is not None and (inv.device != dev or inv.dtype != torch.int64 or inv.dim() != 1
+                            or not inv.is_contiguous()):
+        raise ValueError(f"inv must be contiguous 1-D int64 on {dev}")
+    if add_into is not None:
+        if inv is not None:
+            raise ValueError("inv and add_into exclude each other")
+        if (add_into.dtype != torch.float32 or add_into.device != dev or add_into.dim() != 2
+                or add_into.shape[1] != f_pad or not add_into.is_contiguous()):
+            raise ValueError(f"add_into must be contiguous f32 [*, {f_pad}] on {dev}")
+        out = add_into
+    n_out = lanes.n if inv is None else inv.numel()
+    if lanes.n == 0:  # nothing received: no launch
+        return out if add_into is not None else torch.zeros(
+            (n_out, f_pad), dtype=torch.float32, device=dev)
+    if add_into is None:
+        out = torch.empty((n_out, f_pad), dtype=torch.float32, device=dev)
+    if n_out and f_pad:
+        dst = None if add_into is None else lanes.row
+        tables = (inv, dst, lanes.bucket, lanes.word_off, lanes.param_off)
+        _launch_unpack(buf, n_out, lanes.n, f_true, f_pad, args, [_ptr(t) for t in tables],
+                       None, None, out)
     return out
 
 
@@ -322,6 +508,48 @@ def unpack_dequant(words: torch.Tensor, scale: torch.Tensor, rmin: torch.Tensor,
         out.copy_(x)
         return out
     raise ValueError(f"no unpack_dequant for device {words.device}")
+
+
+def pack_lanes(x: torch.Tensor, lanes: Lanes, bits: Sequence[int], wpr: Sequence[int],
+               keys: Sequence[int], f_true: int, n_words: int, with_range: bool = False
+               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One direction's send buffer: int32 ``[n_words]`` holding, for every
+    lane of ``lanes``, the ``wpr[b]`` words of row ``x[lanes.row]`` (f32 or
+    bf16) quantized at ``bits[b]`` with the uniforms of ``keys[b]`` at the
+    lane's index inside bucket ``b``, and its parameter word; 32-bit lanes
+    carry their f32 bits and a zero parameter word. With ``with_range``,
+    also each lane's f32 ``rmax - rmin`` over the first ``f_true`` columns
+    (else None).
+
+    CUDA ``x``: one launch of the ``quant_pack`` kernel (one more
+    ``quant_pack.launches``; none without lanes). CPU ``x``: the plain
+    version."""
+    if x.device.type == "cuda":
+        return _pack_lanes_cuda(x, lanes, bits, wpr, keys, f_true, n_words, with_range)
+    if x.device.type == "cpu":
+        return _pack_lanes_torch(x, lanes, bits, wpr, keys, f_true, n_words, with_range)
+    raise ValueError(f"no pack_lanes for device {x.device}")
+
+
+def unpack_lanes(buf: torch.Tensor, lanes: Lanes, bits: Sequence[int], wpr: Sequence[int],
+                 f_true: int, f_pad: int, inv: Optional[torch.Tensor] = None,
+                 add_into: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """A received buffer -> f32 rows ``[f_pad]`` wide: without ``inv`` one
+    row a lane (``[lanes.n, f_pad]``); with ``inv`` (int64, output row ->
+    lane, ``lanes.n`` for none) one row an entry of ``inv``, zero where no
+    lane arrives; with ``add_into`` (f32 ``[*, f_pad]``) each lane's row
+    added into its row ``lanes.row`` there (the order of a sum of three or
+    more rows varies on the card, as ``index_add_``'s does), which is
+    returned. Columns ``>= f_true`` of quantized lanes are zero.
+
+    CUDA ``buf``: one launch of the ``unpack_dequant`` kernel (one more
+    ``unpack_dequant.launches``; none without lanes). CPU ``buf``: the
+    plain version."""
+    if buf.device.type == "cuda":
+        return _unpack_lanes_cuda(buf, lanes, bits, wpr, f_true, f_pad, inv, add_into)
+    if buf.device.type == "cpu":
+        return _unpack_lanes_torch(buf, lanes, bits, wpr, f_true, f_pad, inv, add_into)
+    raise ValueError(f"no unpack_lanes for device {buf.device}")
 
 
 quant_pack.launches = 0

@@ -535,21 +535,25 @@ class Trainer:
 
     def planned_quant_launches(self) -> Tuple[int, int]:
         """Launches of the wire's (quantize, dequantize) kernel pair one
-        training step makes on this rank with the current quantized wires:
-        (quant_pack, unpack_dequant) on the ragged wire, (quant_rows,
-        dequant_rows) on the padded one, one pair per bucket, layer and
-        direction (layer 0 has no backward)."""
+        epoch makes on this rank with the current wires. The ragged wire:
+        (quant_pack, unpack_dequant), one each per direction of an exchange
+        that sends or receives any lane, 32-bit lanes included: the
+        training step's exchanges (quantized or full-precision, layer 0
+        has no backward) and the evaluation's forward ones. The padded
+        wire: (quant_rows, dequant_rows), one pair per bucket, layer and
+        direction of a quantized training step."""
         if self.buckets is not None:
             n = sum(len(bits) * (1 if i == 0 else 2) for i, (bits, _) in enumerate(self.buckets))
             return n, n
-        if self.wire_q is None:
+        if self.wire_fp is None:
             return 0, 0
+        train = self.wire_q if self.mode.quantized else self.wire_fp
+        wires = [w for pair in train for w in pair] + [wf for wf, _ in self.wire_fp]
         pack = unpack = 0
-        for wf, wb in self.wire_q:
-            for w in (wf, wb):
-                if w is not None:
-                    p, u = w.quant_launches()
-                    pack, unpack = pack + p, unpack + u
+        for w in wires:
+            if w is not None:
+                p, u = w.quant_launches()
+                pack, unpack = pack + p, unpack + u
         return pack, unpack
 
     def tile_launches_per_epoch(self) -> int:
@@ -712,8 +716,7 @@ class Trainer:
                 and epoch != 1
             ):
                 self._reassign(epoch)
-            if self.mode.quantized:
-                planned += self.planned_quant_launches()
+            planned += self.planned_quant_launches()
             t0 = time.perf_counter()
             # the host readback waits for the device, so the bracket holds
             # the whole step

@@ -21,7 +21,8 @@ version and a library call where one exists. It also drives the probes of
 ``microbench_expand``, ``probe_r5``) through their mains, and runs the
 card-only pytest cases. Phases: env, build, agg
 (block_spmm, compact_spmm and gather_rows), pad (quant_rows and
-dequant_rows), quant (quant_pack and unpack_dequant), gather (ring_gather,
+dequant_rows), quant (quant_pack and unpack_dequant in their contiguous
+form and over the lane tables of synthetic K=4 wires), gather (ring_gather,
 window_gather and compact_item against their plain versions, the two
 mains with their launches checked, then each kernel timed with its
 per-iteration slope, ring_gather also with L2 flushed, one block over the
@@ -42,7 +43,10 @@ train_pad it first holds quant_rows and dequant_rows against their plain
 versions at every shape that run gave them; with ``--profile``, also a
 device-time breakdown of a few training steps of the K=1 Reddit run and of
 each train_agg run; train_k and train_pad always profile three more steps
-of rank 0). The runs that check exact
+of rank 0, and train_k times rank 0's send and receive sides of each
+exchange of one more step, holding them against the plain versions). The
+quant kernels' bounds count the operations of their hot loops in the SASS
+of the built library (``cuobjdump``) beside their bytes. The runs that check exact
 launch counts of training alone turn the probe off; train_pad counts the
 probe's launches as a planned term. Each phase prints its seconds. Any
 failing phase exits nonzero and prints no result. The last line of
@@ -129,6 +133,69 @@ def strip_floor(lay, f, nnz, clock_mhz):
     return nbytes / (132 * 128 * clock_mhz * 1e6) * 1e3, nbytes
 
 
+# SASS opcodes by the pipe that issues them on Hopper, with its rate a clock
+# per SM: the integer pipe (64), the conversion and special-function units
+# (16), the f32 pipe (128). Anything else (loads, stores, branches, moves)
+# counts in no term, so the operation bound is a lower bound.
+SASS_PIPES = {
+    "integer": (64, {"IMAD", "IMUL", "IADD3", "IADD", "LOP3", "LOP", "SHF", "SHL", "SHR",
+                     "ISETP", "IMNMX", "VIMNMX", "LEA", "SEL", "PRMT", "IABS", "BMSK",
+                     "SGXT", "POPC", "FLO", "BREV", "I2FP", "VIADD", "IDP"}),
+    "conversion": (16, {"F2I", "I2F", "FRND", "F2F", "MUFU"}),
+    "f32": (128, {"FADD", "FMUL", "FFMA", "FMNMX", "FSETP", "FSEL"}),
+}
+
+
+def sass_per_element(lib, func, marker, per_marker=1):
+    """Operations an element, by pipe, in the hot loop of the kernel whose
+    mangled name contains ``func`` in ``build/kernels/lib<lib>.so``
+    (``cuobjdump -sass``): of the innermost loops (a backward branch with
+    no other loop inside), the one with the most instructions whose opcode
+    starts with ``marker``, each of which stands for ``per_marker``
+    elements. Returns ({pipe: operations an element}, elements an
+    iteration, instructions in the loop)."""
+    import re
+
+    from adaqp_tpu_torch.utils.cuda_build import nvcc_path
+
+    tool = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
+    so = os.path.join(HERE, "build", "kernels", f"lib{lib}.so")
+    out = subprocess.run([tool, "-sass", so], capture_output=True, text=True, timeout=120)
+    check(out.returncode == 0, f"cuobjdump failed: {out.stderr[-2000:]}")
+    body = [chunk for chunk in out.stdout.split("Function : ")[1:] if func in chunk.split()[0]]
+    check(len(body) == 1, f"{func}: {len(body)} functions in lib{lib}.so")
+    ins = [(int(a, 16), t.strip()) for a, t in
+           re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body[0])]
+    loops = []
+    for a, t in ins:
+        m = re.search(r"\bBRA (?:!?U?P\w+, )?0x([0-9a-f]+)", t)
+        if m and int(m.group(1), 16) <= a:
+            loops.append((int(m.group(1), 16), a))
+    inner = [lp for lp in loops
+             if not any(o != lp and lp[0] <= o[0] and o[1] <= lp[1] for o in loops)]
+
+    def ops(lp):
+        return [t.split()[1 if t.startswith("@") else 0] for a, t in ins if lp[0] <= a <= lp[1]]
+
+    best = max(inner, key=lambda lp: sum(o.startswith(marker) for o in ops(lp)), default=None)
+    check(best is not None, f"{func}: no loop in the SASS")
+    codes = ops(best)
+    elems = sum(o.startswith(marker) for o in codes) * per_marker
+    check(elems > 0, f"{func}: no {marker} in its innermost loops")
+    counts = {pipe: sum(o.split(".")[0] in names for o in codes) / elems
+              for pipe, (_, names) in SASS_PIPES.items()}
+    return counts, elems, len(codes)
+
+
+def ops_ms(counts, elements, clock_mhz):
+    """The least time of ``elements`` elements at ``counts`` operations an
+    element on each pipe, 132 SMs at ``clock_mhz``: (ms, the pipe)."""
+    t = {pipe: elements * n / (SASS_PIPES[pipe][0] * 132 * clock_mhz * 1e6) * 1e3
+         for pipe, n in counts.items()}
+    pipe = max(t, key=t.get)
+    return t[pipe], pipe
+
+
 def phase_build():
     from adaqp_tpu_torch.utils.cuda_build import build
 
@@ -143,16 +210,17 @@ def phase_build():
                 say(f"[build] {name}: {line.strip()}")
 
 
-def cuda_ms(torch, fn, reps, warmup=2, backlog=False):
+def cuda_ms(torch, fn, reps, warmup=2, backlog=False, spin=20_000_000):
     """Mean milliseconds per call from CUDA events around ``reps`` calls.
-    ``backlog``: queue them behind a spin of some 10 ms on the card, so
-    that calls shorter than their host time run back to back and the
-    events read the card's time, not the host's."""
+    ``backlog``: queue them behind a spin of ``spin`` clock cycles on the
+    card (the default some 10 ms), so that calls shorter than their host
+    time run back to back and the events read the card's time, not the
+    host's."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     if backlog:
-        torch.cuda._sleep(20_000_000)  # clock cycles
+        torch.cuda._sleep(spin)
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     a.record()
     for _ in range(reps):
@@ -493,6 +561,8 @@ def phase_quant(torch, seed):
     say(f"[quant] {cases} cases (bits 2/4/8, F 640/256, f32/bf16, N 0/1/33/25,700, "
         f"a constant row): kernels equal the plain versions bit for bit (max |difference| "
         f"quant_pack {worst_pack:g}, unpack_dequant {worst_err:g}); round trip within one step")
+    lane_pack, lane_unpack = _hold_lanes(torch, seed)
+    worst_pack, worst_err = max(worst_pack, lane_pack), max(worst_err, lane_unpack)
     # unbiased: the mean over 64 keys of the dequantized rows
     n, f, ft = 1024, 640, 602
     x = torch.randn(n, f, generator=gen, device="cuda")
@@ -513,6 +583,96 @@ def phase_quant(torch, seed):
         say(f"[quant] bias at {bits} bits: mean error {mean:.2e} steps, 4 sigma {4 * sigma:.2e}")
         check(abs(mean) <= 4 * sigma, f"{bits}-bit codes are biased")
     return worst_pack, worst_err
+
+
+def _lane_wire(rng, forward, f_true, lanes, out_len, n_src):
+    """A K=4 one-direction wire of the port's builder with lanes of all four
+    widths (2, 4, 8, 32 bits, parameter words), about ``lanes`` a channel,
+    none from rank 0 to rank 2, source rows below ``n_src`` (row 0 to every
+    peer); forward: unique destinations below ``out_len`` per receiver,
+    backward: destinations drawn with repeats."""
+    import numpy as np
+
+    from adaqp_tpu_torch.comm.wire import _build_dir
+
+    k, channels = 4, {}
+    for wr in range(k):
+        dests = rng.permutation(out_len)
+        o = 0
+        for ws in range(k):
+            if ws == wr or (ws, wr) == (0, 2):
+                continue
+            n = int(rng.integers(lanes // 2, lanes))
+            gi = rng.integers(0, n_src, n)
+            gi[0] = 0
+            si = dests[o:o + n] if forward else rng.integers(0, out_len, n)
+            o += n
+            channels[(ws, wr)] = (rng.choice(np.array([2, 4, 8, 32]), n, p=[.3, .1, .5, .1]),
+                                  gi, si)
+    return _build_dir(channels, k, f_true, (2, 4, 8, 32), True)
+
+
+def _hold_lanes(torch, seed):
+    """The lane kernels (pack_lanes, unpack_lanes) against their plain
+    versions on the card, on synthetic K=4 wires with all four widths: each
+    rank's send buffer and ranges, and each rank's received rows, forward
+    (placed through the inverse map) and backward (a row a lane, then the
+    exchange's index_add_), bit for bit; the backward sums within
+    1e-6 * sum |terms| (atomics add in another order where three peers return
+    a row). Returns the largest differences (pack, unpack)."""
+    import numpy as np
+
+    from adaqp_tpu_torch.comm.exchange_ragged import unpack_dir
+    from adaqp_tpu_torch.ops import quant_cuda as qc
+
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    saved = (qc.quant_pack.launches, qc.unpack_dequant.launches)
+    worst_p = worst_u = worst_sum = 0.0
+    cases = []
+    for forward, f, ft, dtype in ((True, 640, 602, torch.bfloat16), (False, 256, 256, torch.float32),
+                                  (True, 256, 256, torch.bfloat16), (False, 333, 301, torch.float32)):
+        out_len = 30_000 if forward else 10_240
+        wd = _lane_wire(rng, forward, ft, 8_000, out_len, 10_240)
+        wires = [wd.local(r, out_len, "cuda") for r in range(4)]
+        bufs = []
+        for r, w in enumerate(wires):
+            x = torch.randn(10_240, f, generator=gen, device="cuda").to(dtype)
+            keys = [qc.stream_key(seed, r, bi) for bi in range(len(w.bits))]
+            n_words = sum(w.send_splits)
+            got, rng_k = qc.pack_lanes(x, w.send_lanes, w.bits, w.wpr, keys, ft, n_words, True)
+            want, rng_p = qc._pack_lanes_torch(x, w.send_lanes, w.bits, w.wpr, keys, ft, n_words,
+                                               True)
+            worst_p = max(worst_p, float((got.long() - want.long()).abs().max()),
+                          float((rng_k - rng_p).abs().max()))
+            check(torch.equal(got, want) and torch.equal(rng_k, rng_p),
+                  f"pack_lanes differs from its plain version (rank {r}, F={f}, {dtype})")
+            bufs.append(got)
+        for r, w in enumerate(wires):
+            recv = torch.cat([b[sum(v.send_splits[:r]):sum(v.send_splits[:r + 1])]
+                              for b, v in zip(bufs, wires)])
+            inv = w.d_inv if forward else None
+            got = qc.unpack_lanes(recv, w.recv_lanes, w.bits, w.wpr, ft, f, inv)
+            want = qc._unpack_lanes_torch(recv, w.recv_lanes, w.bits, w.wpr, ft, f, inv)
+            worst_u = max(worst_u, float((got - want).abs().max()))
+            check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+                  f"unpack_lanes differs from its plain version (rank {r}, F={f})")
+            if not forward:
+                dst = w.recv_lanes.row
+                total = unpack_dir(w, recv, True, ft, f)
+                ref = torch.zeros_like(total).index_add_(0, dst, want)
+                scale = torch.zeros_like(total).index_add_(0, dst, want.abs())
+                worst_sum = max(worst_sum, float(((total - ref).abs() / (scale + 1e-30)).max()))
+                check(bool(((total - ref).abs() <= 1e-6 * scale).all()),
+                      f"the backward sums differ beyond 1e-6 * sum |terms| (rank {r})")
+        lanes = [w.send_lanes.n for w in wires]
+        cases.append(f"{'fwd' if forward else 'bwd'} F={f} f_true={ft} {str(dtype)[6:]} "
+                     f"lanes {lanes}")
+    qc.quant_pack.launches, qc.unpack_dequant.launches = saved
+    say(f"[quant] lane kernels on K=4 wires of 2/4/8/32-bit lanes ({'; '.join(cases)}): "
+        f"send buffers, ranges and received rows equal the plain versions bit for bit; "
+        f"backward sums within {worst_sum:.2e} of sum |terms| (limit 1e-6)")
+    return worst_p, worst_u
 
 
 def _e2e_worker(rank, world, device, configs):
@@ -646,6 +806,67 @@ def _pad_cases(t, probe=False):
     return cases
 
 
+def _exchange_sides(torch, t, rank, reps=20):
+    """Rank 0's send side (``pack_dir``) and receive side (``unpack_dir``)
+    of every exchange of one more training step (every rank takes it), each
+    timed alone as a function on the card: the step's own wires, source
+    rows and received buffers, ``reps`` calls between CUDA events behind a
+    backlog of some 100 ms. Returns a dict a call on rank 0, else None."""
+    import torch.distributed as dist
+
+    from adaqp_tpu_torch.comm import exchange_ragged as er
+    from adaqp_tpu_torch.ops import quant_cuda as qc
+
+    calls, start = [], er._start
+
+    def recording(w, src, key, f_true, async_op, trace=False):
+        p, tr = start(w, src, key, f_true, async_op, trace)
+        if p.work is not None:
+            p.work.wait()
+            p.work = None
+        # the forward starts without waiting, the backward waits
+        calls.append((w, src.clone(), key, f_true, trace, p.recvbuf, not async_op, p.f_pad))
+        return p, tr
+
+    er._start = recording
+    try:
+        float(t._train_step(2000))
+    finally:
+        er._start = start
+    torch.cuda.synchronize()
+    if rank != 0:
+        dist.barrier()
+        return None
+    saved = (qc.quant_pack.launches, qc.unpack_dequant.launches)
+    out = []
+    for w, src, key, ft, trace, recv, back, f_pad in calls:
+        layer = next(i for i, pair in enumerate(t.wire_q) if any(x is w for x in pair))
+        # the kernels against their plain versions on this real wire
+        keys = [qc.stream_key(key, bi) for bi in range(len(w.bits))]
+        got = er.pack_dir(w, src, key, ft, trace)
+        want = qc._pack_lanes_torch(src, w.send_lanes, w.bits, w.wpr, keys, ft,
+                                    sum(w.send_splits), trace)
+        check(torch.equal(got[0], want[0]), f"layer {layer}: the send buffer differs from the "
+              "plain version's")
+        inv = None if back else w.d_inv
+        rows = qc.unpack_lanes(recv, w.recv_lanes, w.bits, w.wpr, ft, f_pad, inv)
+        check(torch.equal(rows, qc._unpack_lanes_torch(recv, w.recv_lanes, w.bits, w.wpr, ft,
+                                                       f_pad, inv)),
+              f"layer {layer}: the received rows differ from the plain version's")
+        ms_p = cuda_ms(torch, lambda: er.pack_dir(w, src, key, ft, trace), reps,
+                       backlog=True, spin=200_000_000)
+        ms_u = cuda_ms(torch, lambda: er.unpack_dir(w, recv, back, ft, f_pad), reps,
+                       backlog=True, spin=200_000_000)
+        out.append({"layer": layer, "dir": "bwd" if back else "fwd", "F": int(src.shape[1]),
+                    "f_true": ft, "dtype": str(src.dtype)[6:],
+                    "send_lanes": sum(sum(c) for c in w.send_cnt),
+                    "recv_lanes": sum(sum(c) for c in w.recv_cnt),
+                    "pack_ms": ms_p, "unpack_ms": ms_u})
+    qc.quant_pack.launches, qc.unpack_dequant.launches = saved
+    dist.barrier()
+    return out
+
+
 def _train_k_worker(rank, world, device, cfg, graph_fn, profile):
     """One rank of the K=4 Reddit-width run: train, then report counts,
     memory and a checksum of the parameters that every rank must share."""
@@ -693,9 +914,10 @@ def _train_k_worker(rank, world, device, cfg, graph_fn, profile):
     check(all(torch.equal(x.view(torch.int32), flat.view(torch.int32)) for x in every),
           f"rank {rank}: parameters differ across ranks")
     split = _profile_steps(torch, t, rank) if profile else None
+    sides = _exchange_sides(torch, t, rank) if profile else None
     plan = t.layout.plan_fwd
     return {
-        "split": split,
+        "split": split, "sides": sides,
         "loss_curve": rec["loss_curve"], "epoch_times": list(t.timer.epoch_times),
         "per_epoch": rec["per_epoch"], "planned": rec["planned_quant_launches"],
         "launches": launches, "checksum": float(flat.double().sum()),
@@ -808,6 +1030,12 @@ def phase_train_k(torch, args):
                     f"(fwd layers 0-2, bwd layers 1-2): {h}")
             _say_volume("train_k", r0)
             _say_split("train_k", r0["split"])
+            for x in r0["sides"]:
+                say(f"[train_k] rank 0 exchange, layer {x['layer']} {x['dir']} F={x['F']} "
+                    f"f_true={x['f_true']} {x['dtype']}: {x['send_lanes']} lanes out, "
+                    f"{x['recv_lanes']} in; send side (pack_dir) {x['pack_ms']:.4f} ms, receive "
+                    f"side (unpack_dir) {x['unpack_ms']:.4f} ms, sum "
+                    f"{x['pack_ms'] + x['unpack_ms']:.4f} ms (CUDA events behind a backlog)")
         out[mode] = res
     say(f"[train_k] median step AdaQP {out['AdaQP'][0]['per_epoch'] * 1e3:.1f} ms, "
         f"Vanilla {out['Vanilla'][0]['per_epoch'] * 1e3:.1f} ms "
@@ -815,37 +1043,80 @@ def phase_train_k(torch, args):
     return out
 
 
+# rank 0's send lanes at layer 0 of train_k (the K=4 Reddit-width run):
+# the quant kernels' timing shape when train_k does not run
+QUANT_LANES = 25_526
+
+
 def phase_time_quant(torch, card, lanes):
     """Both quant kernels at the main path's shapes (8 bits, bf16 rows,
-    ``lanes`` rows: one rank's send lanes at layer 0 and in a hidden
-    layer)."""
+    ``lanes`` rows: one rank's send lanes at layer 0 and in a hidden layer),
+    each call queued behind a backlog so that the events read the card.
+    The bound is the larger of the bytes and the operations of the kernel's
+    hot loop (counted in its SASS) at the card's highest SM clock."""
     from adaqp_tpu_torch.comm.wire import wire_cols
     from adaqp_tpu_torch.ops import quant_cuda as qc
 
     gen = torch.Generator(device="cuda").manual_seed(2)
+    clock = sm_clock_mhz()
+    # bf16 rows; the forward's 16-byte stores (no atomics)
+    sass = {"pack": sass_per_element("quant_pack", "17pack_lanes_kernelILb1ELi1E", "I2F"),
+            "unpack": sass_per_element("quant_pack", "19unpack_lanes_kernelILb1ELb0", "I2F")}
+    for name, (counts, elems, n) in sass.items():
+        say(f"[time] {card} | SASS of the {name} hot loop: {n} instructions for {elems} elements; "
+            "an element: " + ", ".join(f"{v:.2f} {k}" for k, v in counts.items()))
     rows = {}
     for f, ft in ((640, 602), (256, 256)):
         bits, fw = 8, wire_cols(ft, 8)
         wpr = fw * bits // 32
         x = torch.randn(lanes, f, generator=gen, device="cuda").to(torch.bfloat16)
         saved = (qc.quant_pack.launches, qc.unpack_dequant.launches)
-        ms_q = cuda_ms(torch, lambda: qc.quant_pack(x, bits, ft, fw, 5), reps=20)
+        ms_form = {}
+        for form in (1, 6, 8, 1, 6, 8):  # register budgets, in turns
+            qc.PACK_MIN_BLOCKS = form
+            ms_form.setdefault(form, []).append(cuda_ms(
+                torch, lambda: qc.quant_pack(x, bits, ft, fw, 5), reps=20, backlog=True))
+        say(f"[time] {card} | quant_pack F={f} at 1, 6 and 8 blocks an SM: {ms_form} ms")
+        outs = []
+        for form in (1, 6, 8):
+            qc.PACK_MIN_BLOCKS = form
+            outs.append(qc.quant_pack(x, bits, ft, fw, 5))
+        check(all(torch.equal(a, b) for o in outs[1:] for a, b in zip(o, outs[0])),
+              "the register budgets give other words")
+        qc.PACK_MIN_BLOCKS = 1
+        ms_q = min(ms_form[1])
         w, sc, rm = qc.quant_pack(x, bits, ft, fw, 5)
-        ms_u = cuda_ms(torch, lambda: qc.unpack_dequant(w, sc, rm, bits, ft, fw, f), reps=20)
+        ms_u = cuda_ms(torch, lambda: qc.unpack_dequant(w, sc, rm, bits, ft, fw, f), reps=20,
+                       backlog=True)
         qc.quant_pack.launches, qc.unpack_dequant.launches = saved
+        clock_now = sm_clock_mhz()[0]
         plain_q = cuda_ms(torch, lambda: qc._quant_pack_torch(x, bits, ft, fw, 5), reps=3, warmup=1)
         plain_u = cuda_ms(torch, lambda: qc.dequantize_words(w, sc, rm, bits, ft, fw, f),
                           reps=3, warmup=1)
         # quant_pack reads only the first fw columns of each row
         bytes_q = lanes * fw * 2 + lanes * wpr * 4 + 8 * lanes
         bytes_u = lanes * wpr * 4 + 8 * lanes + lanes * f * 4
-        bq, bu = bytes_q / PEAK_BYTES_S * 1e3, bytes_u / PEAK_BYTES_S * 1e3
+        bounds = []
+        # elements: quant_pack codes the wire's fw columns, unpack_dequant
+        # dequantizes the f_true true ones
+        for nbytes, counts, elems in (
+                (bytes_q, sass["pack"][0], lanes * fw),
+                (bytes_u, sass["unpack"][0], lanes * ft)):
+            b_ms = nbytes / PEAK_BYTES_S * 1e3
+            o_ms, pipe = ops_ms(counts, elems, clock[1])
+            bounds.append((max(b_ms, o_ms), "bytes" if b_ms >= o_ms else "operations", b_ms,
+                           o_ms, pipe))
+        (bq, byq, bqb, bqo, pq), (bu, byu, bub, buo, pu) = bounds
         say(f"[time] {card} | quant_pack N={lanes} F={f} f_true={ft} 8 bits bf16: kernel {ms_q:.4f} ms; "
-            f"bound {bq:.4f} ms by bytes ({bytes_q / 1e6:.1f} MB); plain {plain_q:.3f} ms; library none")
-        say(f"[time] {card} | unpack_dequant N={lanes} F={f}: kernel {ms_u:.4f} ms; bound {bu:.4f} ms "
-            f"by bytes ({bytes_u / 1e6:.1f} MB); plain {plain_u:.3f} ms; library none")
-        rows[f] = (dict(ms=ms_q, plain_ms=plain_q, bound_ms=bq, bound_by="bytes", library_ms=None),
-                   dict(ms=ms_u, plain_ms=plain_u, bound_ms=bu, bound_by="bytes", library_ms=None))
+            f"bound {bq:.4f} ms by {byq} (bytes {bqb:.4f} ms, {bytes_q / 1e6:.1f} MB; operations "
+            f"{bqo:.4f} ms on the {pq} pipe, {lanes * fw} elements at {clock[1]:g} MHz; SM clock "
+            f"{clock_now:g} MHz after the runs); plain {plain_q:.3f} ms; library none")
+        say(f"[time] {card} | unpack_dequant N={lanes} F={f}: kernel {ms_u:.4f} ms; bound "
+            f"{bu:.4f} ms by {byu} "
+            f"(bytes {bub:.4f} ms, {bytes_u / 1e6:.1f} MB; operations {buo:.4f} ms on the {pu} "
+            f"pipe); plain {plain_u:.3f} ms; library none")
+        rows[f] = (dict(ms=ms_q, plain_ms=plain_q, bound_ms=bq, bound_by=byq, library_ms=None),
+                   dict(ms=ms_u, plain_ms=plain_u, bound_ms=bu, bound_by=byu, library_ms=None))
     return rows
 
 
@@ -1068,13 +1339,14 @@ def phase_time_pad(torch, card, res):
     bits, n = max(res[0]["pad_shapes"], key=lambda s: s[1])
     f, ft, fw = 640, 602, pad_features(602)
     x, qw, sc, rm = inputs[(bits, n, f)]
-    ms_q = cuda_ms(torch, lambda: qc.quant_rows(x, bits, ft, 5), reps=20)
-    ms_d = cuda_ms(torch, lambda: qc.dequant_rows(qw, sc, rm), reps=20)
+    ms_q = cuda_ms(torch, lambda: qc.quant_rows(x, bits, ft, 5), reps=20, backlog=True)
+    ms_d = cuda_ms(torch, lambda: qc.dequant_rows(qw, sc, rm), reps=20, backlog=True)
     qc.quant_rows.launches, qc.dequant_rows.launches = saved
     plain_q = cuda_ms(torch, lambda: qc._quant_rows_torch(x, bits, ft, 5), reps=3, warmup=1)
     plain_d = cuda_ms(torch, lambda: qc._dequant_rows_torch(qw, sc, rm), reps=3, warmup=1)
     # one library call computes rmin + q / scale (the port never calls it)
-    lib_d = cuda_ms(torch, lambda: torch.addcdiv(rm[:, None], qw, sc[:, None]), reps=20)
+    lib_d = cuda_ms(torch, lambda: torch.addcdiv(rm[:, None], qw, sc[:, None]), reps=20,
+                    backlog=True)
     lib_err = float((torch.addcdiv(rm[:, None], qw, sc[:, None])
                      - qc._dequant_rows_torch(qw, sc, rm)).abs().max())
     bytes_q = n * f * 2 + n * f + 8 * n
@@ -2152,6 +2424,8 @@ def main():
     agg_errs = run("agg", phase_agg, torch, SEED) if want("agg") else None
     pad_q_err, pad_d_err = run("pad", phase_pad, torch, SEED) if want("pad") else (None, None)
     pack_err, quant_err = run("quant", phase_quant, torch, SEED) if want("quant") else (None, None)
+    if want("quant") and not want("train_k"):
+        run("time", phase_time_quant, torch, card, QUANT_LANES)
     if want("gather"):
         gather_errs, gather_l = run("gather", phase_gather, torch, SEED)
         gtimes = run("time", phase_time_gather, torch, card, SEED)

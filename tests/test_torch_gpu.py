@@ -24,7 +24,7 @@ from adaqp_tpu_torch.scripts import microbench_dma_gather as dg
 from adaqp_tpu_torch.scripts import microbench_expand as me
 from adaqp_tpu_torch.scripts import microbench_gather as gb
 from adaqp_tpu_torch.scripts import probe_r5 as pr
-from torch_helpers import random_edges, strip_cases
+from torch_helpers import random_edges, random_wire, received, strip_cases
 
 
 @pytest.fixture
@@ -80,6 +80,60 @@ def test_cuda_kernels_match_plain(rng, cuda_device, bits, dtype):
     assert torch.equal(w, w0) and torch.equal(s, s0) and torch.equal(r, r0)
     y = qc.unpack_dequant(w, s, r, bits, ft, fw, f)
     assert torch.equal(y, qc.dequantize_words(w0, s0, r0, bits, ft, fw, f))
+
+
+# (bits_set, has_params, skipped channels): a quantized wire with raw f32
+# lanes, the fp wire, a wire with no lanes at all (N=0)
+LANE_WIRES = {
+    "2/4/8/32": ((2, 4, 8, 32), True, ((0, 2),)),
+    "fp": ((32,), False, ((0, 2),)),
+    "no lanes": ((2, 4, 8), True, tuple((a, b) for a in range(4) for b in range(4))),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("f,ft", [(640, 602), (256, 256), (333, 301)])
+@pytest.mark.parametrize("kind", list(LANE_WIRES))
+def test_cuda_lane_kernels_match_plain(rng, cuda_device, kind, f, ft, dtype):
+    """pack_lanes and unpack_lanes (one launch a direction) against their
+    plain versions on K=4 wires of the port's builder, bit for bit: every
+    rank's send buffer and ranges, its received rows placed through the
+    inverse map and one row a lane; the rows added into their destinations
+    within 1e-6 * sum |terms| (the order of the atomics)."""
+    bits_set, params, skip = LANE_WIRES[kind]
+    out_len, n_src = 3000, 2000
+    wd = random_wire(rng, 4, ft, bits_set, params, out_len, n_src, skip=skip, lanes=(100, 400))
+    wires = [wd.local(r, out_len, cuda_device) for r in range(4)]
+    bufs = []
+    for r, w in enumerate(wires):
+        x = torch.tensor(_rows(rng, n_src, f, ft), device=cuda_device).to(dtype)
+        keys = [qc.stream_key(9, r, bi) for bi in range(len(w.bits))]
+        n_words = sum(w.send_splits)
+        before = qc.quant_pack.launches
+        got, rng_k = qc.pack_lanes(x, w.send_lanes, w.bits, w.wpr, keys, ft, n_words, True)
+        assert qc.quant_pack.launches == before + (w.send_lanes.n > 0)
+        want, rng_p = qc._pack_lanes_torch(x, w.send_lanes, w.bits, w.wpr, keys, ft, n_words,
+                                           True)
+        assert torch.equal(got, want) and torch.equal(rng_k, rng_p), f"rank {r}"
+        bufs.append(got)
+    for r, w in enumerate(wires):
+        recv = received(bufs, wires, r)
+        for inv in (w.d_inv, None):
+            want = qc._unpack_lanes_torch(recv, w.recv_lanes, w.bits, w.wpr, ft, f, inv)
+            before = qc.unpack_dequant.launches
+            got = qc.unpack_lanes(recv, w.recv_lanes, w.bits, w.wpr, ft, f, inv)
+            assert qc.unpack_dequant.launches == before + (w.recv_lanes.n > 0)
+            assert torch.equal(got.view(torch.int32), want.view(torch.int32)), (
+                f"rank {r}, inv {inv is not None}")
+        # the backward's sums: atomics in another order than index_add_'s
+        zeros = torch.zeros(out_len, f, device=cuda_device)
+        got = qc.unpack_lanes(recv, w.recv_lanes, w.bits, w.wpr, ft, f, add_into=zeros.clone())
+        want = qc._unpack_lanes_torch(recv, w.recv_lanes, w.bits, w.wpr, ft, f,
+                                      add_into=zeros.clone())
+        terms = qc._unpack_lanes_torch(recv, w.recv_lanes, w.bits, w.wpr, ft, f).abs()
+        scale = zeros.clone().index_add_(0, w.recv_lanes.row, terms)
+        assert bool(((got - want).abs() <= 1e-6 * scale).all()), f"rank {r}: sums"
 
 
 @pytest.mark.gpu
