@@ -136,8 +136,6 @@ class WireDir:
         wpr = np.asarray(self.wpr, np.int64)
         words = cnt * wpr  # [K, nb]
         base = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int64)
-        if not np.array_equal(words.sum(1) + (cnt.sum(1) if self.has_params else 0), sizes):
-            raise ValueError("lane counts disagree with the split sizes")
         w_off, p_off = [], []
         for bi in range(len(self.bits)):
             for p in np.nonzero(cnt[:, bi])[0]:

@@ -21,13 +21,9 @@ __device__ __forceinline__ uint32_t mix32(uint32_t x) {
   return x;
 }
 
-// the uniform of hash value h: its low 24 bits times 2^-24 (exact)
-__device__ __forceinline__ float uniform_of(uint32_t h) {
-  return __uint2float_rn(h & 0xFFFFFFu) * 5.9604644775390625e-8f;
-}
-
 __device__ __forceinline__ float uniform(uint32_t key, uint32_t row, uint32_t col) {
-  return uniform_of(mix32(mix32(key ^ row) ^ col));
+  const uint32_t h = mix32(mix32(key ^ row) ^ col);
+  return __uint2float_rn(h & 0xFFFFFFu) * 5.9604644775390625e-8f;  // 2^-24, exact
 }
 
 // element i of a row-major f32 (kBf16 = false) or bf16 array, as f32

@@ -41,32 +41,32 @@
 // or 4 bytes) and writes wpr + 1 words a lane: at layer 0 of the K=4 smoke
 // (25,526 lanes, f = 640 bf16, 8 bits) 46.5 MB, 13.9 us at 3.35 TB/s. It
 // also hashes every element, and that is not far below the card's integer
-// rate: the hot loop of the first form of this file took 22 integer-pipe
-// operations an element (chip_smoke.py counts them in the SASS of the built
-// library), 15.4M elements at 64 a clock per SM and 1,980 MHz: 20.5 us,
-// more than the bytes. The form below takes about half of that (pack_words:
-// the hash's first xor-shift folded into the lane's half, the code's width
-// a template argument so that shifts are constants and no column needs a
-// bound check where the row covers the wire, the clamp on the f32 pipe), so
-// bytes and operations bound it about alike; chip_smoke.py states the
-// larger. unpack_lanes reads wpr + 1 words a lane and writes f_pad floats a
-// row (81 MB at layer 0, 24.2 us): bytes bound it.
+// rate: the previous kernel's hot loop took 22.5 integer-pipe operations an
+// element (chip_smoke.py counts them in the SASS of the built library),
+// 15.4M elements at 64 a clock per SM and 1,980 MHz: 20.7 us, more than the
+// bytes. pack_words takes 11.25 (the hash's first xor-shift folded into the
+// lane's half, the code's width a template argument so that shifts are
+// constants and no column needs a bound check where the row covers the
+// wire, the clamp on the f32 pipe): 10.4 us, so bytes bound it;
+// chip_smoke.py states the larger of the two. unpack_lanes reads wpr + 1
+// words a lane and writes f_pad floats a row (81 MB at layer 0, 24.2 us):
+// bytes bound it.
 //
 // The design. pack_lanes: one warp a lane. It copies the source row once
 // into shared memory as f32 (16-byte loads where the row's address allows,
 // a scalar edge), taking min and max on the way and reducing them with
 // shuffles; then lane j builds words j, j + 32, ... from shared memory
 // (neighbouring lanes on neighbouring columns of a slot: no bank
-// conflicts) and stores them coalesced. unpack_lanes: one warp an output
-// row; each lane takes 4 neighbouring columns at a time and stores them
-// with one 16-byte store (scalar stores where f_pad is not a multiple of
-// 4); the column's slot and word advance by addition (two divisions a row,
-// none an element), and every element takes one IEEE division (a table of
-// the lane's 2^bits values in shared memory measured the same at 640
-// columns and 9% slower at 256). The backward adds each lane's row into its
-// destination with 16-byte atomics (several peers may return one row), so
-// the order of a sum of three or more rows varies from run to run, as
-// index_add_'s does.
+// conflicts) and stores them coalesced. Persistent warps that load the
+// next lane's row while they code this one were slower. unpack_lanes: one
+// warp an output row; each lane takes 4 neighbouring columns at a time and
+// stores them with one 16-byte store (scalar stores where f_pad is not a
+// multiple of 4); the column's slot and word advance by addition (two
+// divisions a row, none an element), and every element takes one IEEE
+// division (a table of the lane's 2^bits values in shared memory was no
+// faster). The backward adds each lane's row into its destination with
+// 16-byte atomics (several peers may return one row), so the order of a
+// sum of three or more rows varies from run to run, as index_add_'s does.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -150,9 +150,10 @@ __device__ __forceinline__ void stage_row(const void* __restrict__ x, int64_t r,
 // Words j = lane, lane + 32, ... < wpr of one lane at kBits bits from its
 // row in shared memory: the codes of columns c = t * wpr + j (t < 32 /
 // kBits), code 0 past f unless kFull (every wire column lies in the row).
-// The uniform of column c is uniform_of(mix32(hrow ^ c)); with c < 2^16 the
-// first xor-shift of mix32 folds into h2 = hrow ^ (hrow >> 16), so that it
-// costs one xor here. The float clamp before the round-down conversion
+// The uniform of column c is counter_hash.cuh's uniform(key, i, c), the low
+// 24 bits of mix32(hrow ^ c) times 2^-24 with hrow = mix32(key ^ i); with
+// c < 2^16 the first xor-shift of mix32 folds into h2 = hrow ^ (hrow >>
+// 16), so that it costs one xor here. The float clamp before the round-down conversion
 // gives the codes of the plain version's clamp after floor().
 template <int kBits, bool kFull>
 __device__ __forceinline__ void pack_words(const float* __restrict__ row, int f, int wpr,
@@ -180,9 +181,11 @@ __device__ __forceinline__ void pack_words(const float* __restrict__ row, int f,
   }
 }
 
-// kMinBlocks: the blocks an SM should hold at once (the register budget)
-template <bool kBf16, int kMinBlocks>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
+// Six blocks an SM (48 warps, 40 registers a thread, a few bytes of spills)
+// ran faster than the compiler's own 50 registers or 32 (chip_smoke.py
+// timed all three)
+template <bool kBf16>
+__global__ void __launch_bounds__(kThreads, 6)
 pack_lanes_kernel(const void* __restrict__ x, int n_lanes, int f, int f_true, Buckets bk,
                   const int64_t* __restrict__ src, const int64_t* __restrict__ bucket,
                   const int64_t* __restrict__ index, const int64_t* __restrict__ word_off,
@@ -386,8 +389,8 @@ extern "C" int adaqp_pack_lanes(const void* x, int is_bf16, int n_lanes, int f, 
                                 int nb, const int* bits, const int* wpr, const uint32_t* keys,
                                 const void* src, const void* bucket, const void* index,
                                 const void* word_off, const void* param_off, void* words,
-                                void* scale_out, void* rmin_out, void* range_out,
-                                int min_blocks, int device, void* stream) {
+                                void* scale_out, void* rmin_out, void* range_out, int device,
+                                void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (int rc = check_buckets(nb, bits, wpr)) return rc;
@@ -395,12 +398,7 @@ extern "C" int adaqp_pack_lanes(const void* x, int is_bf16, int n_lanes, int f, 
   if (n_lanes <= 0) return 0;
   const Buckets bk = make_buckets(nb, bits, wpr, keys);
   const size_t smem = static_cast<size_t>(kWarps) * ((f + 3) & ~3) * sizeof(float);
-  auto kernel = is_bf16 ? (min_blocks == 8   ? pack_lanes_kernel<true, 8>
-                          : min_blocks == 6 ? pack_lanes_kernel<true, 6>
-                                            : pack_lanes_kernel<true, 1>)
-                        : (min_blocks == 8   ? pack_lanes_kernel<false, 8>
-                          : min_blocks == 6 ? pack_lanes_kernel<false, 6>
-                                            : pack_lanes_kernel<false, 1>);
+  auto kernel = is_bf16 ? pack_lanes_kernel<true> : pack_lanes_kernel<false>;
   if (smem > 48 * 1024) {
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));

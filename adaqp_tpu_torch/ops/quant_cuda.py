@@ -223,7 +223,7 @@ def _lib() -> ctypes.CDLL:
     if lib.adaqp_pack_lanes.argtypes is None:
         vp, ci, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         lib.adaqp_pack_lanes.argtypes = [
-            vp, ci, ci, ci, ci, ci, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, vp]
+            vp, ci, ci, ci, ci, ci, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, ci, vp]
         lib.adaqp_pack_lanes.restype = ci
         lib.adaqp_unpack_lanes.argtypes = [
             vp, ci, i64, ci, ci, ci, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, ci, vp]
@@ -268,16 +268,10 @@ def _launch_pack(x, n_lanes, f_true, bucket_args, tables, words, scale, rmin, rn
     rc = lib.adaqp_pack_lanes(
         x.data_ptr(), int(x.dtype == torch.bfloat16), n_lanes, x.shape[1],
         min(f_true, x.shape[1]), *bucket_args, *tables, words.data_ptr(), _ptr(scale),
-        _ptr(rmin), _ptr(rng), PACK_MIN_BLOCKS, dev.index,
-        torch.cuda.current_stream(dev).cuda_stream,
+        _ptr(rmin), _ptr(rng), dev.index, torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(lib.adaqp_quant_error_string, rc, "quant_pack")
     quant_pack.launches += 1
-
-
-# quant_pack's register budget: the blocks an SM should hold at once (1, 6
-# or 8; 1 leaves the compiler free); the same bits at every budget
-PACK_MIN_BLOCKS = 1
 
 
 def _launch_unpack(words, n_out, n_lanes, f_true, f_pad, bucket_args, tables, scale, rmin, out):

@@ -585,45 +585,22 @@ def phase_quant(torch, seed):
     return worst_pack, worst_err
 
 
-def _lane_wire(rng, forward, f_true, lanes, out_len, n_src):
-    """A K=4 one-direction wire of the port's builder with lanes of all four
-    widths (2, 4, 8, 32 bits, parameter words), about ``lanes`` a channel,
-    none from rank 0 to rank 2, source rows below ``n_src`` (row 0 to every
-    peer); forward: unique destinations below ``out_len`` per receiver,
-    backward: destinations drawn with repeats."""
-    import numpy as np
-
-    from adaqp_tpu_torch.comm.wire import _build_dir
-
-    k, channels = 4, {}
-    for wr in range(k):
-        dests = rng.permutation(out_len)
-        o = 0
-        for ws in range(k):
-            if ws == wr or (ws, wr) == (0, 2):
-                continue
-            n = int(rng.integers(lanes // 2, lanes))
-            gi = rng.integers(0, n_src, n)
-            gi[0] = 0
-            si = dests[o:o + n] if forward else rng.integers(0, out_len, n)
-            o += n
-            channels[(ws, wr)] = (rng.choice(np.array([2, 4, 8, 32]), n, p=[.3, .1, .5, .1]),
-                                  gi, si)
-    return _build_dir(channels, k, f_true, (2, 4, 8, 32), True)
-
-
 def _hold_lanes(torch, seed):
     """The lane kernels (pack_lanes, unpack_lanes) against their plain
-    versions on the card, on synthetic K=4 wires with all four widths: each
+    versions on the card, on random K=4 wires of the port's builder
+    (``tests/torch_helpers.py``) with all four widths: each
     rank's send buffer and ranges, and each rank's received rows, forward
-    (placed through the inverse map) and backward (a row a lane, then the
-    exchange's index_add_), bit for bit; the backward sums within
-    1e-6 * sum |terms| (atomics add in another order where three peers return
-    a row). Returns the largest differences (pack, unpack)."""
+    (placed through the inverse map) and backward (a row a lane), bit for
+    bit; the backward's sums (added into the destinations with atomics)
+    within 1e-6 * sum |terms| of index_add_'s (another order where three
+    peers return a row). Returns the largest differences (pack, unpack)."""
     import numpy as np
 
     from adaqp_tpu_torch.comm.exchange_ragged import unpack_dir
     from adaqp_tpu_torch.ops import quant_cuda as qc
+
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from torch_helpers import random_wire, received
 
     rng = np.random.default_rng(seed)
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -633,7 +610,8 @@ def _hold_lanes(torch, seed):
     for forward, f, ft, dtype in ((True, 640, 602, torch.bfloat16), (False, 256, 256, torch.float32),
                                   (True, 256, 256, torch.bfloat16), (False, 333, 301, torch.float32)):
         out_len = 30_000 if forward else 10_240
-        wd = _lane_wire(rng, forward, ft, 8_000, out_len, 10_240)
+        wd = random_wire(rng, 4, ft, (2, 4, 8, 32), True, out_len, 10_240, forward,
+                         lanes=(4_000, 8_000))
         wires = [wd.local(r, out_len, "cuda") for r in range(4)]
         bufs = []
         for r, w in enumerate(wires):
@@ -649,8 +627,7 @@ def _hold_lanes(torch, seed):
                   f"pack_lanes differs from its plain version (rank {r}, F={f}, {dtype})")
             bufs.append(got)
         for r, w in enumerate(wires):
-            recv = torch.cat([b[sum(v.send_splits[:r]):sum(v.send_splits[:r + 1])]
-                              for b, v in zip(bufs, wires)])
+            recv = received(bufs, wires, r)
             inv = w.d_inv if forward else None
             got = qc.unpack_lanes(recv, w.recv_lanes, w.bits, w.wpr, ft, f, inv)
             want = qc._unpack_lanes_torch(recv, w.recv_lanes, w.bits, w.wpr, ft, f, inv)
@@ -1043,11 +1020,6 @@ def phase_train_k(torch, args):
     return out
 
 
-# rank 0's send lanes at layer 0 of train_k (the K=4 Reddit-width run):
-# the quant kernels' timing shape when train_k does not run
-QUANT_LANES = 25_526
-
-
 def phase_time_quant(torch, card, lanes):
     """Both quant kernels at the main path's shapes (8 bits, bf16 rows,
     ``lanes`` rows: one rank's send lanes at layer 0 and in a hidden layer),
@@ -1060,7 +1032,7 @@ def phase_time_quant(torch, card, lanes):
     gen = torch.Generator(device="cuda").manual_seed(2)
     clock = sm_clock_mhz()
     # bf16 rows; the forward's 16-byte stores (no atomics)
-    sass = {"pack": sass_per_element("quant_pack", "17pack_lanes_kernelILb1ELi1E", "I2F"),
+    sass = {"pack": sass_per_element("quant_pack", "17pack_lanes_kernelILb1", "I2F"),
             "unpack": sass_per_element("quant_pack", "19unpack_lanes_kernelILb1ELb0", "I2F")}
     for name, (counts, elems, n) in sass.items():
         say(f"[time] {card} | SASS of the {name} hot loop: {n} instructions for {elems} elements; "
@@ -1071,20 +1043,7 @@ def phase_time_quant(torch, card, lanes):
         wpr = fw * bits // 32
         x = torch.randn(lanes, f, generator=gen, device="cuda").to(torch.bfloat16)
         saved = (qc.quant_pack.launches, qc.unpack_dequant.launches)
-        ms_form = {}
-        for form in (1, 6, 8, 1, 6, 8):  # register budgets, in turns
-            qc.PACK_MIN_BLOCKS = form
-            ms_form.setdefault(form, []).append(cuda_ms(
-                torch, lambda: qc.quant_pack(x, bits, ft, fw, 5), reps=20, backlog=True))
-        say(f"[time] {card} | quant_pack F={f} at 1, 6 and 8 blocks an SM: {ms_form} ms")
-        outs = []
-        for form in (1, 6, 8):
-            qc.PACK_MIN_BLOCKS = form
-            outs.append(qc.quant_pack(x, bits, ft, fw, 5))
-        check(all(torch.equal(a, b) for o in outs[1:] for a, b in zip(o, outs[0])),
-              "the register budgets give other words")
-        qc.PACK_MIN_BLOCKS = 1
-        ms_q = min(ms_form[1])
+        ms_q = cuda_ms(torch, lambda: qc.quant_pack(x, bits, ft, fw, 5), reps=20, backlog=True)
         w, sc, rm = qc.quant_pack(x, bits, ft, fw, 5)
         ms_u = cuda_ms(torch, lambda: qc.unpack_dequant(w, sc, rm, bits, ft, fw, f), reps=20,
                        backlog=True)
@@ -2424,8 +2383,6 @@ def main():
     agg_errs = run("agg", phase_agg, torch, SEED) if want("agg") else None
     pad_q_err, pad_d_err = run("pad", phase_pad, torch, SEED) if want("pad") else (None, None)
     pack_err, quant_err = run("quant", phase_quant, torch, SEED) if want("quant") else (None, None)
-    if want("quant") and not want("train_k"):
-        run("time", phase_time_quant, torch, card, QUANT_LANES)
     if want("gather"):
         gather_errs, gather_l = run("gather", phase_gather, torch, SEED)
         gtimes = run("time", phase_time_gather, torch, card, SEED)
