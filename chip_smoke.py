@@ -587,7 +587,7 @@ def phase_quant(torch, seed):
 
 def _hold_lanes(torch, seed):
     """The lane kernels (pack_lanes, unpack_lanes) against their plain
-    versions on the card, on random K=4 wires of the port's builder
+    versions on the card, on random K=4 wires of the port's wire lowering
     (``tests/torch_helpers.py``) with all four widths: each
     rank's send buffer and ranges, and each rank's received rows, forward
     (placed through the inverse map) and backward (a row a lane), bit for

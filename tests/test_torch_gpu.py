@@ -97,7 +97,7 @@ LANE_WIRES = {
 @pytest.mark.parametrize("kind", list(LANE_WIRES))
 def test_cuda_lane_kernels_match_plain(rng, cuda_device, kind, f, ft, dtype):
     """pack_lanes and unpack_lanes (one launch a direction) against their
-    plain versions on K=4 wires of the port's builder, bit for bit: every
+    plain versions on K=4 wires of the port's wire lowering, bit for bit: every
     rank's send buffer and ranges, its received rows placed through the
     inverse map and one row a lane; the rows added into their destinations
     within 1e-6 * sum |terms| (the order of the atomics)."""

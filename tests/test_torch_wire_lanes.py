@@ -9,7 +9,7 @@ the CPU they run the plain versions ``_pack_lanes_torch`` and
 the exchange used before (per bucket a row gather, quantize-and-pack,
 ``param_words``, per-peer ``torch.cat``; on the receive side the same
 undone, then ``rows[d_inv]`` or ``index_add_``, kept in
-``tests/torch_helpers.py``), on random wires from the port's wire builder:
+``tests/torch_helpers.py``), on random wires from the port's wire lowering:
 buckets of 2, 4, 8 and 32 bits, with and without parameter words, a peer
 with no lanes, an empty bucket, a source row sent to every peer, f32 and
 bf16 rows, ``f_true`` < F. One process, no ranks: every rank's side runs

@@ -73,7 +73,7 @@ def spawn_beside(worker, args, tmp):
 
 def random_wire(rng, k, f_true, bits_set, has_params, out_len, n_src, forward=True,
                 skip=((0, 2),), unused=(), lanes=(5, 40)):
-    """A random one-direction wire of the port's builder (``comm/wire.py``)
+    """A random one-direction wire of the port's lowering (``comm/wire.py``)
     over ``k`` ranks: every channel but those in ``skip`` carries
     ``lanes`` lanes of random widths from ``bits_set`` less ``unused``
     (whose buckets stay empty), source rows drawn from ``n_src`` with row 0
