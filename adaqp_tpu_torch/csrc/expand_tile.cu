@@ -14,8 +14,8 @@
 //   v3  the raw sign-extended halfword w to bf16: WRONG math on purpose,
 //       the reference's timing floor (expansion reduced to a cast)
 // where w is the halfword sign-extended to 32 bits. The probe asks whether
-// a dense tensor-core product of expanded tiles beats walking the set bits
-// (csrc/tile_walk.cuh, the strip/block/compact kernels' walk).
+// a dense tensor-core product of expanded tiles beats walking each tile
+// row's set columns (csrc/spmm_strip.cu, the strip/block/compact kernel).
 //
 // What bounds it: operations. A pass does 2 * 256 * 2048 * F flops a tile
 // on the tensor cores (bf16 in, f32 accumulate; 989 TFLOP/s dense), some

@@ -1,13 +1,23 @@
-// Strip bitmask SpMM for NVIDIA Hopper (sm_90a): out = A^T h over 0/1 tiles.
+// Window-stationary bitmask SpMM for NVIDIA Hopper (sm_90a): out = A^T h
+// over 0/1 tiles, the tile kernel of the strip, block and compact layouts.
 //
-// Replaces the JAX package's TPU kernel ops/spmm_strip.py::_strip_kernel
-// (launched by _run_strip_pallas). It computes what that kernel computes:
+// Replaces three of the JAX package's TPU kernels, which compute one
+// function over three layouts: ops/spmm_strip.py::_strip_kernel (launched by
+// _run_strip_pallas), ops/spmm_block.py::_block_kernel (_run_block_pallas)
+// and ops/spmm_compact.py::_compact_kernel (_run_compact_pallas). What this
+// kernel reads (a "walk", built once per layout by ops/spmm_walk.py):
 //
 //   for each destination row r of block b = r / 256, the sum over the
-//   block's dense tiles t of h[tile_src[t] + j] for every set bit j of row
+//   block's walk tiles t of h[step_win + j] for every column j of row
 //   r % 256 of tile t; the sum is taken in f32 and written in h's dtype. A
-//   block with no tile is written as zeros (the TPU kernel's flush-only
-//   path). The ELL straggler edges are added outside, in PyTorch.
+//   block with no tile is written as zeros (the TPU kernels' flush-only
+//   path). A strip or block layout's dense tiles are walk tiles as they are
+//   (a block layout pads its rows to 256 only, so its last strip may be
+//   part-filled: rows past n_out are not written); a compact layout's
+//   items decode into them, a kind-1 item's virtual column v into window
+//   row col_idx[v], and the subtiles of every item that land on one (strip,
+//   window, block) merge into one walk tile. The ELL straggler edges are
+//   added outside, in PyTorch.
 //
 // What bounds it. Each edge adds one F-wide source row. Read from L2 for
 // every edge, as the first port of this kernel did, the rows cost 41 GB a
@@ -57,7 +67,11 @@
 // costs an unpack and an add. Measured on an NVIDIA H100 80GB HBM3 at 700 W
 // (chip_smoke.py, the smoke layout): 4.25 ms at F=640 and 1.72 ms at F=256,
 // against torch.sparse.mm's 11.15 and 4.49 ms and the shared-memory floor's
-// 1.31 and 0.53 ms; 128 registers a thread, no spills.
+// 1.31 and 0.53 ms; 128 registers a thread, no spills. On the products
+// layout (chip_smoke.py train_agg): the block layout 0.206 / 0.395 ms at
+// F=128 / 256, as the strip layout; the compact layout 0.815 ms at F=384
+// (torch.sparse.mm 1.517 ms), its walk twice the window steps (579 against
+// 278) and 2.29 column slots an edge (1.72).
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -180,7 +194,7 @@ strip_kernel(const __grid_constant__ CUtensorMap map, const int32_t* __restrict_
              const int32_t* __restrict__ grp_len, const uint4* __restrict__ cols,
              const int32_t* __restrict__ strip_ptr,
              const int32_t* __restrict__ step_win, const int32_t* __restrict__ step_tile,
-             uint8_t* __restrict__ out, int f) {
+             uint8_t* __restrict__ out, int n_out, int f) {
   constexpr int kVec = Elem<kBf16>::kVec;      // values in a lane's 16 bytes
   constexpr int kBytes = Elem<kBf16>::kBytes;
   constexpr int kCols = kSliceBytes / kBytes;  // columns per slice
@@ -274,8 +288,10 @@ strip_kernel(const __grid_constant__ CUtensorMap map, const int32_t* __restrict_
 #pragma unroll
     for (int b = 0; b < kSB; ++b) {
       const size_t row = (static_cast<size_t>(strip) * kSB + b) * kBD + r;
-      *reinterpret_cast<uint4*>(out + row * row_bytes + static_cast<size_t>(col) * kBytes) =
-          vec16::pack_vec<kBf16>(acc[b]);
+      if (row < static_cast<size_t>(n_out)) {  // the last strip may be part-filled
+        *reinterpret_cast<uint4*>(out + row * row_bytes + static_cast<size_t>(col) * kBytes) =
+            vec16::pack_vec<kBf16>(acc[b]);
+      }
     }
   }
 }
@@ -305,7 +321,7 @@ template <bool kBf16>
 cudaError_t launch(const CUtensorMap& map, const int32_t* grp_ptr, const int32_t* grp_len,
                    const uint4* cols, const int32_t* strip_ptr, const int32_t* step_win,
                    const int32_t* step_tile,
-                   uint8_t* out, int n_strips, int f, cudaStream_t stream) {
+                   uint8_t* out, int n_strips, int n_out, int f, cudaStream_t stream) {
   auto kernel = strip_kernel<kBf16>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
@@ -313,13 +329,14 @@ cudaError_t launch(const CUtensorMap& map, const int32_t* grp_ptr, const int32_t
   constexpr int kCols = kSliceBytes / Elem<kBf16>::kBytes;
   const dim3 grid((f + kCols - 1) / kCols, n_strips);
   kernel<<<grid, kThreads, kSmemBytes, stream>>>(map, grp_ptr, grp_len, cols, strip_ptr,
-                                                   step_win, step_tile, out, f);
+                                                   step_win, step_tile, out, n_out, f);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// out[n_strips * 2048, f] = A^T h from a strip layout's walk arrays:
+// out[n_out, f] = A^T h from a layout's walk arrays (n_out a multiple of
+// 256 in ((n_strips - 1) * 2048, n_strips * 2048]):
 // grp_ptr int32 [T * 16 + 1], grp_len int32 [T * 16] and cols uint16
 // [batches, 16, 8] (group g = rows 16 (g % 16) .. of tile g / 16: batches
 // grp_ptr[g] .. grp_ptr[g + 1], each row's columns ascending, padded with
@@ -334,11 +351,14 @@ cudaError_t launch(const CUtensorMap& map, const int32_t* grp_ptr, const int32_t
 extern "C" int adaqp_strip_spmm(const void* grp_ptr, const void* grp_len, const void* cols,
                                 const void* strip_ptr, const void* step_win,
                                 const void* step_tile, const void* h,
-                                void* out, int n_strips, int n_src, int f, int is_bf16,
-                                int device, void* stream) {
+                                void* out, int n_strips, int n_out, int n_src, int f,
+                                int is_bf16, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n_strips <= 0 || f <= 0) return 0;
+  if (n_out % kBD || n_out <= (n_strips - 1) * kSB * kBD || n_out > n_strips * kSB * kBD) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
   const cuuint32_t bytes = is_bf16 ? 2 : 4;
@@ -362,8 +382,8 @@ extern "C" int adaqp_strip_spmm(const void* grp_ptr, const void* grp_len, const 
   const auto* sw = static_cast<const int32_t*>(step_win);
   const auto* st = static_cast<const int32_t*>(step_tile);
   auto* op = static_cast<uint8_t*>(out);
-  err = is_bf16 ? launch<true>(map, rp, gl, cl, sp, sw, st, op, n_strips, f, s)
-                : launch<false>(map, rp, gl, cl, sp, sw, st, op, n_strips, f, s);
+  err = is_bf16 ? launch<true>(map, rp, gl, cl, sp, sw, st, op, n_strips, n_out, f, s)
+                : launch<false>(map, rp, gl, cl, sp, sw, st, op, n_strips, n_out, f, s);
   return static_cast<int>(err);
 }
 

@@ -24,6 +24,10 @@ which a range read after padding would walk wrongly.) ELL buckets are
 padded to a SHARD-UNIFORM shape: the union of widths across shards, each
 width's segment count padded to the max (padding segments scatter to the
 drop row).
+
+Moved to a CUDA device (``to``), each group also carries each shard's walk
+arrays for the tile kernel (``StripWalk``, stacked after the layout's own
+fields), built there by ``with_walks`` from each shard's device layouts.
 """
 from __future__ import annotations
 
@@ -36,6 +40,7 @@ import torch
 from ..common.backend import DeviceLike
 from ..ops.spmm_block import MIN_EDGES, BlockDevice, block_layout, block_pointers
 from ..ops.spmm_fast import ROW_CHUNK, EllDevice
+from ..ops.spmm_walk import StripWalk
 from .layout import PartitionLayout
 
 GROUPS = ("fwd_local", "bwd_local", "fwd_halo", "bwd_halo")
@@ -47,7 +52,10 @@ Group = Tuple[torch.Tensor, ...]
 @dataclasses.dataclass
 class TileShards:
     """Stacked [K, ...] tile-layout groups + shard-uniform ELL buckets.
-    Subclasses name the device layout a group's tensors make."""
+    Subclasses name the device layout a group's first ``FIELDS`` tensors
+    make; the walk's six follow them after ``with_walks``."""
+
+    FIELDS = 0
 
     fwd_local: Group
     bwd_local: Optional[Group]  # None when bidirected (aliases fwd_local)
@@ -63,7 +71,7 @@ class TileShards:
     selected: Optional[int] = None
 
     @staticmethod
-    def _device(tensors: Group, n_pad: int, n_src_pad: int, straggler):
+    def _device(tensors: Group, n_pad: int, n_src_pad: int, straggler, walk):
         raise NotImplementedError
 
     def _map(self, fn) -> "TileShards":
@@ -78,7 +86,33 @@ class TileShards:
         )
 
     def to(self, device: DeviceLike) -> "TileShards":
-        return self._map(lambda x: x.to(device))
+        """These shards on ``device``; on a CUDA device with each shard's
+        walk arrays (``with_walks``), built there."""
+        out = self._map(lambda x: x.to(device))
+        walked = len(out.fwd_local) > self.FIELDS
+        return out.with_walks() if out.fwd_local[0].is_cuda and not walked else out
+
+    def with_walks(self) -> "TileShards":
+        """These shards with each group's walk arrays, built on the shards'
+        device from each shard's device layout (``build_walk``), stacked
+        [K, ...] and zero-padded to the longest (no pointer reaches the
+        padding)."""
+        ranks = range(self.fwd_local[0].shape[0]) if self.selected is None else [self.selected]
+        per_rank = [self.devices(p) for p in ranks]
+        groups = {}
+        for i, name in enumerate(GROUPS):
+            group = getattr(self, name)
+            if group is None:
+                continue
+            walks = [devs[i].build_walk().tensors() for devs in per_rank]
+            stacked = []
+            for field in zip(*walks):
+                n = max(x.shape[0] for x in field)
+                stacked.append(torch.stack([
+                    torch.cat([x, x.new_zeros((n - x.shape[0],) + x.shape[1:])]) for x in field
+                ]))
+            groups[name] = group[:self.FIELDS] + tuple(stacked)
+        return dataclasses.replace(self, **groups)
 
     def select(self, rank: int) -> "TileShards":
         """Only shard ``rank``'s arrays (a leading axis of one), so that a
@@ -110,7 +144,9 @@ class TileShards:
                     for w, (rows, idx, lens) in zip(self.ell_widths[i], self.ells[i])
                 )
                 straggler = EllDevice(n_pad, buckets, ROW_CHUNK)
-            return self._device(tuple(x[rank] for x in grp), n_pad, n_src_pad, straggler)
+            fields = tuple(x[rank] for x in grp)
+            walk = StripWalk(*fields[self.FIELDS:]) if len(fields) > self.FIELDS else None
+            return self._device(fields[:self.FIELDS], n_pad, n_src_pad, straggler, walk)
 
         fl = dev(0, self.fwd_local, self.l_max, self.l_max)
         bl = fl if self.bwd_local is None else dev(1, self.bwd_local, self.l_max, self.l_max)
@@ -250,11 +286,14 @@ def build_tile_shards(
 
 class BlockShards(TileShards):
     """Block layouts, per group (masks [K, T, BD, WORDS], src_start [K, T],
-    dst_blk [K, T], blk_ptr [K, n_pad // BD + 1])."""
+    dst_blk [K, T], blk_ptr [K, n_pad // BD + 1]; after ``to`` a CUDA
+    device, the six walk arrays)."""
+
+    FIELDS = 4
 
     @staticmethod
-    def _device(tensors, n_pad, n_src_pad, straggler):
-        return BlockDevice(n_pad, n_pad, n_src_pad, *tensors, straggler)
+    def _device(tensors, n_pad, n_src_pad, straggler, walk):
+        return BlockDevice(n_pad, n_pad, n_src_pad, *tensors, straggler, walk)
 
 
 def build_block_shards(

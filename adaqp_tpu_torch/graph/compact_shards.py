@@ -7,7 +7,8 @@ per-strip item ranges (``item_ptr``) are computed from its own unpadded
 layout before the item arrays are zero-padded to the shard maximum, so the
 padding is never read; the JAX shards instead append inert items that
 repeat the last real item's strip and window slot, which its TPU grid
-needs and a range read after padding would walk wrongly.
+needs and a range read after padding would walk wrongly. Moved to a CUDA
+device, each group also carries each shard's walk (``compact_walk``).
 """
 from __future__ import annotations
 
@@ -23,11 +24,14 @@ from .layout import PartitionLayout
 class CompactShards(TileShards):
     """Compact layouts, per group (kind [K, T], masks [K, T, BD, WORDS],
     col_idx [K, T, BS], src_start [K, T], dst_off [K, T, GROUP], nsub
-    [K, T], item_ptr [K, n_pad // STRIP + 1])."""
+    [K, T], item_ptr [K, n_pad // STRIP + 1]; after ``to`` a CUDA device,
+    the six walk arrays)."""
+
+    FIELDS = 7
 
     @staticmethod
-    def _device(tensors, n_pad, n_src_pad, straggler):
-        return CompactDevice(n_pad, n_pad, n_src_pad, *tensors, straggler)
+    def _device(tensors, n_pad, n_src_pad, straggler, walk):
+        return CompactDevice(n_pad, n_pad, n_src_pad, *tensors, straggler, walk)
 
 
 def build_compact_shards(

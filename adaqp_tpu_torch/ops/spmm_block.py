@@ -10,36 +10,39 @@ layouts and caches built by either package are the same arrays.
 
 Host side: :func:`block_layout` packs the tiles exactly as the JAX
 package's ``block_layout`` does (tiles sorted by destination block, an
-all-zero tile for every destination block that has none). The CUDA kernel
-reads each destination block's tile range, :func:`block_pointers`.
+all-zero tile for every destination block that has none, windows
+ascending within a block). Each destination block's tile range is
+:func:`block_pointers`.
 
 Device side: :func:`block_spmm` is the kernel wrapper. On a CUDA tensor it
-launches the hand-written kernel (``csrc/spmm_block.cu``, which walks the
-tiles with the set-bit row walk of ``csrc/tile_walk.cuh``); on a CPU
-tensor it runs the plain PyTorch version :func:`_run_block_torch`; there
-is no fallback from one to the other. Both sum in f32 and round once to
-``h.dtype``. (The JAX package's accelerator kernel rounds f32 windows to
-bf16 before its matrix product; the port follows its portable twin.)
+launches the strip layout's window-stationary kernel
+(``csrc/spmm_strip.cu``) on the layout's walk: the block layout holds the
+strip layout's tiles, whose windows start at multiples of ``BS``, so its
+tiles are the walk's tiles as they are (:func:`~.spmm_walk.strip_walk`,
+built where the layout reaches a CUDA device); the all-zero tiles cost a
+list of no columns. A non-square layout pads its rows to ``BD`` only; its
+last strip is part-filled. On a CPU tensor the wrapper runs the plain
+PyTorch version :func:`_run_block_torch`; there is no fallback from one to
+the other. Both sum in f32 and round once to ``h.dtype``. (The JAX
+package's accelerator kernel rounds f32 windows to bf16 before its matrix
+product; the port follows its portable twin.)
 
 Duplicate edges are not representable in a bitmask; layouts are built from
 de-duplicated edge lists (all four reference datasets are simple graphs).
 """
 from __future__ import annotations
 
-import ctypes
 import os
 from dataclasses import dataclass
-from typing import Callable, Optional, Sequence
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
 from ..common.backend import DeviceLike, resolve_device
 from .spmm_fast import EllDevice, EllLayout, _run_ell, ell_from_csr
+from .spmm_walk import BD, BS, WORDS, StripWalk, WalkedLayout, run_walk, strip_walk
 
-BD = 256  # dst rows per tile
-BS = 2048  # src cols per tile
-WORDS = BS // 16  # int16 halfwords per tile row
 MASK_SCHEME = 2  # cache-format version (bump when the packing changes)
 # tiles below this go to the ELL straggler path
 MIN_EDGES = 192
@@ -94,19 +97,20 @@ class BlockLayout:
         dev = resolve_device(device)
         return BlockDevice(
             self.n, self.n_pad, self.n_src_pad,
-            torch.as_tensor(self.masks, device=dev),
-            torch.as_tensor(self.src_start, device=dev),
-            torch.as_tensor(self.dst_blk, device=dev),
-            torch.as_tensor(block_pointers(self.dst_blk, self.n_pad), device=dev),
+            *(torch.as_tensor(a, device=dev) for a in (
+                self.masks, self.src_start, self.dst_blk,
+                block_pointers(self.dst_blk, self.n_pad))),
             self.straggler.to_device(dev) if self.straggler else None,
-        )
+        ).with_walk()
 
 
 @dataclass
-class BlockDevice:
+class BlockDevice(WalkedLayout):
     """A block layout's tensors on one device. Tiles ``blk_ptr[b]`` ..
     ``blk_ptr[b + 1]`` belong to destination block ``b``; rows of the tile
-    arrays past ``blk_ptr[-1]`` are shard padding and are never read."""
+    arrays past ``blk_ptr[-1]`` are shard padding and are never read. The
+    plain version reads the masks, the CUDA kernel ``walk``, which is built
+    where a layout reaches a CUDA device."""
 
     n: int
     n_pad: int
@@ -116,14 +120,18 @@ class BlockDevice:
     dst_blk: torch.Tensor  # int32 [T']
     blk_ptr: torch.Tensor  # int32 [n_pad // BD + 1]
     straggler: Optional[EllDevice]
+    walk: Optional[StripWalk] = None  # what the CUDA kernel reads
+
+    def build_walk(self) -> StripWalk:
+        return strip_walk(self.masks, self.src_start, self.blk_ptr)
 
     def to(self, device: DeviceLike) -> "BlockDevice":
         return BlockDevice(
-            self.n, self.n_pad, self.n_src_pad, self.masks.to(device),
-            self.src_start.to(device), self.dst_blk.to(device),
-            self.blk_ptr.to(device),
+            self.n, self.n_pad, self.n_src_pad,
+            *(x.to(device) for x in (self.masks, self.src_start, self.dst_blk, self.blk_ptr)),
             self.straggler.to(device) if self.straggler else None,
-        )
+            None if self.walk is None else self.walk.to(device),
+        ).with_walk()
 
 
 def block_layout(
@@ -298,65 +306,10 @@ def _run_block_torch(layout: BlockDevice, h: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def check_cuda_operands(h: torch.Tensor, n_src_pad: int,
-                        tensors: Sequence[tuple]) -> None:
-    """Raise unless ``h`` is a contiguous, 16-byte aligned bf16/f32
-    ``[n_src_pad, F]`` matrix whose rows are whole 16-byte vectors, and each
-    ``(name, tensor, dtype)`` a contiguous tensor of that dtype on its
-    device — what the tile kernels take."""
-    if h.dim() != 2 or h.shape[0] != n_src_pad:
-        raise ValueError(f"h must be [{n_src_pad}, F], got {tuple(h.shape)}")
-    if h.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"h must be bfloat16 or float32, got {h.dtype}")
-    f = h.shape[1]
-    vec = 8 if h.dtype == torch.bfloat16 else 4  # values per 16-byte load
-    if f % vec or not h.is_contiguous() or h.data_ptr() % 16:
-        raise ValueError(
-            f"h must be contiguous, 16-byte aligned, with F % {vec} == 0 (F={f})"
-        )
-    for name, x, dt in tensors:
-        if x.device != h.device or x.dtype != dt or not x.is_contiguous():
-            raise ValueError(
-                f"layout {name} must be contiguous {dt} on {h.device}, "
-                f"got {x.dtype} on {x.device}"
-            )
-
-
-def _lib() -> ctypes.CDLL:
-    from ..utils.cuda_build import load_library
-
-    lib = load_library("spmm_block")
-    if lib.adaqp_block_spmm.argtypes is None:
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.adaqp_block_spmm.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
-        lib.adaqp_block_spmm.restype = ci
-        lib.adaqp_block_error_string.argtypes = [ci]
-        lib.adaqp_block_error_string.restype = ctypes.c_char_p
-    return lib
-
-
 def _run_block_cuda(layout: BlockDevice, h: torch.Tensor) -> torch.Tensor:
-    """Launch the CUDA kernel on ``h``'s device and current stream."""
-    check_cuda_operands(h, layout.n_src_pad, (
-        ("masks", layout.masks, torch.int16),
-        ("src_start", layout.src_start, torch.int32),
-        ("blk_ptr", layout.blk_ptr, torch.int32),
-    ))
-    n_blocks = layout.n_pad // BD
-    if layout.blk_ptr.numel() != n_blocks + 1 or tuple(layout.masks.shape[1:]) != (BD, WORDS):
-        raise ValueError("layout shapes do not match n_pad")
-    out = torch.empty((layout.n_pad, h.shape[1]), dtype=h.dtype, device=h.device)
-    lib = _lib()
-    rc = lib.adaqp_block_spmm(
-        layout.masks.data_ptr(), layout.src_start.data_ptr(),
-        layout.blk_ptr.data_ptr(), h.data_ptr(), out.data_ptr(),
-        n_blocks, h.shape[1], int(h.dtype == torch.bfloat16), h.device.index,
-        torch.cuda.current_stream(h.device).cuda_stream,
-    )
-    if rc:
-        raise RuntimeError(
-            f"block SpMM launch failed: {lib.adaqp_block_error_string(rc).decode()}"
-        )
+    """Launch the window-stationary kernel on ``h``'s device and current
+    stream."""
+    out = run_walk(layout, h, "block")
     block_spmm.launches += 1
     return out
 

@@ -20,11 +20,17 @@ is placed in one of three tiers by its edge count and occupied columns:
 The format is the JAX package's (``compact_layout`` builds the same 14
 arrays), so layouts and caches of either package are the same. The
 per-item ``new_window``/``wslot``/``strip_first``/``strip_last`` flags drive
-the TPU kernel's window ring and stay in :class:`CompactLayout`; the CUDA
-kernel needs only each strip's item range, :func:`item_pointers`.
+the TPU kernel's window ring and stay in :class:`CompactLayout`; the device
+layout keeps each strip's item range, :func:`item_pointers`.
 
-Device side: :func:`compact_spmm` is the kernel wrapper (CUDA C++,
-``csrc/spmm_compact.cu``); a CPU tensor takes the plain PyTorch version
+Device side: :func:`compact_spmm` is the kernel wrapper. On a CUDA tensor
+it launches the strip layout's window-stationary kernel
+(``csrc/spmm_strip.cu``) on the layout's walk: the TPU kernel is
+window-stationary already (items sorted by strip and window), and each item
+decodes into window-local column lists for each destination row, the
+subtiles that land on one (strip, window, block) merged into one walk tile
+(:func:`~.spmm_walk.compact_walk`, built where the layout reaches a CUDA
+device). A CPU tensor takes the plain PyTorch version
 :func:`_run_compact_torch`; there is no fallback from one to the other.
 :func:`gather_rows` is the row-gather probe's kernel wrapper, and
 :func:`dynamic_gather_supported` the gate the Trainer runs before the
@@ -44,15 +50,15 @@ import numpy as np
 import torch
 
 from ..common.backend import DeviceLike, resolve_device
+from ..utils.cuda_build import raise_on
 from .spmm_block import (
-    _PLAIN_TILES, BD, BS, WORDS, ReverseSpmm, _dedup, check_cuda_operands, expand_masks,
-    range_pointers, with_straggler,
+    _PLAIN_TILES, ReverseSpmm, _dedup, expand_masks, range_pointers, with_straggler,
 )
 from .spmm_fast import EllDevice, EllLayout, ell_from_csr
+from .spmm_walk import (
+    BD, BS, CSUB, SB, STRIP, WORDS, StripWalk, WalkedLayout, compact_walk, run_walk,
+)
 
-SB = 8            # dst blocks per strip (strip = 2048 rows)
-STRIP = SB * BD
-CSUB = 256        # columns per compact subtile
 GROUP = BS // CSUB  # subtiles per group (8)
 COMPACT_SCHEME = 1  # cache-format version
 
@@ -83,20 +89,22 @@ class CompactLayout:
 
     def to_device(self, device: DeviceLike = None) -> "CompactDevice":
         dev = resolve_device(device)
-        t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+        arrays = (self.kind, self.masks, self.col_idx, self.src_start, self.dst_off,
+                  self.nsub, item_pointers(self.strip_id, self.n_pad))
         return CompactDevice(
-            self.n, self.n_pad, self.n_src_pad, t(self.kind), t(self.masks),
-            t(self.col_idx), t(self.src_start), t(self.dst_off), t(self.nsub),
-            t(item_pointers(self.strip_id, self.n_pad)),
+            self.n, self.n_pad, self.n_src_pad,
+            *(torch.as_tensor(a, device=dev) for a in arrays),
             self.straggler.to_device(dev) if self.straggler else None,
-        )
+        ).with_walk()
 
 
 @dataclass
-class CompactDevice:
+class CompactDevice(WalkedLayout):
     """A compact layout's tensors on one device. Items ``item_ptr[st]`` ..
     ``item_ptr[st + 1]`` belong to strip ``st``; rows of the item arrays
-    past ``item_ptr[-1]`` are shard padding and are never read."""
+    past ``item_ptr[-1]`` are shard padding and are never read. The plain
+    version reads the items, the CUDA kernel ``walk``, which is built where
+    a layout reaches a CUDA device."""
 
     n: int
     n_pad: int
@@ -109,6 +117,11 @@ class CompactDevice:
     nsub: torch.Tensor       # int32 [T']
     item_ptr: torch.Tensor   # int32 [n_pad // STRIP + 1]
     straggler: Optional[EllDevice]
+    walk: Optional[StripWalk] = None  # what the CUDA kernel reads
+
+    def build_walk(self) -> StripWalk:
+        return compact_walk(self.kind, self.masks, self.col_idx, self.src_start, self.dst_off,
+                            self.item_ptr)
 
     def to(self, device: DeviceLike) -> "CompactDevice":
         return CompactDevice(
@@ -116,7 +129,8 @@ class CompactDevice:
             *(x.to(device) for x in (self.kind, self.masks, self.col_idx, self.src_start,
                                      self.dst_off, self.nsub, self.item_ptr)),
             self.straggler.to(device) if self.straggler else None,
-        )
+            None if self.walk is None else self.walk.to(device),
+        ).with_walk()
 
 
 def item_pointers(strip_id: np.ndarray, n_pad: int) -> np.ndarray:
@@ -393,10 +407,8 @@ def _lib() -> ctypes.CDLL:
     from ..utils.cuda_build import load_library
 
     lib = load_library("spmm_compact")
-    if lib.adaqp_compact_spmm.argtypes is None:
+    if lib.adaqp_gather_rows.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.adaqp_compact_spmm.argtypes = [vp] * 9 + [ci, ci, ci, ci, vp]
-        lib.adaqp_compact_spmm.restype = ci
         lib.adaqp_gather_rows.argtypes = [vp, vp, vp, ci, ci, ci, vp]
         lib.adaqp_gather_rows.restype = ci
         lib.adaqp_compact_error_string.argtypes = [ci]
@@ -404,37 +416,10 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _raise_on(lib, rc: int, what: str) -> None:
-    if rc:
-        raise RuntimeError(f"{what} launch failed: {lib.adaqp_compact_error_string(rc).decode()}")
-
-
 def _run_compact_cuda(layout: CompactDevice, h: torch.Tensor) -> torch.Tensor:
-    """Launch the CUDA kernel on ``h``'s device and current stream."""
-    i32 = torch.int32
-    check_cuda_operands(h, layout.n_src_pad, (
-        ("masks", layout.masks, torch.int16), ("col_idx", layout.col_idx, i32),
-        ("src_start", layout.src_start, i32), ("kind", layout.kind, i32),
-        ("dst_off", layout.dst_off, i32), ("nsub", layout.nsub, i32),
-        ("item_ptr", layout.item_ptr, i32),
-    ))
-    t = layout.masks.shape[0]
-    if (layout.n_pad % STRIP or layout.item_ptr.numel() != layout.n_pad // STRIP + 1
-            or tuple(layout.masks.shape[1:]) != (BD, WORDS)
-            or tuple(layout.col_idx.shape) != (t, BS)
-            or tuple(layout.dst_off.shape) != (t, GROUP)
-            or not layout.kind.numel() == layout.src_start.numel() == layout.nsub.numel() == t):
-        raise ValueError("compact layout shapes do not match n_pad or each other")
-    out = torch.empty((layout.n_pad, h.shape[1]), dtype=h.dtype, device=h.device)
-    lib = _lib()
-    rc = lib.adaqp_compact_spmm(
-        layout.masks.data_ptr(), layout.col_idx.data_ptr(), layout.src_start.data_ptr(),
-        layout.kind.data_ptr(), layout.dst_off.data_ptr(), layout.nsub.data_ptr(),
-        layout.item_ptr.data_ptr(), h.data_ptr(), out.data_ptr(), layout.n_pad,
-        h.shape[1], int(h.dtype == torch.bfloat16), h.device.index,
-        torch.cuda.current_stream(h.device).cuda_stream,
-    )
-    _raise_on(lib, rc, "compact SpMM")
+    """Launch the window-stationary kernel on ``h``'s device and current
+    stream."""
+    out = run_walk(layout, h, "compact")
     compact_spmm.launches += 1
     return out
 
@@ -483,7 +468,7 @@ def _launch_gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         x.data_ptr(), idx.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1],
         x.device.index, torch.cuda.current_stream(x.device).cuda_stream,
     )
-    _raise_on(lib, rc, "gather_rows")
+    raise_on(lib.adaqp_compact_error_string, rc, "gather_rows")
     gather_rows.launches += 1
     return out
 

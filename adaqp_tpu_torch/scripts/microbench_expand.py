@@ -14,8 +14,9 @@ computing the expansion:
     v3  w -> bf16 (WRONG math on purpose: the timing floor)
 
 On the card the question is whether a dense tensor-core product of the
-expanded tiles beats the set-bit walk of the port's tile kernels
-(``ops/spmm_block.py::block_spmm``).
+expanded tiles beats walking each tile row's set columns, as the port's
+tile kernel does (``ops/spmm_block.py::block_spmm``, the window-stationary
+kernel of ``csrc/spmm_strip.cu``).
 
     python -m adaqp_tpu_torch.scripts.microbench_expand [--f 640] [--iters 5]
     python -m adaqp_tpu_torch.scripts.microbench_expand --n 32768 --e 16121856
@@ -45,7 +46,8 @@ import torch
 from ..common.backend import resolve_device
 from ..helper.dataset import REDDIT_C, REDDIT_E, REDDIT_N, synth_reddit
 from ..ops.spmm_block import (BD, WORDS, BlockDevice, _run_block_torch, block_layout,
-                              check_cuda_operands, expand_masks, run_tiles_torch)
+                              expand_masks, run_tiles_torch)
+from ..ops.spmm_walk import check_cuda_operands
 from ..utils.cuda_build import raise_on
 from . import time_call
 

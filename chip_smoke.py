@@ -122,14 +122,15 @@ def sm_clock_mhz():
 
 
 def strip_floor(lay, f, nnz, clock_mhz):
-    """The strip kernel design's own floor for bf16 h: the shared-memory
-    bytes it moves (every tile edge reads its row's 32-byte column slice,
-    every window step's slice is written once by TMA, per column slice)
-    over 132 SMs at 128 bytes a clock. Returns (ms, bytes)."""
-    from adaqp_tpu_torch.ops import spmm_strip as ss
+    """The window-stationary kernel design's own floor for bf16 h (any tile
+    layout's walk): the shared-memory bytes it moves (every tile edge reads
+    its row's 32-byte column slice, every window step's slice is written
+    once by TMA, per column slice) over 132 SMs at 128 bytes a clock.
+    Returns (ms, bytes)."""
+    from adaqp_tpu_torch.ops import spmm_walk as sw
 
-    slices = -(-f * 2 // ss.SLICE_BYTES)
-    nbytes = slices * (nnz * ss.SLICE_BYTES + lay.walk.step_win.numel() * ss.BS * ss.SLICE_BYTES)
+    slices = -(-f * 2 // sw.SLICE_BYTES)
+    nbytes = slices * (nnz * sw.SLICE_BYTES + lay.walk.step_win.numel() * sw.BS * sw.SLICE_BYTES)
     return nbytes / (132 * 128 * clock_mhz * 1e6) * 1e3, nbytes
 
 
@@ -200,7 +201,7 @@ def phase_build():
     from adaqp_tpu_torch.utils.cuda_build import build
 
     t0 = time.perf_counter()
-    logs = build(["spmm_strip", "quant_pack", "quant_rows", "spmm_block", "spmm_compact",
+    logs = build(["spmm_strip", "quant_pack", "quant_rows", "spmm_compact",
                   "ring_gather", "window_gather", "compact_item", "expand_tile",
                   "transpose_u32"])
     say(f"[build] nvcc sm_90a: {time.perf_counter() - t0:.1f} s")
@@ -461,6 +462,7 @@ def tile_csr(torch, lay, dtype):
 
 def phase_time(torch, trainer, card):
     from adaqp_tpu_torch.ops import spmm_strip as ss
+    from adaqp_tpu_torch.ops import spmm_walk as sw
 
     dev = trainer.device
     fl = trainer.blocks.devices()[0]
@@ -468,7 +470,7 @@ def phase_time(torch, trainer, card):
     t = int(fl.blk_ptr[-1])
     rows = {}
     clock = sm_clock_mhz()
-    info = ss.strip_kernel_info(torch.bfloat16)
+    info = sw.walk_kernel_info(torch.bfloat16)
     say(f"[time] {card} | strip_spmm form: a CTA a (strip, slice of {info['columns']} bf16 columns), "
         f"{info['registers']} registers a thread, {info['spill_bytes']} spill bytes, shared memory "
         f"{info['dynamic_smem']} B dynamic + {info['static_smem']} B static; SM clock "
@@ -1415,13 +1417,19 @@ def _hold_backward(torch, gen, tag, spmm, plain, fwd, rev, f, phase):
 def phase_agg(torch, seed):
     """block_spmm, compact_spmm and gather_rows against their plain versions
     on small layouts of every shape the paths give them: square forward and
-    reverse, rectangular (halo-shaped), empty; a compact layout with full
-    tiles, subtile groups and an ELL tail, and one of groups only; bf16 and
-    f32; and each through its autograd backward."""
+    reverse, rectangular (halo-shaped), a rectangular block layout whose
+    rows are padded to 256 only (its last strip part-filled), empty; a
+    compact layout with full tiles, subtile groups and an ELL tail, and one
+    of groups only whose targets take subtiles from two items; bf16 and
+    f32 at F=128, 256, 384 and 640; and each through its autograd
+    backward."""
     import numpy as np
 
     from adaqp_tpu_torch.ops import spmm_block as sb
     from adaqp_tpu_torch.ops import spmm_compact as sc
+
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from torch_helpers import merged_targets
 
     torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.default_rng(seed)
@@ -1429,13 +1437,15 @@ def phase_agg(torch, seed):
     n, n_src = 8192, 6144
     src, dst = _tiered_edges(rng, n, n, 150_000)
     rs, rd = _tiered_edges(rng, 4096, n_src, 60_000)
+    ps, pd = _tiered_edges(rng, 4352, n_src, 60_000)
+    ms, md = _tiered_edges(rng, n, n, 60_000)
     e0 = np.zeros(0, np.int32)
     errs = {"block_spmm": 0.0, "compact_spmm": 0.0, "gather_rows": 0.0}
 
     def cases(name, wrapper, plain, lays):
         for tag, lay in lays:
             for dtype in (torch.bfloat16, torch.float32):
-                for f in (128, 384):
+                for f in (128, 256, 384, 640):
                     out, err = _hold(torch, gen, f"{name} {tag}", wrapper, plain, lay, f,
                                      dtype, "agg")
                     errs[name] = max(errs[name], err)
@@ -1446,9 +1456,14 @@ def phase_agg(torch, seed):
         ("forward", sb.block_layout(src, dst, n, min_edges=64)),
         ("reverse", sb.block_layout(dst, src, n, min_edges=64)),
         (f"rectangular 4096x{n_src}", sb.block_layout(rs, rd, 4096, min_edges=64, n_src=n_src)),
+        (f"rectangular 4352x{n_src} (part-filled strip)",
+         sb.block_layout(ps, pd, 4352, min_edges=16, n_src=n_src)),
         ("empty 2048x4096", sb.block_layout(e0, e0, 2048, n_src=4096)),
     ]
     check(block[2][1].masks.any(), "the rectangular block layout has no set bit")
+    part = block[3][1]
+    check(part.n_pad % 2048 and part.masks[part.dst_blk >= part.n_pad // 2048 * 8].any(),
+          "the part-filled block layout has no dense tile in its last strip")
     cases("block_spmm", sb.block_spmm, sb._run_block_torch,
           [(t, lay.to_device("cuda")) for t, lay in block])
 
@@ -1464,11 +1479,17 @@ def phase_agg(torch, seed):
     check(shared > 0, "no compact group holds two subtiles with one target")
     groups = sc.compact_layout(src, dst, n, full_cols=2048)
     check(not groups.masks[groups.kind == 0].any(), "the all-groups layout holds a full tile")
+    spill = sc.compact_layout(ms, md, n, full_cols=2048)
+    merged = merged_targets(spill)
+    say(f"[agg] compact groups-only layout of {len(ms)} edges: {merged} targets take subtiles "
+        "from more than one item (one walk tile each)")
+    check(merged > 0, "no compact target takes subtiles from two items")
     rect = sc.compact_layout(rs, rd, 4096, n_src=n_src)
     check((rect.kind == 1).any(), "the rectangular compact layout holds no group")
     cases("compact_spmm", sc.compact_spmm, sc._run_compact_torch, [
         ("three-tier", tiers.to_device("cuda")),
         ("all groups (full_cols 2048)", groups.to_device("cuda")),
+        ("merged subtiles (full_cols 2048)", spill.to_device("cuda")),
         (f"rectangular 4096x{n_src}", rect.to_device("cuda")),
         ("empty 2048x4096", sc.compact_layout(e0, e0, 2048, n_src=4096).to_device("cuda")),
     ])
@@ -1715,6 +1736,18 @@ def phase_time_agg(torch, card, runs):
         lay = runs[impl]["layout"]
         csr, nnz = tile_csr(torch, lay, torch.bfloat16)
         h_rows = int(torch.unique(csr.col_indices()).numel())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        walk = lay.build_walk()
+        torch.cuda.synchronize()
+        walk_s = time.perf_counter() - t0
+        check(all(torch.equal(a, b) for a, b in zip(walk.tensors(), lay.walk.tensors())),
+              f"{name}: the walk differs from one build to the next")
+        say(f"[time] {card} | {name} products forward local walk: rebuilt on the card in "
+            f"{walk_s:.3f} s; {lay.walk.nbytes / 1e6:.1f} MB, {lay.walk.step_win.numel()} window "
+            f"steps, {lay.walk.grp_len.numel() // 16} walk tiles, {lay.walk.cols.numel() / nnz:.2f} "
+            "column slots an edge")
+        del walk
         for f in sorted({256, LAYER0_F[impl]}):
             h = torch.randn(lay.n_src_pad, f, generator=gen, device="cuda").to(torch.bfloat16)
             saved = w.launches
@@ -1741,11 +1774,10 @@ def phase_time_agg(torch, card, runs):
             say(f"[time] {card} | {name} F={f}: kernel {ms:.4f} ms; bound {bound_ms:.4f} ms by "
                 f"{bound_by} ({nbytes / 1e9:.4f} GB, {flops / 1e12:.5f} TFLOP); plain "
                 f"{plain_ms:.2f} ms; torch.sparse.mm {lib_ms:.4f} ms (bf16 CSR of the covered edges)")
-            if impl == "strip":
-                floor_ms, floor_bytes = strip_floor(lay, f, nnz, clock[1])
-                say(f"[time] {card} | {name} F={f}: the design's shared-memory floor "
-                    f"{floor_ms:.4f} ms ({floor_bytes / 1e9:.3f} GB at 132 x 128 B a clock, "
-                    f"{clock[1]:g} MHz)")
+            floor_ms, floor_bytes = strip_floor(lay, f, nnz, clock[1])
+            say(f"[time] {card} | {name} F={f}: the design's shared-memory floor "
+                f"{floor_ms:.4f} ms ({floor_bytes / 1e9:.3f} GB at 132 x 128 B a clock, "
+                f"{clock[1]:g} MHz)")
             rows[(name, f)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                                    bound_by=bound_by, library_ms=lib_ms)
         del csr
@@ -2193,7 +2225,7 @@ def phase_time_expand(torch, card, dev, host_s):
     the edges' products at the bf16 rate, as for block_spmm), the dense
     tiles' tensor-core time (every tile's 256 x 2048 x F product at the
     bf16 rate: the floor of this design, not of the function), the plain
-    version, block_spmm (the set-bit walk) and torch.sparse.mm of the
+    version, block_spmm (the window-stationary walk) and torch.sparse.mm of the
     tiles' edges; and the per-pass slope of chains of I and 2I passes,
     which must be nonzero."""
     from adaqp_tpu_torch.ops import spmm_block as sb
@@ -2218,7 +2250,7 @@ def phase_time_expand(torch, card, dev, host_s):
         f"({nnz / (t * sb.BD * sb.BS):.4%} dense), {h_rows} source rows read, host build "
         f"{host_s:.1f} s; F={f}: bound of A^T h {bound_ms:.4f} ms by {bound_by} "
         f"({nbytes / 1e9:.3f} GB, {2.0 * nnz * f / 1e12:.4f} TFLOP); dense tiles on the tensor "
-        f"cores {dense_ms:.4f} ms ({dense_flops / 1e12:.3f} TFLOP); block_spmm (set-bit walk) "
+        f"cores {dense_ms:.4f} ms ({dense_flops / 1e12:.3f} TFLOP); block_spmm (window-stationary walk) "
         f"{walk:.4f} ms; torch.sparse.mm {lib:.4f} ms")
     rows = {}
 
@@ -2451,12 +2483,12 @@ def main():
          "replaces": "adaqp_tpu/ops/quant_pallas.py:202",
          "launches": k4_u, "max_abs_err": quant_err, **qtimes[640][1]},
         {"name": "block_spmm", "route": "cuda",
-         "source": "adaqp_tpu_torch/csrc/spmm_block.cu",
+         "source": "adaqp_tpu_torch/csrc/spmm_strip.cu",
          "replaces": "adaqp_tpu/ops/spmm_block.py:248",
          "launches": agg_l["block_spmm"], "max_abs_err": agg["block"]["err"],
          **atimes[("block_spmm", 256)]},
         {"name": "compact_spmm", "route": "cuda",
-         "source": "adaqp_tpu_torch/csrc/spmm_compact.cu",
+         "source": "adaqp_tpu_torch/csrc/spmm_strip.cu",
          "replaces": "adaqp_tpu/ops/spmm_compact.py:413",
          "launches": agg_l["compact_spmm"], "max_abs_err": agg["compact"]["err"],
          **atimes[("compact_spmm", 256)]},

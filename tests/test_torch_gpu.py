@@ -24,7 +24,7 @@ from adaqp_tpu_torch.scripts import microbench_dma_gather as dg
 from adaqp_tpu_torch.scripts import microbench_expand as me
 from adaqp_tpu_torch.scripts import microbench_gather as gb
 from adaqp_tpu_torch.scripts import probe_r5 as pr
-from torch_helpers import random_edges, random_wire, received, strip_cases
+from torch_helpers import merged_targets, random_edges, random_wire, received, strip_cases
 
 
 @pytest.fixture
@@ -189,35 +189,53 @@ def test_cuda_strip_kernel_walks_every_layout(rng, cuda_device, f, dtype):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_cuda_block_kernel_matches_plain(rng, cuda_device, dtype):
+    # a square layout, and a halo-shaped one whose rows are padded to 256
+    # only (2,304: its last strip holds one block)
     src, dst = random_edges(rng, 5000, 60000)
-    lay = tblock.block_layout(src, dst, 5000, min_edges=4).to_device(cuda_device)
-    h = torch.from_numpy(rng.normal(size=(lay.n_src_pad, 640)).astype(np.float32))
-    h = h.to(cuda_device, dtype)
-    before = tblock.block_spmm.launches
-    got = tblock.block_spmm(lay, h)
-    torch.cuda.synchronize()
-    assert tblock.block_spmm.launches == before + 1
-    want = tblock._run_block_torch(lay, h)
+    hs, hd = random_edges(rng, 2100, 30000, 5000)
+    layouts = {"square": tblock.block_layout(src, dst, 5000, min_edges=4),
+               "non-square": tblock.block_layout(hs, hd, 2100, min_edges=8, n_src=5000)}
+    assert layouts["non-square"].n_pad % 2048
     # f32 sums in another order, then (bf16) one rounding step
     rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
-    torch.testing.assert_close(got.float(), want.float(), atol=1e-3, rtol=rtol)
+    for name, host in layouts.items():
+        lay = host.to_device(cuda_device)
+        h = torch.from_numpy(rng.normal(size=(lay.n_src_pad, 640)).astype(np.float32))
+        h = h.to(cuda_device, dtype)
+        before = tblock.block_spmm.launches
+        got = tblock.block_spmm(lay, h)
+        torch.cuda.synchronize()
+        assert tblock.block_spmm.launches == before + 1
+        want = tblock._run_block_torch(lay, h)
+        assert got.shape == want.shape and got.dtype == dtype, name
+        torch.testing.assert_close(got.float(), want.float(), atol=1e-3, rtol=rtol,
+                                   msg=lambda m: f"{name}: {m}")
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_cuda_compact_kernel_matches_plain(rng, cuda_device, dtype):
+    # three tiers, and groups only, where a region's subtiles spill into a
+    # second item of its (strip, window): one walk tile takes both
     src, dst = _tiered_edges(rng, 8192, 8192, 60000)
-    lay = tc.compact_layout(src, dst, 8192).to_device(cuda_device)
-    h = torch.from_numpy(rng.normal(size=(lay.n_src_pad, 384)).astype(np.float32))
-    h = h.to(cuda_device, dtype)
-    before = tc.compact_spmm.launches
-    got = tc.compact_spmm(lay, h)
-    torch.cuda.synchronize()
-    assert tc.compact_spmm.launches == before + 1
-    want = tc._run_compact_torch(lay, h)
+    layouts = {"three tiers": tc.compact_layout(src, dst, 8192),
+               "merged subtiles": tc.compact_layout(src, dst, 8192, full_cols=2048)}
     # f32 sums in another order, then (bf16) one rounding step
     rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
-    torch.testing.assert_close(got.float(), want.float(), atol=1e-3, rtol=rtol)
+    for name, host in layouts.items():
+        lay = host.to_device(cuda_device)
+        h = torch.from_numpy(rng.normal(size=(lay.n_src_pad, 384)).astype(np.float32))
+        h = h.to(cuda_device, dtype)
+        before = tc.compact_spmm.launches
+        got = tc.compact_spmm(lay, h)
+        torch.cuda.synchronize()
+        assert tc.compact_spmm.launches == before + 1
+        want = tc._run_compact_torch(lay, h)
+        assert got.shape == want.shape and got.dtype == dtype, name
+        torch.testing.assert_close(got.float(), want.float(), atol=1e-3, rtol=rtol,
+                                   msg=lambda m: f"{name}: {m}")
+    # the groups-only layout has a target whose subtiles come from two items
+    assert merged_targets(layouts["merged subtiles"]) > 0
 
 
 @pytest.mark.gpu

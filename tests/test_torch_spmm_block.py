@@ -8,9 +8,11 @@ the JAX portable twin (both sum exactly in f32, so only the order differs:
 interpret mode (which rounds f32 windows to bf16 before its product: bf16
 tolerance, 0.05 + 1% of the value), and the port's autograd must give the
 JAX custom VJP's gradient. The block shards must hold each rank's JAX
-shard without the JAX package's inert padding tiles. The CUDA kernel itself
-is held against the plain version by ``chip_smoke.py`` on the card, and by
-the ``gpu`` tests of ``tests/test_torch_gpu.py``.
+shard without the JAX package's inert padding tiles. The window-stationary
+walk that the CUDA kernel reads, built from each layout and interpreted in
+torch, must give the plain version's result (f32, rtol 1e-5). The CUDA
+kernel itself is held against the plain version by ``chip_smoke.py`` on
+the card, and by the ``gpu`` tests of ``tests/test_torch_gpu.py``.
 """
 import importlib
 
@@ -21,6 +23,7 @@ import pytest
 import torch
 
 from adaqp_tpu_torch.ops import spmm_block as tblock
+from torch_helpers import interpret_walk, walk_row_lists, walk_schedule
 
 jblock = importlib.import_module("adaqp_tpu.ops.spmm_block")
 jfast = importlib.import_module("adaqp_tpu.ops.spmm_fast")
@@ -210,3 +213,67 @@ def test_wrapper_takes_the_plain_version_only_on_the_cpu():
     before = tblock.block_spmm.launches
     out = tblock.block_spmm(lay, torch.ones(lay.n_src_pad, 8))
     assert not out.any() and tblock.block_spmm.launches == before
+
+
+def _device_layout(rng, n, e, min_edges, n_src):
+    src, dst = _edges(rng, n, e, n_src)
+    lay = tblock.block_layout(src, dst, n, min_edges=min_edges, n_src=n_src).to_device("cpu")
+    assert lay.walk is None  # a layout carries its walk only on a CUDA device
+    return lay
+
+
+@pytest.mark.parametrize("n,e,min_edges,n_src", CASES)
+def test_schedule_lists_each_tile_once_in_window_order(rng, n, e, min_edges, n_src):
+    # the block layout's tiles are the walk's tiles as they are, all-zero
+    # ones (of blocks with no dense tile) included, at no columns
+    lay = _device_layout(rng, n, e, min_edges, n_src)
+    walk = lay.build_walk()
+    t = int(lay.blk_ptr[-1])
+    assert walk_schedule(walk, lay.n_pad) == {
+        i: (int(lay.dst_blk[i]), int(lay.src_start[i])) for i in range(t)}
+    lists, tail_padded = walk_row_lists(walk, t)
+    assert tail_padded
+    empty = [i for i in range(t) if not lay.masks[i].any()]
+    assert all(len(lists[i * tblock.BD + r]) == 0 for i in empty for r in range(tblock.BD))
+    if e == 0:
+        assert len(empty) == t == lay.n_pad // tblock.BD
+
+
+@pytest.mark.parametrize("n,e,min_edges,n_src", CASES)
+def test_walk_gives_the_plain_result(rng, n, e, min_edges, n_src):
+    # the CUDA kernel's order of work in torch (torch_helpers.interpret_walk)
+    lay = _device_layout(rng, n, e, min_edges, n_src)
+    h = torch.from_numpy(rng.normal(size=(lay.n_src_pad, 24)).astype(np.float32))
+    out = interpret_walk(lay.build_walk(), h, lay.n_pad)
+    torch.testing.assert_close(out, tblock._run_block_torch(lay, h), atol=1e-5, rtol=1e-5)
+
+
+def test_non_square_layout_fills_its_last_strip(rng):
+    # a halo-shaped layout pads its rows to 256 only: 2,304 rows are nine
+    # blocks, a whole strip and one block of the next, whose other seven
+    # blocks the schedule leaves without a tile
+    lay = _device_layout(rng, 2100, 30000, 8, 5000)
+    assert lay.n_pad == 9 * tblock.BD and lay.n_src_pad == 6144
+    walk = lay.build_walk()
+    assert walk.strip_ptr.numel() == 3
+    last = walk.step_tile[int(walk.strip_ptr[1]):int(walk.strip_ptr[2])]
+    assert last.shape[0] > 0 and (last[:, 0] >= 0).any() and (last[:, 1:] == -1).all()
+    h = torch.from_numpy(rng.normal(size=(lay.n_src_pad, 8)).astype(np.float32))
+    out = interpret_walk(walk, h, lay.n_pad)
+    assert out.shape == (lay.n_pad, 8)
+    torch.testing.assert_close(out, tblock._run_block_torch(lay, h), atol=1e-5, rtol=1e-5)
+
+
+def test_shards_carry_each_shards_walk():
+    from adaqp_tpu_torch.graph.block_shards import build_block_shards
+
+    _, lay = _partitioned(3)
+    shards = build_block_shards(lay, min_edges=4)
+    assert all(d.walk is None for d in shards.to("cpu").devices(1))  # built on a card only
+    for built in (shards.with_walks(), shards.select(1).with_walks()):
+        for d in built.devices(1):
+            want = tblock.strip_walk(d.masks, d.src_start, d.blk_ptr)
+            assert d.walk.cols.data_ptr() % 16 == 0
+            for got, ref in zip(d.walk.tensors(), want.tensors()):
+                # stacked over shards: zero padding past this shard's entries
+                assert torch.equal(got[:ref.shape[0]], ref)

@@ -8,7 +8,10 @@ groups-only, a rectangular halo-shaped and an empty layout. The port's
 plain version and its autograd must match the JAX portable twin and custom
 VJP: both sum exactly in f32, so only the order differs (1e-4 absolute on
 sums of a few dozen N(0, 1) values). The compact shards must hold each
-rank's JAX shard without the JAX package's inert padding items. The CUDA
+rank's JAX shard without the JAX package's inert padding items. The
+window-stationary walk that the CUDA kernel reads, decoded from each
+layout's items and interpreted in torch, must give the plain version's
+result (f32, rtol 1e-5), with the subtiles of one target merged. The CUDA
 kernels are held against their plain versions by ``chip_smoke.py`` on the
 card, and by the ``gpu`` tests of ``tests/test_torch_gpu.py``.
 """
@@ -21,6 +24,7 @@ import pytest
 import torch
 
 from adaqp_tpu_torch.ops import spmm_compact as tc
+from torch_helpers import interpret_walk, merged_targets, walk_row_lists, walk_schedule
 
 jc = importlib.import_module("adaqp_tpu.ops.spmm_compact")
 
@@ -220,3 +224,85 @@ def test_wrappers_take_the_plain_version_only_on_the_cpu():
     x = torch.ones(4, 4, device="meta")
     with pytest.raises(ValueError, match="no row gather"):
         tc.gather_rows(x, torch.zeros(4, 4, dtype=torch.int32, device="meta"))
+
+
+def _targets(tl):
+    """(destination block, window start) -> {row: sorted window columns} of
+    every set bit of a host compact layout, decoded item by item: kind 0
+    reads window row v, kind 1 ``col_idx[v]`` at subtile ``v // 256``'s
+    block; and how many items land on each target."""
+    rows, owners = {}, {}
+    for i in range(len(tl.kind)):
+        bits = np.unpackbits(tl.masks[i].view(np.uint16)[..., None].view(np.uint8), axis=-1,
+                             bitorder="little").transpose(0, 2, 1).reshape(tc.BD, tc.BS)
+        for r, v in zip(*np.nonzero(bits)):
+            s = v // tc.CSUB if tl.kind[i] == 1 else 0
+            key = (int(tl.strip_id[i]) * tc.SB + int(tl.dst_off[i, s]) // tc.BD,
+                   int(tl.src_start[i]))
+            col = int(tl.col_idx[i, v]) if tl.kind[i] == 1 else int(v)
+            rows.setdefault(key, {}).setdefault(int(r), []).append(col)
+            owners.setdefault(key, set()).add(i)
+    return ({k: {r: sorted(c) for r, c in v.items()} for k, v in rows.items()},
+            {k: len(v) for k, v in owners.items()})
+
+
+@pytest.mark.parametrize("tag,n,n_src,e,full_cols", CASES)
+def test_schedule_lists_each_subtile_once_in_window_order(rng, tag, n, n_src, e, full_cols):
+    # one walk tile for each (block, window) that a subtile or full tile
+    # lands on, each once, windows ascending within a strip
+    _, _, _, tl = _case(rng, n, n_src, e, full_cols)
+    dev = tl.to_device("cpu")
+    assert dev.walk is None  # a layout carries its walk only on a CUDA device
+    walk = dev.build_walk()
+    where = walk_schedule(walk, dev.n_pad)
+    targets, _ = _targets(tl)
+    assert sorted(where.values()) == sorted(targets)
+    if not e:
+        assert not where
+
+
+@pytest.mark.parametrize("tag,n,n_src,e,full_cols", CASES)
+def test_walk_gives_the_plain_result(rng, tag, n, n_src, e, full_cols):
+    # the CUDA kernel's order of work in torch (torch_helpers.interpret_walk)
+    _, _, _, tl = _case(rng, n, n_src, e, full_cols)
+    dev = tl.to_device("cpu")
+    h = torch.from_numpy(rng.normal(size=(dev.n_src_pad, 16)).astype(np.float32))
+    out = interpret_walk(dev.build_walk(), h, dev.n_pad)
+    torch.testing.assert_close(out, tc._run_compact_torch(dev, h), atol=1e-5, rtol=1e-5)
+
+
+def test_walk_merges_subtiles_of_one_target(rng):
+    # groups only: a region's subtiles that spill into the next item of its
+    # (strip, window) land on the same block; the walk holds one tile for
+    # them, whose rows are the union of the items' columns, ascending
+    _, _, _, tl = _case(rng, 4096, 4096, 24000, 2048)
+    targets, owners = _targets(tl)
+    assert max(owners.values()) > 1
+    assert merged_targets(tl) == sum(k - 1 for k in owners.values())
+    walk = tl.to_device("cpu").build_walk()
+    where = walk_schedule(walk, tl.n_pad)
+    lists, tail_padded = walk_row_lists(walk, len(where))
+    assert tail_padded and len(where) < sum(owners.values())
+    for tile, key in where.items():
+        for r in range(tc.BD):
+            np.testing.assert_array_equal(lists[tile * tc.BD + r], targets[key].get(r, []))
+
+
+def test_shards_carry_each_shards_walk():
+    from adaqp_tpu_torch.common.types import GNNType
+    from adaqp_tpu_torch.graph import build_layout, partition_graph
+    from adaqp_tpu_torch.graph.compact_shards import build_compact_shards
+    from adaqp_tpu_torch.helper.dataset import sbm_graph
+
+    g = sbm_graph(n=900, blocks=3, num_feats=8, seed=2)
+    lay = build_layout(g, partition_graph(g, 3, "ldg"), GNNType.GCN, pad_multiple=2048)
+    shards = build_compact_shards(lay, me_ell=200, full_cols=100)
+    assert all(d.walk is None for d in shards.to("cpu").devices(1))  # built on a card only
+    for built in (shards.with_walks(), shards.select(1).with_walks()):
+        for d in built.devices(1):
+            want = tc.compact_walk(d.kind, d.masks, d.col_idx, d.src_start, d.dst_off,
+                                   d.item_ptr)
+            assert d.walk.cols.data_ptr() % 16 == 0
+            for got, ref in zip(d.walk.tensors(), want.tensors()):
+                # stacked over shards: zero padding past this shard's entries
+                assert torch.equal(got[:ref.shape[0]], ref)

@@ -18,7 +18,9 @@ from adaqp_tpu.ops import spmm_fast as jfast
 from adaqp_tpu.ops import spmm_strip as jstrip
 from adaqp_tpu_torch.ops import spmm_fast as tfast
 from adaqp_tpu_torch.ops import spmm_strip as tstrip
-from torch_helpers import random_edges, strip_cases
+from adaqp_tpu_torch.ops import spmm_walk as twalk
+from torch_helpers import (interpret_walk, random_edges, strip_cases, walk_row_lists,
+                           walk_schedule)
 
 
 def _both(src, dst, n, min_edges, n_src=None):
@@ -213,22 +215,7 @@ def _walk(lay):
     """The CUDA kernel's walk arrays of a device layout, built on the CPU
     (a layout carries them only on a CUDA device)."""
     assert lay.walk is None
-    return tstrip.strip_walk(lay.masks, lay.tile_src, lay.blk_ptr)
-
-
-def _row_lists(walk, n_tiles):
-    """Each tile row's column list, read back from the kernel's groups, and
-    whether every row's padding comes after its columns."""
-    cols = walk.cols.numpy().reshape(-1, tstrip.GROUP, tstrip.BATCH)
-    lists, tail_padded = [], True
-    for g in range(n_tiles * tstrip.BD // tstrip.GROUP):
-        batches = cols[walk.grp_ptr[g]:walk.grp_ptr[g + 1]]
-        for p in range(tstrip.GROUP):
-            row = batches[:, p, :].reshape(-1)[:int(walk.grp_len[g])]
-            real = row[row != tstrip.BS]
-            tail_padded &= bool((row[len(real):] == tstrip.BS).all())
-            lists.append(real)
-    return lists, tail_padded
+    return twalk.strip_walk(lay.masks, lay.tile_src, lay.blk_ptr)
 
 
 @pytest.mark.parametrize("name", CASE_NAMES)
@@ -242,18 +229,18 @@ def test_column_lists_decode_the_masks(name):
     bits = np.unpackbits(lay.masks[:t].view(np.uint16)[..., None].view(np.uint8),
                          axis=-1, bitorder="little")  # [T, BD, WORDS, 16]
     want = bits.transpose(0, 1, 3, 2).reshape(t * tstrip.BD, tstrip.BS)
-    row_ptr, cols = tstrip.strip_columns(torch.from_numpy(lay.masks), t)
+    row_ptr, cols = twalk.strip_columns(torch.from_numpy(lay.masks), t)
     assert row_ptr.dtype == torch.int32 and cols.dtype == torch.int16
     assert row_ptr.shape == (t * tstrip.BD + 1,) and int(row_ptr[-1]) == want.sum()
-    lists, tail_padded = _row_lists(walk, t)
+    lists, tail_padded = walk_row_lists(walk, t)
     assert tail_padded and len(lists) == t * tstrip.BD
     for row in range(t * tstrip.BD):
         np.testing.assert_array_equal(cols[row_ptr[row]:row_ptr[row + 1]].numpy(),
                                       np.flatnonzero(want[row]))
         np.testing.assert_array_equal(lists[row], np.flatnonzero(want[row]))
-    lens = want.sum(1).astype(np.int64).reshape(-1, tstrip.GROUP)
+    lens = want.sum(1).astype(np.int64).reshape(-1, twalk.GROUP)
     np.testing.assert_array_equal(walk.grp_len.numpy(), lens.max(1) if t else [])
-    np.testing.assert_array_equal(np.diff(walk.grp_ptr.numpy()), -(-lens.max(1) // tstrip.BATCH))
+    np.testing.assert_array_equal(np.diff(walk.grp_ptr.numpy()), -(-lens.max(1) // twalk.BATCH))
     if name == "full row":
         assert int(walk.grp_len.max()) == tstrip.BS
     if name == "single edge":
@@ -264,48 +251,22 @@ def test_column_lists_decode_the_masks(name):
 def test_schedule_lists_each_tile_once_in_window_order(name):
     lay = _case(name)
     walk = _walk(lay.to_device("cpu"))
-    strip_ptr, win, tiles = (x.numpy() for x in (walk.strip_ptr, walk.step_win, walk.step_tile))
-    assert strip_ptr.shape == (lay.n_pad // tstrip.STRIP + 1,) and strip_ptr[-1] == len(win)
-    assert tiles.shape == (len(win), tstrip.SB)
-    seen = tiles[tiles >= 0]
-    np.testing.assert_array_equal(np.sort(seen), np.arange(len(lay.tile_src)))
-    for s in range(len(strip_ptr) - 1):
-        steps = slice(strip_ptr[s], strip_ptr[s + 1])
-        assert (np.diff(win[steps]) > 0).all()  # ascending windows, each once
-        for k in range(strip_ptr[s], strip_ptr[s + 1]):
-            assert (tiles[k] >= 0).any()
-            for b in np.flatnonzero(tiles[k] >= 0):
-                tile = tiles[k, b]
-                assert lay.tile_dst[tile] == s * tstrip.SB + b and lay.tile_src[tile] == win[k]
+    where = walk_schedule(walk, lay.n_pad)
+    assert where == {t: (int(lay.tile_dst[t]), int(lay.tile_src[t]))
+                     for t in range(len(lay.tile_src))}
+    win, tiles = walk.step_win.numpy(), walk.step_tile.numpy()
     if name == "disjoint windows":
-        assert len(win) == tstrip.SB and ((tiles >= 0).sum(1) == 1).all()
+        assert len(win) == twalk.SB and ((tiles >= 0).sum(1) == 1).all()
     if name == "empty":
-        assert len(win) == 0 and (strip_ptr == 0).all()
+        assert len(win) == 0 and not walk.strip_ptr.any()
 
 
 @pytest.mark.parametrize("name", CASE_NAMES)
 def test_walk_gives_the_plain_result(rng, name):
-    # the CUDA kernel's order of work in torch: each strip's windows in
-    # turn, each block's tile as groups of 16 rows in batches of columns,
-    # the padding column reading a zero row
+    # the CUDA kernel's order of work in torch (torch_helpers.interpret_walk)
     lay = _case(name).to_device("cpu")
-    walk = _walk(lay)
     h = torch.from_numpy(_feats(rng, lay.n_src_pad, 24))
-    out = torch.zeros(lay.n_pad, 24)
-    cols = walk.cols.view(-1, tstrip.GROUP, tstrip.BATCH).long()
-    groups = tstrip.BD // tstrip.GROUP
-    for s in range(lay.n_pad // tstrip.STRIP):
-        for k in range(int(walk.strip_ptr[s]), int(walk.strip_ptr[s + 1])):
-            start = int(walk.step_win[k])
-            window = torch.cat([h[start:start + tstrip.BS], torch.zeros(1, 24)])
-            for b, tile in enumerate(walk.step_tile[k].tolist()):
-                if tile < 0:
-                    continue
-                for i in range(groups):
-                    g = tile * groups + i
-                    batch = cols[walk.grp_ptr[g]:walk.grp_ptr[g + 1]]  # [nb, GROUP, BATCH]
-                    row = (s * tstrip.SB + b) * tstrip.BD + i * tstrip.GROUP
-                    out[row:row + tstrip.GROUP] += window[batch].sum((0, 2))
+    out = interpret_walk(_walk(lay), h, lay.n_pad)
     torch.testing.assert_close(out, tstrip._run_strip_torch(lay, h), atol=1e-5, rtol=1e-5)
 
 
@@ -321,7 +282,7 @@ def test_shards_carry_each_shards_walk():
     assert all(d.walk is None for d in shards.to("cpu").devices(1))  # built on a card only
     for built in (shards.with_walks(), shards.select(1).with_walks()):
         for d in built.devices(1):
-            want = tstrip.strip_walk(d.masks, d.tile_src, d.blk_ptr)
+            want = twalk.strip_walk(d.masks, d.tile_src, d.blk_ptr)
             assert d.walk.cols.data_ptr() % 16 == 0
             for got, ref in zip(d.walk.tensors(), want.tensors()):
                 # stacked over shards: zero padding past this shard's entries

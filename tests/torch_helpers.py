@@ -1,6 +1,7 @@
 """Helpers that several of the port's test files share (not collected as
 tests): random edge lists, the small strip layouts the strip kernel's walk
-must take, and a launch of two CPU ranks beside the caller's JAX training.
+must take, the tile kernel's walk interpreted in torch, and a launch of two
+CPU ranks beside the caller's JAX training.
 Imports only numpy and pytest at the top, so that the card's machine (no
 JAX there) imports it with ``tests/test_torch_gpu.py``."""
 import numpy as np
@@ -38,6 +39,87 @@ def strip_cases(rng):
                              (blk * 256 + rng.integers(0, 256, blk.size)).astype(np.int32),
                              2048, 8 * 2048, 1),
     }
+
+
+def interpret_walk(walk, h, n_pad):
+    """The tile kernel's order of work in torch, in f32 (``walk`` a
+    ``StripWalk`` on the CPU, ``h`` [n_src_pad, F]): each strip's windows in
+    turn, each block's walk tile as groups of 16 rows in batches of columns,
+    the padding column reading a zero row; the first ``n_pad`` rows."""
+    import torch
+
+    from adaqp_tpu_torch.ops.spmm_walk import BATCH, BD, BS, GROUP, SB, STRIP
+
+    f = h.shape[1]
+    n_strips = walk.strip_ptr.numel() - 1
+    out = torch.zeros(n_strips * STRIP, f)
+    cols = walk.cols.view(-1, GROUP, BATCH).long()
+    groups = BD // GROUP
+    for s in range(n_strips):
+        for k in range(int(walk.strip_ptr[s]), int(walk.strip_ptr[s + 1])):
+            start = int(walk.step_win[k])
+            window = torch.cat([h[start:start + BS].float(), torch.zeros(1, f)])
+            for b, tile in enumerate(walk.step_tile[k].tolist()):
+                if tile < 0:
+                    continue
+                for i in range(groups):
+                    g = tile * groups + i
+                    batch = cols[walk.grp_ptr[g]:walk.grp_ptr[g + 1]]  # [nb, GROUP, BATCH]
+                    row = (s * SB + b) * BD + i * GROUP
+                    out[row:row + GROUP] += window[batch].sum((0, 2))
+    return out[:n_pad]
+
+
+def walk_row_lists(walk, n_tiles):
+    """Each walk tile row's column list, read back from the kernel's groups
+    (numpy arrays, tile-major), and whether every row's padding comes after
+    its columns."""
+    from adaqp_tpu_torch.ops.spmm_walk import BATCH, BD, BS, GROUP
+
+    cols = walk.cols.numpy().reshape(-1, GROUP, BATCH)
+    lists, tail_padded = [], True
+    for g in range(n_tiles * BD // GROUP):
+        batches = cols[walk.grp_ptr[g]:walk.grp_ptr[g + 1]]
+        for p in range(GROUP):
+            row = batches[:, p, :].reshape(-1)[:int(walk.grp_len[g])]
+            real = row[row != BS]
+            tail_padded &= bool((row[len(real):] == BS).all())
+            lists.append(real)
+    return lists, tail_padded
+
+
+def walk_schedule(walk, n_pad):
+    """Check a walk's schedule (every walk tile once; within a strip each
+    window once, ascending, with a tile in it) and give each tile's
+    (destination block, window start row)."""
+    from adaqp_tpu_torch.ops.spmm_walk import SB, STRIP
+
+    strip_ptr, win, tiles = (x.numpy() for x in (walk.strip_ptr, walk.step_win, walk.step_tile))
+    assert strip_ptr.shape == (-(-n_pad // STRIP) + 1,) and strip_ptr[-1] == len(win)
+    assert tiles.shape == (len(win), SB)
+    n_tiles = walk.grp_len.numel() * 16 // 256
+    np.testing.assert_array_equal(np.sort(tiles[tiles >= 0]), np.arange(n_tiles))
+    where = {}
+    for s in range(len(strip_ptr) - 1):
+        assert (np.diff(win[strip_ptr[s]:strip_ptr[s + 1]]) > 0).all()
+        for k in range(strip_ptr[s], strip_ptr[s + 1]):
+            assert (tiles[k] >= 0).any()
+            for b in np.flatnonzero(tiles[k] >= 0):
+                where[int(tiles[k, b])] = (s * SB + int(b), int(win[k]))
+    return where
+
+
+def merged_targets(lay):
+    """How many (strip, window, destination block) targets of a host
+    compact layout take subtiles from more than one item (each is one walk
+    tile on the card): the subtiles counted over all items, less the
+    targets."""
+    grp = lay.kind == 1
+    used = ((lay.masks.view(np.uint16)[grp][..., None] >> (2 * np.arange(8))) & 3).any((1, 2))
+    keys = [(st, w, d) for st, w, doff, u in zip(lay.strip_id[grp], lay.src_start[grp],
+                                                 lay.dst_off[grp], used)
+            for d in set(doff[u].tolist())]
+    return len(keys) - len(set(keys))
 
 
 def spawn_beside(worker, args, tmp):
