@@ -25,9 +25,9 @@ padded to a SHARD-UNIFORM shape: the union of widths across shards, each
 width's segment count padded to the max (padding segments scatter to the
 drop row).
 
-Moved to a CUDA device (``to``), each group also carries each shard's walk
-arrays for the tile kernel (``StripWalk``, stacked after the layout's own
-fields), built there by ``with_walks`` from each shard's device layouts.
+Moved to a CUDA device (``to``), the shards also carry each shard's walk
+arrays for the tile kernel (``walks``: a ``StripWalk`` of stacked tensors a
+group), built there by ``with_walks`` from each shard's device layouts.
 """
 from __future__ import annotations
 
@@ -52,10 +52,7 @@ Group = Tuple[torch.Tensor, ...]
 @dataclasses.dataclass
 class TileShards:
     """Stacked [K, ...] tile-layout groups + shard-uniform ELL buckets.
-    Subclasses name the device layout a group's first ``FIELDS`` tensors
-    make; the walk's six follow them after ``with_walks``."""
-
-    FIELDS = 0
+    Subclasses name the device layout a group's tensors make."""
 
     fwd_local: Group
     bwd_local: Optional[Group]  # None when bidirected (aliases fwd_local)
@@ -69,6 +66,9 @@ class TileShards:
     counts: Tuple[Tuple[int, int], ...] = ()
     # the one shard kept by select(), or None while all K are stacked
     selected: Optional[int] = None
+    # per group: each shard's walk (a StripWalk of [K, ...] tensors, None
+    # for an aliased group), once ``with_walks`` has built them
+    walks: Optional[Tuple[Optional[StripWalk], ...]] = None
 
     @staticmethod
     def _device(tensors: Group, n_pad: int, n_src_pad: int, straggler, walk):
@@ -78,19 +78,22 @@ class TileShards:
         def mv(group):
             return None if group is None else tuple(fn(x) for x in group)
 
+        walks = None if self.walks is None else tuple(
+            None if w is None else StripWalk(*mv(w.tensors())) for w in self.walks
+        )
         return dataclasses.replace(
             self,
             fwd_local=mv(self.fwd_local), bwd_local=mv(self.bwd_local),
             fwd_halo=mv(self.fwd_halo), bwd_halo=mv(self.bwd_halo),
             ells=tuple(tuple(mv(s) for s in stacks) for stacks in self.ells),
+            walks=walks,
         )
 
     def to(self, device: DeviceLike) -> "TileShards":
         """These shards on ``device``; on a CUDA device with each shard's
         walk arrays (``with_walks``), built there."""
         out = self._map(lambda x: x.to(device))
-        walked = len(out.fwd_local) > self.FIELDS
-        return out.with_walks() if out.fwd_local[0].is_cuda and not walked else out
+        return out.with_walks() if out.fwd_local[0].is_cuda and out.walks is None else out
 
     def with_walks(self) -> "TileShards":
         """These shards with each group's walk arrays, built on the shards'
@@ -99,20 +102,19 @@ class TileShards:
         padding)."""
         ranks = range(self.fwd_local[0].shape[0]) if self.selected is None else [self.selected]
         per_rank = [self.devices(p) for p in ranks]
-        groups = {}
+        walks = []
         for i, name in enumerate(GROUPS):
-            group = getattr(self, name)
-            if group is None:
+            if getattr(self, name) is None:
+                walks.append(None)
                 continue
-            walks = [devs[i].build_walk().tensors() for devs in per_rank]
             stacked = []
-            for field in zip(*walks):
+            for field in zip(*(devs[i].build_walk().tensors() for devs in per_rank)):
                 n = max(x.shape[0] for x in field)
                 stacked.append(torch.stack([
                     torch.cat([x, x.new_zeros((n - x.shape[0],) + x.shape[1:])]) for x in field
                 ]))
-            groups[name] = group[:self.FIELDS] + tuple(stacked)
-        return dataclasses.replace(self, **groups)
+            walks.append(StripWalk(*stacked))
+        return dataclasses.replace(self, walks=tuple(walks))
 
     def select(self, rank: int) -> "TileShards":
         """Only shard ``rank``'s arrays (a leading axis of one), so that a
@@ -144,9 +146,10 @@ class TileShards:
                     for w, (rows, idx, lens) in zip(self.ell_widths[i], self.ells[i])
                 )
                 straggler = EllDevice(n_pad, buckets, ROW_CHUNK)
-            fields = tuple(x[rank] for x in grp)
-            walk = StripWalk(*fields[self.FIELDS:]) if len(fields) > self.FIELDS else None
-            return self._device(fields[:self.FIELDS], n_pad, n_src_pad, straggler, walk)
+            walk = None
+            if self.walks is not None:
+                walk = StripWalk(*(x[rank] for x in self.walks[i].tensors()))
+            return self._device(tuple(x[rank] for x in grp), n_pad, n_src_pad, straggler, walk)
 
         fl = dev(0, self.fwd_local, self.l_max, self.l_max)
         bl = fl if self.bwd_local is None else dev(1, self.bwd_local, self.l_max, self.l_max)
@@ -286,10 +289,7 @@ def build_tile_shards(
 
 class BlockShards(TileShards):
     """Block layouts, per group (masks [K, T, BD, WORDS], src_start [K, T],
-    dst_blk [K, T], blk_ptr [K, n_pad // BD + 1]; after ``to`` a CUDA
-    device, the six walk arrays)."""
-
-    FIELDS = 4
+    dst_blk [K, T], blk_ptr [K, n_pad // BD + 1])."""
 
     @staticmethod
     def _device(tensors, n_pad, n_src_pad, straggler, walk):

@@ -24,10 +24,7 @@ from .layout import PartitionLayout
 class CompactShards(TileShards):
     """Compact layouts, per group (kind [K, T], masks [K, T, BD, WORDS],
     col_idx [K, T, BS], src_start [K, T], dst_off [K, T, GROUP], nsub
-    [K, T], item_ptr [K, n_pad // STRIP + 1]; after ``to`` a CUDA device,
-    the six walk arrays)."""
-
-    FIELDS = 7
+    [K, T], item_ptr [K, n_pad // STRIP + 1])."""
 
     @staticmethod
     def _device(tensors, n_pad, n_src_pad, straggler, walk):

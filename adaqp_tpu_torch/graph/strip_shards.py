@@ -21,10 +21,7 @@ from .layout import PartitionLayout
 
 class StripShards(TileShards):
     """Strip layouts, per group (masks [K, T, BD, WORDS], tile_src [K, T],
-    blk_ptr [K, n_pad // BD + 1]; after ``to`` a CUDA device, the six walk
-    arrays)."""
-
-    FIELDS = 3
+    blk_ptr [K, n_pad // BD + 1])."""
 
     @staticmethod
     def _device(tensors, n_pad, n_src_pad, straggler, walk):

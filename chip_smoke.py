@@ -134,6 +134,17 @@ def strip_floor(lay, f, nnz, clock_mhz):
     return nbytes / (132 * 128 * clock_mhz * 1e6) * 1e3, nbytes
 
 
+def walk_bound(lay, f, nnz, h_rows):
+    """The bound of the window-stationary kernel on a tile layout's walk
+    and bf16 h [., f]: the bytes it must move (the walk arrays, the
+    ``h_rows`` source rows its ``nnz`` edges read, the output once) over the
+    memory rate, or its 2 nnz f operations over the bf16 rate, whichever is
+    longer. Returns (ms, what bounds it, bytes, operations)."""
+    nbytes = lay.walk.nbytes + h_rows * f * 2 + lay.n_pad * f * 2
+    flops = 2.0 * nnz * f
+    return (*_bound(nbytes, flops, PEAK_BF16_FLOP_S), nbytes, flops)
+
+
 # SASS opcodes by the pipe that issues them on Hopper, with its rate a clock
 # per SM: the integer pipe (64), the conversion and special-function units
 # (16), the f32 pipe (128). Anything else (loads, stores, branches, moves)
@@ -483,14 +494,10 @@ def phase_time(torch, trainer, card):
         plain_ms = cuda_ms(torch, lambda: ss._run_strip_torch(fl, h), reps=2, warmup=1)
         # the library yardstick on the same edges; the port never calls it
         csr, nnz = tile_csr(torch, fl, torch.bfloat16)
+        h_rows = int(torch.unique(csr.col_indices()).numel())
         lib_ms = cuda_ms(torch, lambda: torch.sparse.mm(csr, h), reps=10)
         del csr
-        nbytes = (t * 256 * 128 * 2 + t * 4 + fl.blk_ptr.numel() * 4
-                  + fl.n_src_pad * f * 2 + fl.n_pad * f * 2)
-        flops = 2.0 * nnz * f
-        bytes_ms, ops_ms = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_BF16_FLOP_S * 1e3
-        bound_ms = max(bytes_ms, ops_ms)
-        bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+        bound_ms, bound_by, nbytes, flops = walk_bound(fl, f, nnz, h_rows)
         floor_ms, floor_bytes = strip_floor(fl, f, nnz, clock[1])
         say(f"[time] {card} | fwd_local F={f}: tiles {t}, tile edges {nnz}")
         say(f"[time] {card} | kernel {ms:.3f} ms; bound {bound_ms:.3f} ms by {bound_by} "
@@ -1755,19 +1762,8 @@ def phase_time_agg(torch, card, runs):
             w.launches = saved
             plain_ms = cuda_ms(torch, lambda: plain(lay, h), reps=2, warmup=1)
             lib_ms = cuda_ms(torch, lambda: torch.sparse.mm(csr, h), reps=20)
-            # each input once (masks, index arrays, the h rows the edges
-            # read), the output once
-            ptr = lay.item_ptr if impl == "compact" else lay.blk_ptr
-            units = int(ptr[-1])
-            idx_bytes = units * 4 + ptr.numel() * 4  # src_start, pointers
-            if impl == "compact":  # kind, nsub, dst_off; col_idx of the groups
-                groups = int((lay.kind[:units] == 1).sum())
-                idx_bytes += units * (2 * 4 + 8 * 4) + groups * 2048 * 4
-            nbytes = units * 256 * 128 * 2 + idx_bytes + h_rows * f * 2 + lay.n_pad * f * 2
-            flops = 2.0 * nnz * f
-            bytes_ms, ops_ms = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_BF16_FLOP_S * 1e3
-            bound_ms = max(bytes_ms, ops_ms)
-            bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+            units = int((lay.item_ptr if impl == "compact" else lay.blk_ptr)[-1])
+            bound_ms, bound_by, nbytes, flops = walk_bound(lay, f, nnz, h_rows)
             say(f"[time] {card} | {name} products forward local F={f} bf16: {units} "
                 f"{'items' if impl == 'compact' else 'tiles'}, {nnz} covered edges, "
                 f"{h_rows} source rows read")

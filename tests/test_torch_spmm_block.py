@@ -270,7 +270,9 @@ def test_shards_carry_each_shards_walk():
     _, lay = _partitioned(3)
     shards = build_block_shards(lay, min_edges=4)
     assert all(d.walk is None for d in shards.to("cpu").devices(1))  # built on a card only
-    for built in (shards.with_walks(), shards.select(1).with_walks()):
+    # stacked, one kept after or before the build
+    for built in (shards.with_walks(), shards.with_walks().select(1),
+                  shards.select(1).with_walks()):
         for d in built.devices(1):
             want = tblock.strip_walk(d.masks, d.src_start, d.blk_ptr)
             assert d.walk.cols.data_ptr() % 16 == 0

@@ -298,7 +298,9 @@ def test_shards_carry_each_shards_walk():
     lay = build_layout(g, partition_graph(g, 3, "ldg"), GNNType.GCN, pad_multiple=2048)
     shards = build_compact_shards(lay, me_ell=200, full_cols=100)
     assert all(d.walk is None for d in shards.to("cpu").devices(1))  # built on a card only
-    for built in (shards.with_walks(), shards.select(1).with_walks()):
+    # stacked, one kept after or before the build
+    for built in (shards.with_walks(), shards.with_walks().select(1),
+                  shards.select(1).with_walks()):
         for d in built.devices(1):
             want = tc.compact_walk(d.kind, d.masks, d.col_idx, d.src_start, d.dst_off,
                                    d.item_ptr)
