@@ -29,29 +29,41 @@ over the plan's own ``send_idx``/``recv_slot`` (:func:`uniform_buckets`),
 whose padding lanes scatter into row 0, as in JAX: what they add there is
 the zero row their sentinel slot gathers, so row 0 keeps its value.
 
-The wire of one quantized bucket: each lane's codes, column-packed
-(``ops/quant.py::pack_rows``, ``pad_features(f_true) * bits / 8`` bytes),
-then its bf16 (scale, rmin) pair as 4 bytes: one uint8 ``[K, cap, bytes +
-4]`` tensor, so that one collective carries a bucket (JAX ships the codes
-and the bf16 pairs as two tensors; gloo carries uint8 and bf16 alike, and
-one tensor halves the collectives). The sender quantizes with the f32
-scale, the receiver dequantizes with the bf16 pair, as in JAX. Raw f32
-lanes (``exchange_fp``) ship the rows as they are.
+The wire of one quantized bucket: each lane's frame, its codes
+column-packed (``ops/quant.py::pack_rows``, ``pad_features(f_true) * bits
+/ 8`` bytes), then its bf16 (scale, rmin) pair as 4 bytes: a uint8 ``[K,
+cap, bytes + 4]`` slice, so that one collective carries a bucket (JAX
+ships the codes and the bf16 pairs as two tensors; gloo carries uint8 and
+bf16 alike, and one tensor halves the collectives). The sender quantizes
+with the f32 scale, the receiver dequantizes with the bf16 pair, as in
+JAX. Raw f32 lanes (``exchange_fp``) ship the rows as they are.
 
 The generator key of bucket ``i`` is ``stream_key(key, i)`` (JAX folds
 the bucket index into its key); the uniform of a lane is drawn at its row
 of the ``[K * cap, F]`` batch, so the lanes to different peers draw
 independently.
 
-:func:`padded_start` gathers, quantizes and starts each bucket's
-all-to-all without waiting; :func:`padded_finish` waits and places the
-rows inside ``_PaddedExchange``, a ``torch.autograd.Function`` whose
-backward is the transpose routing: each rank gathers the gradient of its
-halo slots, quantizes it with the backward key (every column live: hidden
-layers only), ships it back to the owners, and adds it into their rows.
-The sink's gradient is the backward variance trace, per halo slot, of the
-unquantized gradient rows. The overlapped modes start the exchange, run
-the local aggregation and then finish; the serial modes finish first
+A quantized direction runs on lane tables (:class:`PaddedWire`, one
+``ops/quant_cuda.py::Frames`` a direction, built once an assignment by
+:func:`padded_wire`): the buckets' slices lie back to back in one uint8
+buffer a direction. One launch of the ``quant_rows`` kernel
+(``quant_frames``) gathers every lane's source row, quantizes it and
+writes its frame into the send buffer; each bucket's all-to-all ships its
+own slice; once they have landed, one launch of the ``dequant_rows``
+kernel (``dequant_frames``) stores every lane's row at its halo slot, or
+adds it into its owner's row, and drops the sentinel lanes. The f32
+exchange keeps its per-bucket gather, all-to-all and placement.
+
+:func:`quant_start` (:func:`padded_start` for the f32 exchange) quantizes
+and starts the all-to-alls without waiting; :func:`padded_finish` waits
+and places the rows inside ``_PaddedExchange``, a
+``torch.autograd.Function`` whose backward is the transpose routing: each
+rank quantizes the gradient of its halo slots with the backward key (every
+column live: hidden layers only), ships it back to the owners, and adds it
+into their rows. The sink's gradient is the backward variance trace, per
+halo slot, of the unquantized gradient rows (from the send kernel's
+ranges). The overlapped modes start the exchange, run the local
+aggregation and then finish; the serial modes finish first
 (``ops/dist_ops.py``).
 """
 from __future__ import annotations
@@ -62,8 +74,7 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-from ..ops.quant import pack_rows, pad_features, to_width, true_columns, unpack_rows
-from ..ops.quant_cuda import dequant_rows, quant_rows, stream_key
+from ..ops.quant_cuda import Frames, dequant_frames, make_frames, quant_frames, stream_key
 
 FP_BITS = 32  # a bucket of raw f32 lanes
 
@@ -92,12 +103,14 @@ def range_proxy(d: torch.Tensor, num_feats: int) -> torch.Tensor:
     return (num_feats / 6.0) * d ** 2
 
 
-def padded_all_to_all(x: torch.Tensor, async_op: bool = False
+def padded_all_to_all(x: torch.Tensor, async_op: bool = False,
+                      out: Optional[torch.Tensor] = None
                       ) -> Tuple[torch.Tensor, Optional[dist.Work]]:
     """Chunk ``j`` of ``x`` [K, ...] to rank ``j``; chunk ``j`` of the
-    result from rank ``j``. Returns ``(out, work)``; with ``async_op`` the
-    caller waits on ``work`` before reading ``out``."""
-    out = torch.empty_like(x)
+    result (``out``, or a new tensor like ``x``) from rank ``j``. Returns
+    ``(out, work)``; with ``async_op`` the caller waits on ``work`` before
+    reading ``out``."""
+    out = torch.empty_like(x) if out is None else out
     return out, dist.all_to_all_single(out, x.contiguous(), async_op=async_op)
 
 
@@ -108,107 +121,158 @@ def uniform_buckets(send_idx: torch.Tensor, recv_slot: torch.Tensor, bits: int):
     return (bits,), ((send_idx, recv_slot, recv_slot, send_idx),)
 
 
-def _quant_lanes(rows: torch.Tensor, bits: int, key: int, f_true: Optional[int] = None
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """rows [K, cap, F] -> (wire uint8 [K, cap, F_wire * bits / 8], params
-    bf16 [K, cap, 2] = (scale, rmin)) with ``F_wire = pad_features(f_true)``:
-    the ``quant_rows`` kernel, then ``pack_rows``."""
-    k, cap, f = rows.shape
-    ft = f if f_true is None else f_true
-    q, scale, rmin = quant_rows(rows.reshape(k * cap, f), bits, ft, key)
-    wire = pack_rows(to_width(q, pad_features(ft)), bits)
-    params = torch.stack([scale, rmin], dim=-1).to(torch.bfloat16)
-    return wire.reshape(k, cap, -1), params.reshape(k, cap, 2)
+@dataclasses.dataclass
+class PaddedWire:
+    """One layer's quantized padded exchange on one rank: the lane tables
+    of its forward direction (``f_true`` columns, ``send_idx`` to
+    ``recv_slot``) and of its backward (every column, ``gather_slot`` to
+    ``scatter_idx``)."""
+
+    fwd: Frames
+    bwd: Frames
 
 
-def _dequant_lanes(wire: torch.Tensor, params: torch.Tensor, bits: int, f: int,
-                   f_true: Optional[int] = None) -> torch.Tensor:
-    """(wire [K, cap, bytes], bf16 params [K, cap, 2]) -> f32 rows
-    [K, cap, f]: ``unpack_rows``, the ``dequant_rows`` kernel with the bf16
-    pair widened to f32, columns ``>= f_true`` zeroed, padded to ``f``."""
-    k, cap, _ = wire.shape
-    ft = f if f_true is None else f_true
-    f_wire = pad_features(ft)
-    q = unpack_rows(wire.reshape(k * cap, -1), bits, f_wire).contiguous()
-    p = params.reshape(k * cap, 2).float()
-    x = dequant_rows(q, p[:, 0].contiguous(), p[:, 1].contiguous())
-    return true_columns(x, ft, f).reshape(k, cap, f)
+def padded_wire(buckets, f_true: int, f: int) -> PaddedWire:
+    """A layer's buckets ``(bits, quads)`` of ``[K, cap]`` index arrays ->
+    its lane tables for rows of ``f`` columns, ``f_true`` of them true."""
+    bits, arrays = buckets
+    if any(b not in (2, 4, 8) for b in bits):
+        raise ValueError(f"bucket widths {bits}: the quantized wire takes 2, 4 and 8 bits")
+    col = lambda j: [quad[j] for quad in arrays]
+    return PaddedWire(make_frames(bits, col(0), col(1), f_true),
+                      make_frames(bits, col(2), col(3), f))
 
 
-def _frame(wire: torch.Tensor, params: torch.Tensor) -> torch.Tensor:
-    """One uint8 [K, cap, bytes + 4] tensor: each lane's codes, then its
-    bf16 pair's 4 bytes."""
-    return torch.cat([wire, params.contiguous().view(torch.uint8)], dim=-1)
-
-
-def _unframe(buf: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    return buf[..., :-4], buf[..., -4:].contiguous().view(torch.bfloat16)
+def _ship_frames(buf: torch.Tensor, fr: Frames) -> Tuple[torch.Tensor, List[dist.Work]]:
+    """Each bucket's slice of a send buffer to its peers, without waiting:
+    the receive buffer and the all-to-alls in flight."""
+    recv = torch.empty_like(buf)
+    works = [padded_all_to_all(s, True, r)[1]
+             for s, r in zip(fr.views(buf), fr.views(recv)) if s.numel()]
+    return recv, works
 
 
 @dataclasses.dataclass
 class _Shipped:
-    """One bucket in flight."""
+    """One f32 bucket in flight."""
 
-    bits: int
     dest: torch.Tensor  # [K * cap] destination rows (sentinels included)
     out: torch.Tensor
     work: Optional[dist.Work]
     sendbuf: torch.Tensor  # kept alive until the transfer is done
 
 
-def _ship(rows: torch.Tensor, bits: int, key: int, f_true: int, dest: torch.Tensor,
-          async_op: bool) -> _Shipped:
-    """Quantize one bucket's lane rows [K, cap, F] (raw f32 for FP_BITS)
-    and start its all-to-all."""
-    if bits == FP_BITS:
-        buf = rows.float().contiguous()
-    else:
-        buf = _frame(*_quant_lanes(rows, bits, key, f_true))
+def _ship(rows: torch.Tensor, dest: torch.Tensor, async_op: bool) -> _Shipped:
+    """Start one f32 bucket's all-to-all of its lane rows [K, cap, F]."""
+    buf = rows.float().contiguous()
     out, work = padded_all_to_all(buf, async_op)
-    return _Shipped(bits, dest.reshape(-1), out, work, buf)
+    return _Shipped(dest.reshape(-1), out, work, buf)
 
 
-def _land(s: _Shipped, f: int, f_true: int) -> torch.Tensor:
-    """Wait for a shipped bucket: its received rows, f32 [K * cap, f]."""
+def _land(s: _Shipped, f: int) -> torch.Tensor:
+    """Wait for a shipped f32 bucket: its received rows, f32 [K * cap, f]."""
     if s.work is not None:
         s.work.wait()
-    if s.bits == FP_BITS:
-        return s.out.reshape(-1, f)
-    wire, params = _unframe(s.out)
-    return _dequant_lanes(wire, params, s.bits, f, f_true).reshape(-1, f)
+    return s.out.reshape(-1, f)
 
 
 @dataclasses.dataclass
 class PaddedPending:
-    """A started padded exchange and what its backward needs."""
+    """A started f32 padded exchange and what its backward needs."""
 
     buckets: Tuple[Tuple[int, ...], Tuple[Quad, ...]]
     shipped: List[_Shipped]
     r_pad: int
     f: int
-    f_true: int
     device: torch.device
 
     def finish(self) -> torch.Tensor:
         """Remote rows f32 [r_pad, F]; slots no lane fills stay zero."""
         remote = torch.zeros((self.r_pad + 1, self.f), dtype=torch.float32, device=self.device)
         for s in self.shipped:
-            remote[s.dest] = _land(s, self.f, self.f_true)
+            remote[s.dest] = _land(s, self.f)
         return remote[: self.r_pad]
+
+    def backward(self, g: torch.Tensor, key: int, l: int, want_trace: bool):
+        """The transpose routing of ``g`` [r_pad, F]: (the owners' rows'
+        gradient f32 [l, F], the backward trace [r_pad] or None)."""
+        f, dev = self.f, g.device
+        g_pad = torch.cat([g.float(), g.new_zeros((1, f), dtype=torch.float32)])
+        trace = torch.zeros(self.r_pad + 1, dtype=torch.float32, device=dev) if want_trace else None
+        shipped = []
+        for _, _, gather_slot, scatter_idx in self.buckets[1]:
+            back = g_pad[gather_slot]  # [K, cap, F]; sentinel slots read zeros
+            if want_trace:
+                trace[gather_slot.reshape(-1)] = variance_proxy(back, f).reshape(-1)
+            shipped.append(_ship(back, scatter_idx, True))
+        ct = torch.zeros((l + 1, f), dtype=torch.float32, device=dev)
+        for s in shipped:
+            ct.index_add_(0, s.dest, _land(s, f))
+        return ct[:l], (trace[: self.r_pad] if want_trace else None)
+
+
+@dataclasses.dataclass
+class QuantPending:
+    """A started quantized padded exchange: the forward's buffers in
+    flight, and the lane tables its backward runs on."""
+
+    wire: PaddedWire
+    sendbuf: torch.Tensor  # kept alive until the transfers are done
+    recvbuf: torch.Tensor
+    works: List[dist.Work]
+    r_pad: int
+    f: int
+
+    def finish(self) -> torch.Tensor:
+        """Remote rows f32 [r_pad, F]; slots no lane fills stay zero."""
+        for w in self.works:
+            w.wait()
+        remote = torch.zeros((self.r_pad, self.f), dtype=torch.float32,
+                             device=self.recvbuf.device)
+        return dequant_frames(self.recvbuf, self.wire.fwd, remote)
+
+    def backward(self, g: torch.Tensor, key: int, l: int, want_trace: bool):
+        """As :meth:`PaddedPending.backward`, quantized with ``key``."""
+        fr = self.wire.bwd
+        keys = [stream_key(key, i) for i in range(len(fr.bits))]
+        send, rng = quant_frames(g, fr, keys, with_range=want_trace)
+        recv, works = _ship_frames(send, fr)
+        for w in works:
+            w.wait()
+        ct = torch.zeros((l, self.f), dtype=torch.float32, device=g.device)
+        return (dequant_frames(recv, fr, ct, add=True),
+                range_proxy(rng, fr.f_true) if want_trace else None)
 
 
 def padded_start(h: torch.Tensor, buckets, r_pad: int, key: int = 0,
-                 f_true: Optional[int] = None) -> PaddedPending:
-    """Gather each bucket's lanes of ``h`` [L, F], quantize them with the
-    key ``stream_key(key, i)`` of bucket ``i`` and start their all-to-alls
-    without waiting."""
+                 f_true: Optional[int] = None):
+    """Start a padded exchange of ``h`` [L, F] without waiting: f32
+    buckets (``FP_BITS``) ship each bucket's gathered rows; quantized ones
+    go through :func:`quant_start` on their lane tables, bucket ``i`` with
+    the key ``stream_key(key, i)``."""
     f = h.shape[1]
     ft = f if f_true is None else f_true
     bits, arrays = buckets
+    if any(b != FP_BITS for b in bits):
+        return quant_start(h, padded_wire(buckets, ft, f), r_pad, key, ft)
     with torch.no_grad():
-        shipped = [_ship(h[send_idx], b, stream_key(key, i), ft, recv_slot, True)
-                   for i, (b, (send_idx, recv_slot, _, _)) in enumerate(zip(bits, arrays))]
-    return PaddedPending(buckets, shipped, r_pad, f, ft, h.device)
+        shipped = [_ship(h[send_idx], recv_slot, True) for send_idx, recv_slot, _, _ in arrays]
+    return PaddedPending(buckets, shipped, r_pad, f, h.device)
+
+
+def quant_start(h: torch.Tensor, wire: PaddedWire, r_pad: int, key: int,
+                f_true: int) -> QuantPending:
+    """Quantize every lane of ``h`` [L, F] into one send buffer (one
+    ``quant_rows`` launch) and start each bucket's all-to-all without
+    waiting."""
+    if wire.fwd.f_true != f_true or wire.bwd.f_true != h.shape[1]:
+        raise ValueError(f"lane tables for {wire.fwd.f_true} / {wire.bwd.f_true} columns, rows "
+                         f"of {f_true} true / {h.shape[1]} columns")
+    keys = [stream_key(key, i) for i in range(len(wire.fwd.bits))]
+    with torch.no_grad():
+        send, _ = quant_frames(h, wire.fwd, keys)
+        recv, works = _ship_frames(send, wire.fwd)
+    return QuantPending(wire, send, recv, works, r_pad, h.shape[1])
 
 
 class _PaddedExchange(torch.autograd.Function):
@@ -216,36 +280,24 @@ class _PaddedExchange(torch.autograd.Function):
     routing over the same buckets."""
 
     @staticmethod
-    def forward(ctx, h, sink, pending: PaddedPending, key_bwd: int):
+    def forward(ctx, h, sink, pending, key_bwd: int):
         ctx.pending, ctx.key, ctx.shape, ctx.h_dtype = pending, key_bwd, h.shape, h.dtype
         return pending.finish()
 
     @staticmethod
     def backward(ctx, g):
-        p: PaddedPending = ctx.pending
-        (l, f), dev = ctx.shape, g.device
         want_trace = ctx.needs_input_grad[1]
-        g_pad = torch.cat([g.float(), g.new_zeros((1, f), dtype=torch.float32)])
-        trace = torch.zeros(p.r_pad + 1, dtype=torch.float32, device=dev) if want_trace else None
-        bits, arrays = p.buckets
-        shipped = []
-        for i, (b, (_, _, gather_slot, scatter_idx)) in enumerate(zip(bits, arrays)):
-            back = g_pad[gather_slot]  # [K, cap, F]; sentinel slots read zeros
-            if want_trace:
-                trace[gather_slot.reshape(-1)] = variance_proxy(back, f).reshape(-1)
-            shipped.append(_ship(back, b, stream_key(ctx.key, i), f, scatter_idx, True))
-        ct = torch.zeros((l + 1, f), dtype=torch.float32, device=dev)
-        for s in shipped:
-            ct.index_add_(0, s.dest, _land(s, f, f))
-        gh = ct[:l].to(ctx.h_dtype) if ctx.needs_input_grad[0] else None
-        return gh, (trace[: p.r_pad] if want_trace else None), None, None
+        ct, trace = ctx.pending.backward(g, ctx.key, ctx.shape[0], want_trace)
+        gh = ct.to(ctx.h_dtype) if ctx.needs_input_grad[0] else None
+        return gh, trace, None, None
 
 
-def padded_finish(h: torch.Tensor, sink: Optional[torch.Tensor], pending: PaddedPending,
+def padded_finish(h: torch.Tensor, sink: Optional[torch.Tensor], pending,
                   key_bwd: int = 0) -> torch.Tensor:
-    """Wait for a started padded exchange: remote rows f32 ``[r_pad, F]``.
-    Gradients flow to ``h`` and the backward trace to ``sink`` (a
-    ``[r_pad]`` leaf, or None)."""
+    """Wait for a started padded exchange (``PaddedPending`` or
+    ``QuantPending``): remote rows f32 ``[r_pad, F]``. Gradients flow to
+    ``h`` and the backward trace to ``sink`` (a ``[r_pad]`` leaf, or
+    None)."""
     return _PaddedExchange.apply(h, sink, pending, key_bwd)
 
 

@@ -7,7 +7,6 @@
 // numbers in PyTorch, so the plain versions draw the same codes.
 #pragma once
 
-#include <stddef.h>
 #include <stdint.h>
 
 namespace adaqp {
@@ -21,19 +20,23 @@ __device__ __forceinline__ uint32_t mix32(uint32_t x) {
   return x;
 }
 
-__device__ __forceinline__ float uniform(uint32_t key, uint32_t row, uint32_t col) {
-  const uint32_t h = mix32(mix32(key ^ row) ^ col);
-  return __uint2float_rn(h & 0xFFFFFFu) * 5.9604644775390625e-8f;  // 2^-24, exact
+// The row's half of the hash of element (row, c): hrow = mix32(key ^ row)
+// with the first xor-shift of the second mix32 folded in, h2 = hrow ^ (hrow
+// >> 16), which equals the xor-shift of hrow ^ c for every c < 2^16.
+__device__ __forceinline__ uint32_t row_hash(uint32_t key, uint32_t row) {
+  const uint32_t h = mix32(key ^ row);
+  return h ^ (h >> 16);
 }
 
-// element i of a row-major f32 (kBf16 = false) or bf16 array, as f32
-template <bool kBf16>
-__device__ __forceinline__ float load(const void* x, size_t i) {
-  if constexpr (kBf16) {
-    return __uint_as_float(static_cast<uint32_t>(static_cast<const uint16_t*>(x)[i]) << 16);
-  } else {
-    return static_cast<const float*>(x)[i];
-  }
+// y + u(key, row, c), rounded once, from h2 = row_hash(key, row) and a
+// column c < 2^16: u = (h & 0xFFFFFF) * 2^-24 is exact, so the fma rounds
+// once, as the plain version's y + u does.
+__device__ __forceinline__ float add_uniform(float y, uint32_t h2, uint32_t c) {
+  uint32_t h = (h2 ^ c) * 0x7feb352du;
+  h ^= h >> 15;
+  h *= 0x846ca68bu;
+  h ^= h >> 16;
+  return __fmaf_rn(__uint2float_rn(h & 0xFFFFFFu), 5.9604644775390625e-8f, y);
 }
 
 }  // namespace adaqp

@@ -73,10 +73,14 @@
 #include <stdint.h>
 
 #include "counter_hash.cuh"
+#include "lane_rows.cuh"
 
 namespace {
 
-using adaqp::mix32;
+using adaqp::add_uniform;
+using adaqp::put4;
+using adaqp::row_hash;
+using adaqp::stage_row;
 
 constexpr int kMaxBuckets = 4;
 constexpr int kThreads = 256;  // 8 warps, one lane (row) each
@@ -88,73 +92,13 @@ struct Buckets {
   uint32_t key[kMaxBuckets];
 };
 
-// One 16-byte chunk v of a row into `row` as f32, with min and max over
-// columns < f_true
-template <bool kBf16>
-__device__ __forceinline__ void put_chunk(uint4 u, int v, int f_true, float* __restrict__ row,
-                                          float& lo, float& hi) {
-  constexpr int kPer = kBf16 ? 8 : 4;
-  float e[kPer];
-  if constexpr (kBf16) {
-    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      e[2 * k] = __uint_as_float(w[k] << 16);
-      e[2 * k + 1] = __uint_as_float(w[k] & 0xFFFF0000u);
-    }
-  } else {
-    e[0] = __uint_as_float(u.x);
-    e[1] = __uint_as_float(u.y);
-    e[2] = __uint_as_float(u.z);
-    e[3] = __uint_as_float(u.w);
-  }
-  const int c0 = v * kPer;
-#pragma unroll
-  for (int k = 0; k < kPer; k += 4) {
-    *reinterpret_cast<float4*>(row + c0 + k) = make_float4(e[k], e[k + 1], e[k + 2], e[k + 3]);
-  }
-  const bool inside = c0 + kPer <= f_true;
-#pragma unroll
-  for (int k = 0; k < kPer; ++k) {
-    if (inside || c0 + k < f_true) {
-      lo = fminf(lo, e[k]);
-      hi = fmaxf(hi, e[k]);
-    }
-  }
-}
-
-// Copies row r of x [n, f] into `row` as f32 (16-byte loads where the row's
-// address allows, then scalar ones); returns this lane's min and max over
-// columns < f_true (reduced over the warp by the caller).
-template <bool kBf16>
-__device__ __forceinline__ void stage_row(const void* __restrict__ x, int64_t r, int f,
-                                          int f_true, float* __restrict__ row, int lane,
-                                          float& lo, float& hi) {
-  constexpr int kEs = kBf16 ? 2 : 4;
-  constexpr int kPer = 16 / kEs;  // elements a 16-byte load
-  const char* base = static_cast<const char*>(x) + r * f * kEs;
-  const int nvec = (reinterpret_cast<uintptr_t>(base) & 15) == 0 ? f / kPer : 0;
-  for (int v = lane; v < nvec; v += 32) {
-    put_chunk<kBf16>(__ldg(reinterpret_cast<const uint4*>(base) + v), v, f_true, row, lo, hi);
-  }
-  for (int c = nvec * kPer + lane; c < f; c += 32) {
-    const float e = adaqp::load<kBf16>(x, static_cast<size_t>(r) * f + c);
-    row[c] = e;
-    if (c < f_true) {
-      lo = fminf(lo, e);
-      hi = fmaxf(hi, e);
-    }
-  }
-}
-
 // Words j = lane, lane + 32, ... < wpr of one lane at kBits bits from its
 // row in shared memory: the codes of columns c = t * wpr + j (t < 32 /
 // kBits), code 0 past f unless kFull (every wire column lies in the row).
-// The uniform of column c is counter_hash.cuh's uniform(key, i, c), the low
-// 24 bits of mix32(hrow ^ c) times 2^-24 with hrow = mix32(key ^ i); with
-// c < 2^16 the first xor-shift of mix32 folds into h2 = hrow ^ (hrow >>
-// 16), so that it costs one xor here. The float clamp before the round-down conversion
-// gives the codes of the plain version's clamp after floor().
+// The uniform of column c comes from counter_hash.cuh's add_uniform with
+// h2 = row_hash(key, i) (c < 2^16: the hash's first xor-shift costs one xor
+// here). The float clamp before the round-down conversion gives the codes
+// of the plain version's clamp after floor().
 template <int kBits, bool kFull>
 __device__ __forceinline__ void pack_words(const float* __restrict__ row, int f, int wpr,
                                            float lo, float s, uint32_t h2,
@@ -168,12 +112,7 @@ __device__ __forceinline__ void pack_words(const float* __restrict__ row, int f,
       const int c = j + t * wpr;
       if (kFull || c < f) {
         const float y = __fmul_rn(__fsub_rn(row[c], lo), s);
-        uint32_t h = (h2 ^ static_cast<uint32_t>(c)) * 0x7feb352du;
-        h ^= h >> 15;
-        h *= 0x846ca68bu;
-        h ^= h >> 16;
-        // y + u with u = (h & 0xFFFFFF) * 2^-24 exact: one rounding either way
-        const float v = __fmaf_rn(__uint2float_rn(h & 0xFFFFFFu), 5.9604644775390625e-8f, y);
+        const float v = add_uniform(y, h2, static_cast<uint32_t>(c));
         w += static_cast<uint32_t>(__float2int_rd(fminf(fmaxf(v, 0.f), kQmax))) << (t * kBits);
       }
     }
@@ -222,8 +161,7 @@ pack_lanes_kernel(const void* __restrict__ x, int n_lanes, int f, int f_true, Bu
   }
   const float s = __fdiv_rn(static_cast<float>((1 << bits) - 1),
                             fmaxf(__fsub_rn(hi, lo), 1e-10f));
-  const uint32_t hrow = mix32(bk.key[b] ^ static_cast<uint32_t>(tables ? index[l] : l));
-  const uint32_t h2 = hrow ^ (hrow >> 16);  // mix32's first step, c < 2^16 aside
+  const uint32_t h2 = row_hash(bk.key[b], static_cast<uint32_t>(tables ? index[l] : l));
   uint32_t* out = words + wo;
   const bool full = wpr * (32 / bits) <= f;  // every wire column lies in the row
   switch (bits * 2 + full) {
@@ -243,30 +181,6 @@ pack_lanes_kernel(const void* __restrict__ x, int n_lanes, int f, int f_true, Bu
     if (scale_out != nullptr) {
       scale_out[l] = s;
       rmin_out[l] = lo;
-    }
-  }
-}
-
-// Stores 4 neighbouring columns c0.. of an output row: one 16-byte store
-// (kVec: f_pad is a multiple of 4, so rows start on 16 bytes) or scalar
-// stores up to f_pad; kAdd adds them instead (atomics).
-template <bool kVec, bool kAdd>
-__device__ __forceinline__ void put4(float* __restrict__ orow, int c0, int f_pad,
-                                     const float (&v)[4]) {
-  if constexpr (kVec) {
-    const float4 x = make_float4(v[0], v[1], v[2], v[3]);
-    if constexpr (kAdd) {
-      atomicAdd(reinterpret_cast<float4*>(orow + c0), x);
-    } else {
-      *reinterpret_cast<float4*>(orow + c0) = x;
-    }
-  } else {
-    for (int e = 0; e < 4 && c0 + e < f_pad; ++e) {
-      if constexpr (kAdd) {
-        atomicAdd(orow + c0 + e, v[e]);
-      } else {
-        orow[c0 + e] = v[e];
-      }
     }
   }
 }

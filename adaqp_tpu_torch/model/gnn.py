@@ -85,14 +85,14 @@ def apply_gnn(
     wires: Optional[Sequence] = None,
     keys: Optional[Sequence[Tuple[int, int]]] = None,
     sinks: Optional[Sequence[Optional[torch.Tensor]]] = None,
-    buckets: Optional[Sequence] = None,
+    padded: Optional[Sequence] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Forward pass for one partition.
 
     ``dropout_gen`` draws the dropout masks (train mode with dropout > 0).
     At K>1, per layer, on the wire ``cfg.wire``: ``wires[i]`` the ragged
-    ``(fwd, bwd)`` wire plans, or ``buckets[i]`` the padded wire's buckets
-    (quantized training; None for the f32 exchange); ``keys[i]`` the (forward,
+    ``(fwd, bwd)`` wire plans, or ``padded[i]`` the padded wire's lane
+    tables (quantized training; None for the f32 exchange); ``keys[i]`` the (forward,
     backward) generator keys of the quantized buckets, ``sinks[i]`` a
     ``[r_pad]`` leaf for the backward variance trace or None.
     Returns (logits [L, classes] f32, fwd_traces [num_layers, K, S])."""
@@ -111,7 +111,7 @@ def apply_gnn(
             wire=None if wires is None else wires[i],
             keys=(0, 0) if keys is None else keys[i],
             sink=None if sinks is None else sinks[i],
-            buckets=None if buckets is None else buckets[i],
+            padded=None if padded is None else padded[i],
         )
         if dt is not None:
             agg = agg.to(dt)

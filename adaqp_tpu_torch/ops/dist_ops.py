@@ -9,9 +9,9 @@ boundary exchange on the run's wire (``wire_impl``):
 - ragged (``comm/exchange_ragged.py``): the caller passes the layer's wire
   plan, the fp wire (Vanilla, AdaQP-p, and evaluation in every mode) or
   the quantized one (AdaQP, AdaQP-q in training);
-- padded (``comm/exchange.py``): the caller passes the layer's buckets in
-  quantized training (``exchange_quant``), and None otherwise: the f32
-  exchange runs over the plan's ``send_idx``/``recv_slot``
+- padded (``comm/exchange.py``): the caller passes the layer's lane
+  tables (``PaddedWire``) in quantized training, and None otherwise: the
+  f32 exchange runs over the plan's ``send_idx``/``recv_slot``
   (``exchange_fp``), as in the JAX package's ``dist_ops.py:150-172``.
 
 The schedule follows the run mode (reference ``ops.py:132-193``):
@@ -43,7 +43,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..comm.exchange import FP_BITS, padded_finish, padded_start, uniform_buckets, variance_proxy
+from ..comm.exchange import (FP_BITS, padded_finish, padded_start, quant_start, uniform_buckets,
+                             variance_proxy)
 from ..comm.exchange_ragged import exchange_finish, exchange_start
 from ..common.types import AggregatorType, GNNType
 from ..graph.device import ShardArrays, ShardStatic, agg_torch_dtype
@@ -106,7 +107,7 @@ def dist_aggregate(
     wire=None,
     keys: Tuple[int, int] = (0, 0),
     sink: Optional[torch.Tensor] = None,
-    buckets=None,
+    padded=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Aggregate one partition's rows ``h`` [L, F] over the graph.
 
@@ -114,8 +115,9 @@ def dist_aggregate(
     for the segment sum over ``sh``'s edge lists. At K>1, the exchange on
     the wire ``cfg.wire``: ragged, ``wire`` this layer's ``(fwd, bwd)``
     pair of :class:`~adaqp_tpu_torch.comm.wire.LocalWire` (bwd None for
-    layer 0); padded, ``buckets`` this layer's buckets of quantized
-    training, or None for the f32 exchange. ``keys`` are the
+    layer 0); padded, ``padded`` this layer's lane tables
+    (``comm/exchange.py::PaddedWire``) in quantized training, or None for
+    the f32 exchange. ``keys`` are the
     (forward, backward) generator keys of the quantized buckets, and
     ``sink`` a ``[r_pad]`` leaf whose gradient becomes the backward
     variance trace (or None).
@@ -139,9 +141,11 @@ def dist_aggregate(
         def finish():
             return exchange_finish(h, sink, pending, wbwd, keys[1])
     elif cfg.wire == "padded":
-        if buckets is None:  # the f32 exchange over the plan
-            buckets = uniform_buckets(sh.send_idx, sh.recv_slot, FP_BITS)
-        pending = padded_start(h, buckets, cfg.r_pad, keys[0], ft)
+        if padded is None:  # the f32 exchange over the plan
+            pending = padded_start(h, uniform_buckets(sh.send_idx, sh.recv_slot, FP_BITS),
+                                   cfg.r_pad)
+        else:
+            pending = quant_start(h, padded, cfg.r_pad, keys[0], ft)
 
         def finish():
             return padded_finish(h, sink, pending, keys[1])

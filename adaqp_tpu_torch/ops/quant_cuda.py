@@ -17,14 +17,28 @@ tables (:class:`Lanes`) come from ``comm/wire.py``. :func:`quant_pack` and
 and launch the same two kernels. ``_pack_lanes_torch`` and
 ``_unpack_lanes_torch`` are the plain versions: the gather, the per-bucket
 ``_quant_pack_torch`` / ``dequantize_words`` and the placement, driven by
-the same tables. The padded dense wire's pair: ``quant_rows``
-replaces ``_quant_kernel`` (rows -> u8 codes, one per column, with the
-per-row scale and rmin) and ``dequant_rows`` replaces ``_dequant_kernel``
-(u8 codes -> f32 rows), both in ``csrc/quant_rows.cu``. All four are CUDA
-C++ for ``sm_90a``, built with ``nvcc`` at first use and loaded with
-``ctypes``. Each wrapper launches its kernel on a CUDA tensor (and adds one
-to its ``launches`` count), runs the plain PyTorch version on a CPU tensor,
-and raises on anything else; nothing falls back from one to the other.
+the same tables. The padded dense wire's pair, both in
+``csrc/quant_rows.cu``: the ``quant_rows`` kernel replaces
+``_quant_kernel`` (rows -> per-row range -> stochastic codes) and the
+``dequant_rows`` kernel replaces ``_dequant_kernel`` (codes -> f32 rows),
+each with the torch ops the exchange ran around it. One launch serves one
+direction of one layer's exchange too: :func:`quant_frames` gathers each
+lane's source row, quantizes it with its bucket's width and key and writes
+its frame (the column-packed codes, then the bf16 scale and rmin) at the
+lane's byte offset in the send buffer; :func:`dequant_frames` reads each
+lane's frame and stores its f32 row at its destination, or adds it there
+(the backward). The lane tables (:class:`Frames`) come from
+``comm/exchange.py``. :func:`quant_rows` and :func:`dequant_rows` are the
+contiguous forms (row ``l`` is lane ``l``, one code byte a column, f32 scale
+and rmin) and launch the same two kernels. ``_quant_frames_torch`` and
+``_dequant_frames_torch`` are the plain versions: the gather, the
+per-bucket ``_quant_rows_torch``, ``pack_rows`` and frame, and the
+unframe, ``unpack_rows``, ``_dequant_rows_torch``, ``true_columns`` and the
+placement, driven by the same tables. All four kernels are CUDA C++ for
+``sm_90a``, built with ``nvcc`` at first use and loaded with ``ctypes``.
+Each wrapper launches its kernel on a CUDA tensor (and adds one to its
+``launches`` count), runs the plain PyTorch version on a CPU tensor, and
+raises on anything else; nothing falls back from one to the other.
 
 The random numbers. The TPU kernel draws from the chip's hardware
 generator, which nothing can reproduce. Here the uniform of element
@@ -49,13 +63,14 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
 from ..utils.cuda_build import raise_on as _raise_on
-from .quant import (dequantize_rows, dequantize_words, pack_words, param_words, quantize_rows,
-                    row_minmax, split_param_words, to_width)
+from .quant import (bytes_per_row, dequantize_rows, dequantize_words, pack_rows, pack_words,
+                    pad_features, param_words, quantize_rows, row_minmax, split_param_words,
+                    to_width, true_columns, unpack_rows)
 
 MAX_BUCKETS = 4  # the kernels' bucket vocabulary: 2, 4, 8 and 32 bits
 
@@ -76,6 +91,72 @@ class Lanes:
     @property
     def n(self) -> int:
         return sum(self.counts)
+
+
+@dataclasses.dataclass(eq=False)
+class Frames:
+    """One direction of one layer's padded exchange on one rank: the lanes
+    of all buckets in bucket order, each bucket's ``[K, cap]`` lanes peer
+    after peer, and where each lane's frame lies in the direction's uint8
+    buffer, in which bucket ``i`` is the contiguous ``[K, cap,
+    frame_bytes(i)]`` slice at byte ``starts[i]``. Int64 tensors of one
+    entry a lane, on the rank's device (:func:`make_frames`)."""
+
+    bits: Tuple[int, ...]
+    f_true: int  # the range's columns; the wire carries pad_features(f_true)
+    counts: Tuple[int, ...]  # lanes per bucket (host)
+    starts: Tuple[int, ...]  # each bucket's first byte (host)
+    nbytes: int
+    src: torch.Tensor  # the source row; past the rows given, a zero row
+    dst: torch.Tensor  # the destination row; outside the output, dropped
+    bucket: torch.Tensor
+    index: torch.Tensor  # the lane's row in its bucket's batch (its uniforms)
+    frame_off: torch.Tensor  # its frame's first byte
+
+    @property
+    def n(self) -> int:
+        return sum(self.counts)
+
+    @property
+    def f_wire(self) -> int:
+        return pad_features(self.f_true)
+
+    def frame_bytes(self, i: int) -> int:
+        """Bytes a frame of bucket ``i``: its codes, then the bf16 pair."""
+        return bytes_per_row(self.f_wire, self.bits[i]) + 4
+
+    def views(self, buf: torch.Tensor) -> List[torch.Tensor]:
+        """Each bucket's slice of a direction's buffer."""
+        return [buf[s:s + n * self.frame_bytes(i)]
+                for i, (s, n) in enumerate(zip(self.starts, self.counts))]
+
+
+def make_frames(bits: Sequence[int], srcs: Sequence[torch.Tensor],
+                dsts: Sequence[torch.Tensor], f_true: int) -> Frames:
+    """The lane tables of one direction: per bucket ``i`` of ``bits[i]``
+    bits, its lanes' source and destination rows (``[K, cap]`` or flat, in
+    lane order; each lane's index in the bucket is its position there).
+    Buckets lie back to back in the buffer, frames back to back in each."""
+    dev = srcs[0].device if srcs else None
+    counts = [int(src.numel()) for src in srcs]
+    frame = [bytes_per_row(pad_features(f_true), b) + 4 for b in bits]
+    starts = [sum(n * fb for n, fb in zip(counts[:i], frame)) for i in range(len(counts))]
+
+    def cat(parts):
+        if not parts:
+            return torch.zeros(0, dtype=torch.int64, device=dev)
+        return torch.cat([p.reshape(-1).long() for p in parts])
+
+    return Frames(
+        bits=tuple(int(b) for b in bits), f_true=int(f_true), counts=tuple(counts),
+        starts=tuple(starts), nbytes=sum(n * fb for n, fb in zip(counts, frame)),
+        src=cat(srcs), dst=cat(dsts),
+        bucket=torch.repeat_interleave(torch.arange(len(counts), device=dev),
+                                       torch.tensor(counts, dtype=torch.int64, device=dev)),
+        index=cat([torch.arange(n, device=dev) for n in counts]),
+        frame_off=cat([s + torch.arange(n, device=dev) * fb
+                       for s, n, fb in zip(starts, counts, frame)]),
+    )
 
 _M1, _M2 = 0x7FEB352D, 0x846CA68B
 _MASK = 0xFFFFFFFF
@@ -118,10 +199,12 @@ def _mix32(x: torch.Tensor) -> torch.Tensor:
     return x ^ (x >> 16)
 
 
-def uniforms(key: int, n: int, f: int, device=None) -> torch.Tensor:
-    """f32 [n, f] uniforms in [0, 1) of launch ``key`` (plain version of
-    the kernel's generator)."""
-    row = torch.arange(n, device=device, dtype=torch.int64)[:, None]
+def uniforms(key: int, n: int, f: int, device=None,
+             rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """f32 [n, f] uniforms in [0, 1) of launch ``key`` at rows 0..n-1, or
+    at the int64 ``rows`` [n] (plain version of the kernel's generator)."""
+    row = (torch.arange(n, device=device, dtype=torch.int64) if rows is None
+           else rows.to(device=device, dtype=torch.int64))[:, None]
     col = torch.arange(f, device=device, dtype=torch.int64)[None, :]
     h = _mix32(_mix32(row ^ (key & _MASK)) ^ col)
     return (h & 0xFFFFFF).to(torch.float32) * (2.0**-24)
@@ -211,6 +294,46 @@ def _unpack_lanes_torch(buf: torch.Tensor, lanes: Lanes, bits: Sequence[int],
     return rows[inv]
 
 
+def _quant_frames_torch(x: torch.Tensor, fr: Frames, keys: Sequence[int],
+                        with_range: bool = False
+                        ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    dev, (n, f) = x.device, x.shape
+    buf = torch.empty(fr.nbytes, dtype=torch.uint8, device=dev)
+    rng = torch.zeros(n, dtype=torch.float32, device=dev) if with_range else None
+    xz = torch.cat([x, x.new_zeros((1, f))])  # the sentinels' zero row
+    for bi, sl in _bucket_slices(fr):
+        b, src = fr.bits[bi], fr.src[sl]
+        rows = xz[src.clamp(max=n)]
+        u = uniforms(keys[bi], src.numel(), f, dev, rows=fr.index[sl])
+        q, scale, rmin = quantize_rows(rows, b, u, fr.f_true)
+        pair = torch.stack([scale, rmin], dim=-1).to(torch.bfloat16).view(torch.uint8)
+        frame = torch.cat([pack_rows(to_width(q, fr.f_wire), b), pair], dim=-1)
+        buf[fr.frame_off[sl, None] + torch.arange(fr.frame_bytes(bi), device=dev)] = frame
+        if with_range:
+            lo, hi = row_minmax(rows.float(), fr.f_true)
+            real = src < n
+            rng[src[real]] = (hi - lo)[real]
+    return buf, rng
+
+
+def _dequant_frames_torch(buf: torch.Tensor, fr: Frames, out: torch.Tensor,
+                          add: bool = False) -> torch.Tensor:
+    dev, (n_out, f_out) = buf.device, out.shape
+    rows = torch.empty((fr.n, f_out), dtype=torch.float32, device=dev)
+    for bi, sl in _bucket_slices(fr):
+        nb = fr.frame_bytes(bi)
+        frame = buf[fr.frame_off[sl, None] + torch.arange(nb, device=dev)]
+        q = unpack_rows(frame[:, :nb - 4], fr.bits[bi], fr.f_wire).contiguous()
+        p = frame[:, nb - 4:].contiguous().view(torch.bfloat16).float()
+        x = _dequant_rows_torch(q, p[:, 0].contiguous(), p[:, 1].contiguous())
+        rows[sl] = true_columns(x, fr.f_true, f_out)
+    keep = (fr.dst >= 0) & (fr.dst < n_out)
+    if add:
+        return out.index_add_(0, fr.dst[keep], rows[keep])
+    out[fr.dst[keep]] = rows[keep]
+    return out
+
+
 # ---------------------------------------------------------------------------
 # CUDA kernels
 # ---------------------------------------------------------------------------
@@ -291,14 +414,54 @@ def _rows_lib() -> ctypes.CDLL:
 
     lib = load_library("quant_rows")
     if lib.adaqp_quant_rows.argtypes is None:
-        vp, ci, cu = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
-        lib.adaqp_quant_rows.argtypes = [vp, ci, ci, ci, ci, ci, cu, vp, vp, vp, ci, vp]
+        vp, ci, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+        lib.adaqp_quant_rows.argtypes = [
+            vp, ci, i64, ci, ci, ci, ci, ci, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, ci, vp]
         lib.adaqp_quant_rows.restype = ci
-        lib.adaqp_dequant_rows.argtypes = [vp, vp, vp, ci, ci, vp, ci, vp]
+        lib.adaqp_dequant_rows.argtypes = [
+            vp, ci, i64, ci, ci, ci, ci, vp, vp, vp, vp, vp, vp, ci, vp, ci, vp]
         lib.adaqp_dequant_rows.restype = ci
         lib.adaqp_quant_rows_error_string.argtypes = [ci]
         lib.adaqp_quant_rows_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _launch_quant_rows(x, n_lanes, f_true, f_wire, bits, keys, tables, out, scale, rmin, rng):
+    dev, nb = x.device, len(bits)
+    lib = _rows_lib()
+    rc = lib.adaqp_quant_rows(
+        x.data_ptr(), int(x.dtype == torch.bfloat16), x.shape[0], n_lanes, x.shape[1],
+        min(f_true, x.shape[1]), f_wire, nb, (ctypes.c_int * nb)(*bits),
+        (ctypes.c_uint32 * nb)(*[k & _MASK for k in keys]), *[_ptr(t) for t in tables],
+        out.data_ptr(), _ptr(scale), _ptr(rmin), _ptr(rng), dev.index,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(lib.adaqp_quant_rows_error_string, rc, "quant_rows")
+    quant_rows.launches += 1
+
+
+def _launch_dequant_rows(buf, n_lanes, f_true, f_wire, bits, tables, scale, rmin, add, out):
+    dev, nb = buf.device, len(bits)
+    lib = _rows_lib()
+    rc = lib.adaqp_dequant_rows(
+        buf.data_ptr(), n_lanes, out.shape[0], f_true, f_wire, out.shape[1], nb,
+        (ctypes.c_int * nb)(*bits), *[_ptr(t) for t in tables], _ptr(scale), _ptr(rmin),
+        int(add), out.data_ptr(), dev.index, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(lib.adaqp_quant_rows_error_string, rc, "dequant_rows")
+    dequant_rows.launches += 1
+
+
+def _check_frames(fr: Frames, dev: torch.device):
+    if not 1 <= len(fr.bits) <= MAX_BUCKETS or any(b not in (2, 4, 8) for b in fr.bits):
+        raise ValueError(f"bucket widths {fr.bits}: the kernels take 1 to {MAX_BUCKETS} "
+                         "buckets of 2, 4 or 8 bits")
+    for name in ("src", "dst", "bucket", "index", "frame_off"):
+        t = getattr(fr, name)
+        if (t.device != dev or t.dtype != torch.int64 or not t.is_contiguous()
+                or t.shape != (fr.n,)):
+            raise ValueError(f"lane table {name} must be contiguous int64 [{fr.n}] on {dev}, "
+                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
 def _check_bits(bits: int, f_true: int, f_wire: int):
@@ -391,24 +554,14 @@ def _unpack_lanes_cuda(buf, lanes, bits, wpr, f_true, f_pad, inv, add_into):
 
 
 def _quant_rows_cuda(x, bits, f_true, key):
-    if x.dim() != 2 or x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"x must be a 2-D f32 or bf16 tensor, got {x.dtype} {tuple(x.shape)}")
-    x = x.contiguous()
+    x = _rows_operand(x)
     n, f = x.shape
     dev = x.device
     q = torch.empty((n, f), dtype=torch.uint8, device=dev)
     scale = torch.empty(n, dtype=torch.float32, device=dev)
     rmin = torch.empty(n, dtype=torch.float32, device=dev)
-    if n == 0:
-        return q, scale, rmin
-    lib = _rows_lib()
-    rc = lib.adaqp_quant_rows(
-        x.data_ptr(), int(x.dtype == torch.bfloat16), n, f, min(f_true, f), bits,
-        key & _MASK, q.data_ptr(), scale.data_ptr(), rmin.data_ptr(), dev.index,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _raise_on(lib.adaqp_quant_rows_error_string, rc, "quant_rows")
-    quant_rows.launches += 1
+    if n:
+        _launch_quant_rows(x, n, f_true, f, (bits,), (key,), (None,) * 4, q, scale, rmin, None)
     return q, scale, rmin
 
 
@@ -422,15 +575,39 @@ def _dequant_rows_cuda(q, scale, rmin):
     if scale.shape != (n,) or rmin.shape != (n,):
         raise ValueError("q, scale and rmin disagree in shape")
     out = torch.empty((n, f), dtype=torch.float32, device=dev)
-    if n == 0:
-        return out
-    lib = _rows_lib()
-    rc = lib.adaqp_dequant_rows(
-        q.data_ptr(), scale.data_ptr(), rmin.data_ptr(), n, f, out.data_ptr(), dev.index,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _raise_on(lib.adaqp_quant_rows_error_string, rc, "dequant_rows")
-    dequant_rows.launches += 1
+    if n and f:
+        _launch_dequant_rows(q, n, f, f, (8,), (None,) * 3, scale, rmin, False, out)
+    return out
+
+
+def _quant_frames_cuda(x, fr, keys, with_range):
+    x = _rows_operand(x)
+    dev = x.device
+    _check_frames(fr, dev)
+    if len(keys) != len(fr.bits):
+        raise ValueError(f"{len(keys)} keys for {len(fr.bits)} buckets")
+    buf = torch.empty(fr.nbytes, dtype=torch.uint8, device=dev)
+    rng = torch.zeros(x.shape[0], dtype=torch.float32, device=dev) if with_range else None
+    if fr.n:
+        tables = (fr.src, fr.bucket, fr.index, fr.frame_off)
+        _launch_quant_rows(x, fr.n, fr.f_true, fr.f_wire, fr.bits, keys, tables, buf, None,
+                           None, rng)
+    return buf, rng
+
+
+def _dequant_frames_cuda(buf, fr, out, add):
+    dev = buf.device
+    if buf.dtype != torch.uint8 or buf.shape != (fr.nbytes,) or not buf.is_contiguous():
+        raise ValueError(f"the buffer must be contiguous uint8 [{fr.nbytes}], got {buf.dtype} "
+                         f"{tuple(buf.shape)}")
+    if (out.dtype != torch.float32 or out.device != dev or out.dim() != 2
+            or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous 2-D f32 tensor on {dev}")
+    _check_frames(fr, dev)
+    if fr.n and out.numel():
+        tables = (fr.dst, fr.bucket, fr.frame_off)
+        _launch_dequant_rows(buf, fr.n, fr.f_true, fr.f_wire, fr.bits, tables, None, None, add,
+                             out)
     return out
 
 
@@ -441,8 +618,8 @@ def quant_rows(x: torch.Tensor, bits: int, f_true: int, key: int
     first ``f_true`` columns, a code for every column. N=0 launches
     nothing.
 
-    CUDA ``x``: the kernel (one more ``quant_rows.launches`` per launch).
-    CPU ``x``: the plain version."""
+    CUDA ``x``: the ``quant_rows`` kernel (one more ``quant_rows.launches``
+    per launch). CPU ``x``: the plain version."""
     if bits not in (2, 4, 8) or f_true <= 0:
         raise ValueError(f"bits={bits}, f_true={f_true}: bits must be 2, 4 or 8, f_true > 0")
     if x.device.type == "cuda":
@@ -456,13 +633,54 @@ def dequant_rows(q: torch.Tensor, scale: torch.Tensor, rmin: torch.Tensor) -> to
     """uint8 codes ``q`` [N, F] with f32 ``scale``/``rmin`` [N] -> f32
     ``q / scale + rmin`` [N, F]. N=0 launches nothing.
 
-    CUDA ``q``: the kernel (one more ``dequant_rows.launches`` per launch).
-    CPU ``q``: the plain version."""
+    CUDA ``q``: the ``dequant_rows`` kernel (one more
+    ``dequant_rows.launches`` per launch). CPU ``q``: the plain version."""
     if q.device.type == "cuda":
         return _dequant_rows_cuda(q, scale, rmin)
     if q.device.type == "cpu":
         return _dequant_rows_torch(q, scale, rmin)
     raise ValueError(f"no dequant_rows for device {q.device}")
+
+
+def quant_frames(x: torch.Tensor, fr: Frames, keys: Sequence[int], with_range: bool = False
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One direction's send buffer: uint8 ``[fr.nbytes]`` holding, at each
+    lane's ``frame_off``, the frame of row ``x[fr.src]`` (f32 or bf16; a
+    zero row for a source past ``x``'s rows) quantized at its bucket's
+    width with the uniforms of ``keys[bucket]`` at the lane's index: the
+    codes of the ``pad_features(fr.f_true)`` wire columns (0 past ``x``'s
+    columns), column-packed, then the bf16 scale and rmin. With
+    ``with_range``, also f32 ``[N]``: each source row's ``rmax - rmin``
+    over the first ``fr.f_true`` columns, 0 for rows no lane reads (else
+    None).
+
+    CUDA ``x``: one launch of the ``quant_rows`` kernel (one more
+    ``quant_rows.launches``; none without lanes). CPU ``x``: the plain
+    version."""
+    if x.device.type == "cuda":
+        return _quant_frames_cuda(x, fr, keys, with_range)
+    if x.device.type == "cpu":
+        return _quant_frames_torch(x, fr, keys, with_range)
+    raise ValueError(f"no quant_frames for device {x.device}")
+
+
+def dequant_frames(buf: torch.Tensor, fr: Frames, out: torch.Tensor, add: bool = False
+                   ) -> torch.Tensor:
+    """A received buffer (uint8 ``[fr.nbytes]``) into ``out`` (f32 ``[R,
+    F]``), which it returns: each lane whose destination lies in ``[0, R)``
+    stores its row there (``q / scale + rmin`` with the frame's bf16 pair,
+    columns ``>= fr.f_true`` zero), or with ``add`` adds it there (on the
+    card with atomics: the order of a sum of three or more rows varies, as
+    ``index_add_``'s does). Rows no lane writes keep their contents.
+
+    CUDA ``buf``: one launch of the ``dequant_rows`` kernel (one more
+    ``dequant_rows.launches``; none without lanes). CPU ``buf``: the plain
+    version."""
+    if buf.device.type == "cuda":
+        return _dequant_frames_cuda(buf, fr, out, add)
+    if buf.device.type == "cpu":
+        return _dequant_frames_torch(buf, fr, out, add)
+    raise ValueError(f"no dequant_frames for device {buf.device}")
 
 
 def quant_pack(x: torch.Tensor, bits: int, f_true: int, f_wire: int, key: int

@@ -23,7 +23,8 @@ adaqp_tpu_torch`` start them):
   evaluation, the quantized wire of the current
   :class:`~adaqp_tpu_torch.assigner.Assignment` in AdaQP and AdaQP-q
   training) or the padded dense wire (the f32 exchange over the plan, or
-  the assignment's per-width buckets in quantized training);
+  the assignment's per-width buckets in quantized training, on lane
+  tables built once an assignment);
 - schemes: ``uniform`` keeps ``assign_bits``; ``random`` draws new widths
   and ``adaptive`` solves the variance-vs-time MILP at every epoch with
   ``epoch % assign_cycle == 1`` except the first (``trainer.py:813-819``).
@@ -67,7 +68,7 @@ from ..assigner import Assigner, AssignerConfig, Assignment, random_assignment
 from ..assigner.profile import fit_cost_model, profile_cost_model
 from ..assigner.assignment import buckets_from_assignment
 from ..comm.distributed import resolve_backend
-from ..comm.exchange import _dequant_lanes, _quant_lanes, padded_all_to_all
+from ..comm.exchange import padded_all_to_all, padded_wire
 from ..comm.ragged import ragged_all_to_all
 from ..comm.wire import wire_cols, wire_fp, wire_from_assignment
 from ..common.backend import DeviceLike, resolve_device
@@ -80,7 +81,8 @@ from ..model.gnn import apply_gnn, init_params, params_from_numpy
 from ..model.loss import correct_count, f1_pieces, masked_loss_sum
 from ..ops.dist_ops import _seg, pick_block_kernel
 from ..ops.quant import bytes_per_row, pad_features
-from ..ops.quant_cuda import quant_pack, stream_key, unpack_dequant
+from ..ops.quant_cuda import (dequant_frames, make_frames, quant_frames, quant_pack, stream_key,
+                              unpack_dequant)
 from ..utils import Recorder, Timer
 from .config import RunConfig
 
@@ -245,8 +247,9 @@ class Trainer:
         plan = lay.plan_fwd
         self.layer_dims = [lay.f_true] + [cfg.hidden_dim] * (cfg.num_layers - 1)
         # ragged: per-layer wire plans; padded: per-layer buckets of this
-        # rank (quantized training), the f32 exchange needs none
-        self.wire_fp = self.wire_q = self.buckets = None
+        # rank and their lane tables (quantized training), the f32 exchange
+        # needs none
+        self.wire_fp = self.wire_q = self.buckets = self.padded = None
         if self.k > 1 and cfg.wire_impl == "ragged":
             self.wire_fp = self._local_wires(wire_fp(plan, self.layer_dims, cfg.num_layers))
 
@@ -372,15 +375,20 @@ class Trainer:
         ]
 
     def _lower_assignment(self):
-        """Assignment -> this rank's quantized wire plans or padded buckets
-        (the reference's train-buffer regeneration, ``buffer.py:176-248``)."""
+        """Assignment -> this rank's quantized wire plans, or padded buckets
+        and their lane tables (the reference's train-buffer regeneration,
+        ``buffer.py:176-248``)."""
         if self.cfg.wire_impl == "padded":
+            st = self.static
+            dims = [st.f_pad] + [st.hidden] * (st.num_layers - 1)
+            f_true = [st.f_true or st.f_pad] + dims[1:]  # as apply_gnn exchanges them
             self.buckets = [
                 (bits, tuple(tuple(torch.as_tensor(a[self.rank]).long().to(self.device)
                                    for a in quad) for quad in arrays))
                 for bits, arrays in buckets_from_assignment(
                     self.layout.plan_fwd, self.assignment, self.layout.l_max)
             ]
+            self.padded = [padded_wire(b, ft, d) for b, ft, d in zip(self.buckets, f_true, dims)]
             return
         self.wire_q = self._local_wires(wire_from_assignment(
             self.layout.plan_fwd, self.assignment, self.layer_dims,
@@ -441,7 +449,7 @@ class Trainer:
             self.params, self.sh, st, True, self.blocks, self.dropout_gen,
             wires=self.wire_q if self.mode.quantized else self.wire_fp,
             keys=keys, sinks=sinks,
-            buckets=self.buckets if self.mode.quantized else None,
+            padded=self.padded if self.mode.quantized else None,
         )
         s = self.sh
         loss = masked_loss_sum(logits, s.labels, s.train_mask, st.multilabel)
@@ -540,10 +548,12 @@ class Trainer:
         that sends or receives any lane, 32-bit lanes included: the
         training step's exchanges (quantized or full-precision, layer 0
         has no backward) and the evaluation's forward ones. The padded
-        wire: (quant_rows, dequant_rows), one pair per bucket, layer and
-        direction of a quantized training step."""
-        if self.buckets is not None:
-            n = sum(len(bits) * (1 if i == 0 else 2) for i, (bits, _) in enumerate(self.buckets))
+        wire: (quant_rows, dequant_rows), one pair per direction of a
+        quantized training step's exchange that carries any lane (layer 0
+        has no backward)."""
+        if self.padded is not None:
+            n = sum(int(w.fwd.n > 0) + (int(w.bwd.n > 0) if i else 0)
+                    for i, w in enumerate(self.padded))
             return n, n
         if self.wire_fp is None:
             return 0, 0
@@ -664,12 +674,16 @@ class Trainer:
                 timeit(fn) for fn in self._probe_transfers(layer, d, ft, back)))
             if self.assigner is None:
                 continue
-            rows = torch.randn((self.k, st.s_pad, d), generator=gen, device=dev).to(adt)
-            if padded:
+            flat = torch.randn((self.k * st.s_pad, d), generator=gen, device=dev).to(adt)
+            if padded:  # the lane kernels on identity tables: a lane a row
+                ident = torch.arange(flat.shape[0], device=dev)
+                fr = make_frames((bits,), [ident], [ident], ft)
+                out = torch.empty((flat.shape[0], d), dtype=torch.float32, device=dev)
+
                 def quant():
-                    return _dequant_lanes(*_quant_lanes(rows, bits, 1, ft), bits, d, ft)
+                    return dequant_frames(quant_frames(flat, fr, (1,))[0], fr, out)
             else:
-                flat, fw = rows.reshape(-1, d), wire_cols(ft, bits)
+                fw = wire_cols(ft, bits)
 
                 def quant():
                     return unpack_dequant(*quant_pack(flat, bits, ft, fw, 1), bits, ft, fw, d)

@@ -158,14 +158,17 @@ SASS_PIPES = {
 }
 
 
-def sass_per_element(lib, func, marker, per_marker=1):
+def sass_per_element(lib, func, marker, per_marker=1, cheapest=False):
     """Operations an element, by pipe, in the hot loop of the kernel whose
     mangled name contains ``func`` in ``build/kernels/lib<lib>.so``
     (``cuobjdump -sass``): of the innermost loops (a backward branch with
     no other loop inside), the one with the most instructions whose opcode
     starts with ``marker``, each of which stands for ``per_marker``
-    elements. Returns ({pipe: operations an element}, elements an
-    iteration, instructions in the loop)."""
+    elements; with ``cheapest``, of those that hold any, the one whose
+    busiest pipe takes the least time an element (a kernel with one loop a
+    code width: a bound that holds for every width). Returns ({pipe:
+    operations an element}, elements an iteration, instructions in the
+    loop)."""
     import re
 
     from adaqp_tpu_torch.utils.cuda_build import nvcc_path
@@ -189,14 +192,19 @@ def sass_per_element(lib, func, marker, per_marker=1):
     def ops(lp):
         return [t.split()[1 if t.startswith("@") else 0] for a, t in ins if lp[0] <= a <= lp[1]]
 
-    best = max(inner, key=lambda lp: sum(o.startswith(marker) for o in ops(lp)), default=None)
-    check(best is not None, f"{func}: no loop in the SASS")
-    codes = ops(best)
-    elems = sum(o.startswith(marker) for o in codes) * per_marker
-    check(elems > 0, f"{func}: no {marker} in its innermost loops")
-    counts = {pipe: sum(o.split(".")[0] in names for o in codes) / elems
-              for pipe, (_, names) in SASS_PIPES.items()}
-    return counts, elems, len(codes)
+    def per_element(lp):
+        codes = ops(lp)
+        elems = sum(o.startswith(marker) for o in codes) * per_marker
+        counts = {pipe: sum(o.split(".")[0] in names for o in codes) / max(elems, 1)
+                  for pipe, (_, names) in SASS_PIPES.items()}
+        return counts, elems, len(codes)
+
+    found = [per_element(lp) for lp in inner]
+    found = [x for x in found if x[1] > 0]
+    check(found, f"{func}: no {marker} in its innermost loops")
+    if cheapest:
+        return min(found, key=lambda x: max(n / SASS_PIPES[p][0] for p, n in x[0].items()))
+    return max(found, key=lambda x: x[1])
 
 
 def ops_ms(counts, elements, clock_mhz):
@@ -771,25 +779,171 @@ def _wire_volume(t):
 
 
 def _pad_cases(t, probe=False):
-    """The (bits, rows, F, f_true, dtype) of every quant_rows launch one
-    padded training step makes with the current buckets: the forward rows
-    in the activations' dtype, the backward's gradient rows in f32. With
-    ``probe``, also the breakdown probe's: ``assign_bits`` on ``K * s_pad``
-    rows a layer."""
+    """The lane tables of every quant_rows and dequant_rows launch one
+    padded training step makes with the current buckets, as shapes:
+    (direction, bucket widths, lanes a bucket, F, f_true, source dtype,
+    source rows, output rows); the forward's rows in the activations'
+    dtype, the backward's gradient rows in f32. With ``probe``, also the
+    breakdown probe's identity tables: ``assign_bits`` on ``K * s_pad``
+    lanes a layer."""
     st = t.static
     dims = [st.f_pad] + [st.hidden] * (st.num_layers - 1)
     fwd = "bfloat16" if st.agg_dtype == "bfloat16" else "float32"
     cases = set()
-    if probe and t.buckets is not None:
-        cases.update((t.cfg.assign_bits, t.k * st.s_pad, d, ft, fwd)
-                     for d, ft in zip(dims, t.layer_dims))
-    for i, (bits, arrays) in enumerate(t.buckets or ()):
-        for b, quad in zip(bits, arrays):
-            n = int(quad[0].numel())
-            cases.add((b, n, dims[i], t.layer_dims[i], fwd))
-            if i:
-                cases.add((b, n, dims[i], dims[i], "float32"))
+    if probe and t.padded is not None:
+        n = t.k * st.s_pad
+        cases.update(("probe", (t.cfg.assign_bits,), (n,), d, ft, fwd, n, n)
+                     for d, ft in zip(dims, [t.layer_dims[0]] + dims[1:]))
+    for i, w in enumerate(t.padded or ()):
+        cases.add(("fwd", w.fwd.bits, w.fwd.counts, dims[i], w.fwd.f_true, fwd, st.l_max,
+                   st.r_pad))
+        if i:
+            cases.add(("bwd", w.bwd.bits, w.bwd.counts, dims[i], w.bwd.f_true, "float32",
+                       st.r_pad, st.l_max))
     return cases
+
+
+def _bucket_sides(torch, buckets, f_true, backward):
+    """The padded exchange's device work as it ran before one launch served
+    a direction (per bucket, around the contiguous kernels): the send side
+    ``fn(x, keys, trace) -> frames`` (the lane gather, for the backward
+    over the rows and a zero row, with the variance trace when ``trace``;
+    ``quant_rows`` with bucket ``i``'s key ``keys[i]``, ``to_width``,
+    ``pack_rows``, the bf16 pair, the frame) and the receive side
+    ``fn(frames, out_rows, f) -> rows`` (the frame's split,
+    ``unpack_rows``, ``dequant_rows`` with the pair widened,
+    ``true_columns``, then the placement into a spare-row buffer or
+    ``index_add_``)."""
+    from adaqp_tpu_torch.comm.exchange import variance_proxy
+    from adaqp_tpu_torch.ops import quant_cuda as qc
+    from adaqp_tpu_torch.ops.quant import pack_rows, pad_features, to_width, true_columns, unpack_rows
+
+    bits, arrays = buckets
+    fw = pad_features(f_true)
+
+    def send(x, keys, trace):
+        f = x.shape[1]
+        src = torch.cat([x.float(), x.new_zeros((1, f), dtype=torch.float32)]) if backward else x
+        proxy = torch.zeros(x.shape[0] + 1, device=x.device) if trace else None
+        out = []
+        for i, (b, quad) in enumerate(zip(bits, arrays)):
+            idx = quad[2] if backward else quad[0]
+            rows = src[idx]
+            if trace:
+                proxy[idx.reshape(-1)] = variance_proxy(rows, f).reshape(-1)
+            k, cap, _ = rows.shape
+            q, scale, rmin = qc.quant_rows(rows.reshape(k * cap, f), b, f_true, keys[i])
+            wire = pack_rows(to_width(q, fw), b)
+            pair = torch.stack([scale, rmin], dim=-1).to(torch.bfloat16)
+            out.append(torch.cat([wire, pair.view(torch.uint8)], dim=-1).reshape(k, cap, -1))
+        return out
+
+    def recv(frames, n_out, f):
+        out = torch.zeros((n_out + 1, f), dtype=torch.float32, device=frames[0].device)
+        for b, quad, buf in zip(bits, arrays, frames):
+            k, cap, _ = buf.shape
+            wire, p = buf[..., :-4], buf[..., -4:].contiguous().view(torch.bfloat16)
+            q = unpack_rows(wire.reshape(k * cap, -1), b, fw).contiguous()
+            p = p.reshape(k * cap, 2).float()
+            rows = true_columns(qc.dequant_rows(q, p[:, 0].contiguous(), p[:, 1].contiguous()),
+                                f_true, f)
+            dest = (quad[3] if backward else quad[1]).reshape(-1)
+            if backward:
+                out.index_add_(0, dest, rows)
+            else:
+                out[dest] = rows
+        return out[:n_out]
+
+    return send, recv
+
+
+def _abs_sums(torch, buf, fr, n_out, f):
+    """Sum |terms| of each output row a backward receive adds (the scale of
+    its rounding): each lane's plain row on a row of its own, then the
+    absolute values added into the lanes' destinations."""
+    import dataclasses
+
+    from adaqp_tpu_torch.ops import quant_cuda as qc
+
+    own = dataclasses.replace(fr, dst=torch.arange(fr.n, device=buf.device))
+    terms = qc._dequant_frames_torch(buf, own, torch.zeros(fr.n, f, device=buf.device))
+    keep = fr.dst < n_out
+    return torch.zeros(n_out, f, device=buf.device).index_add_(0, fr.dst[keep], terms[keep].abs())
+
+
+def _padded_sides(torch, t, rank, reps=20):
+    """Rank 0's send side (``quant_frames``) and receive side (a zero
+    buffer and ``dequant_frames``) of every exchange of one more padded
+    training step (every rank takes it), each timed alone on the card on
+    the step's own lane tables, source rows and received buffers, ``reps``
+    calls between CUDA events behind a backlog of some 100 ms; beside each,
+    the per-bucket composition the exchange ran before
+    (:func:`_bucket_sides`) on the same inputs. The kernels are held
+    against their plain versions and against that composition. Returns a
+    dict a call on rank 0, else None."""
+    import torch.distributed as dist
+
+    from adaqp_tpu_torch.comm import exchange as ex
+    from adaqp_tpu_torch.ops import quant_cuda as qc
+
+    sends, recvs = [], []
+    quant_frames, dequant_frames = ex.quant_frames, ex.dequant_frames
+
+    def recording_quant(x, fr, keys, with_range=False):
+        sends.append((x.clone(), fr, list(keys), with_range))
+        return quant_frames(x, fr, keys, with_range)
+
+    def recording_dequant(buf, fr, out, add=False):
+        recvs.append((buf.clone(), fr, tuple(out.shape), add))
+        return dequant_frames(buf, fr, out, add)
+
+    ex.quant_frames, ex.dequant_frames = recording_quant, recording_dequant
+    try:
+        float(t._train_step(2000))
+    finally:
+        ex.quant_frames, ex.dequant_frames = quant_frames, dequant_frames
+    torch.cuda.synchronize()
+    if rank != 0:
+        dist.barrier()
+        return None
+    saved = (qc.quant_rows.launches, qc.dequant_rows.launches)
+    out, spin = [], 200_000_000
+    for x, fr, keys, trace in sends:
+        buf, (n_out, f), add = next((b, o, a) for b, g, o, a in recvs if g is fr)
+        layer = next(i for i, w in enumerate(t.padded) if fr is w.fwd or fr is w.bwd)
+        tag = f"layer {layer} {'bwd' if add else 'fwd'}"
+        # the kernels against their plain versions on this real wire
+        got, rng = qc.quant_frames(x, fr, keys, trace)
+        want, rng0 = qc._quant_frames_torch(x, fr, keys, trace)
+        check(torch.equal(got, want) and (rng is None or torch.equal(rng, rng0)),
+              f"{tag}: the send buffer differs from the plain version's")
+        zeros = torch.zeros(n_out, f, device="cuda")
+        rows = qc.dequant_frames(buf, fr, zeros.clone(), add)
+        rows0 = qc._dequant_frames_torch(buf, fr, zeros.clone(), add)
+        tol = 1e-6 * _abs_sums(torch, buf, fr, n_out, f) if add else 0.0
+        check(bool(((rows - rows0).abs() <= tol).all()),
+              f"{tag}: the received rows differ from the plain version's")
+        # and against the per-bucket composition of before, on the same inputs
+        bsend, brecv = _bucket_sides(torch, t.buckets[layer], fr.f_true, add)
+        old = bsend(x, keys, trace)
+        check(torch.equal(torch.cat([o.reshape(-1) for o in old]), got),
+              f"{tag}: the send buffer differs from the per-bucket frames")
+        frames = [v.reshape(o.shape) for v, o in zip(fr.views(buf), old)]
+        check(bool(((brecv(frames, n_out, f) - rows).abs() <= tol).all()),
+              f"{tag}: the received rows differ from the per-bucket composition's")
+        ms_s = cuda_ms(torch, lambda: qc.quant_frames(x, fr, keys, trace), reps, backlog=True,
+                       spin=spin)
+        ms_r = cuda_ms(torch, lambda: qc.dequant_frames(
+            buf, fr, torch.zeros(n_out, f, device="cuda"), add), reps, backlog=True, spin=spin)
+        old_s = cuda_ms(torch, lambda: bsend(x, keys, trace), reps, backlog=True, spin=spin)
+        old_r = cuda_ms(torch, lambda: brecv(frames, n_out, f), reps, backlog=True, spin=spin)
+        out.append({"layer": layer, "dir": "bwd" if add else "fwd", "F": f,
+                    "f_true": fr.f_true, "dtype": str(x.dtype)[6:], "lanes": fr.n,
+                    "buckets": list(zip(fr.bits, fr.counts)), "send_ms": ms_s, "recv_ms": ms_r,
+                    "old_send_ms": old_s, "old_recv_ms": old_r})
+    qc.quant_rows.launches, qc.dequant_rows.launches = saved
+    dist.barrier()
+    return out
 
 
 def _exchange_sides(torch, t, rank, reps=20):
@@ -900,7 +1054,9 @@ def _train_k_worker(rank, world, device, cfg, graph_fn, profile):
     check(all(torch.equal(x.view(torch.int32), flat.view(torch.int32)) for x in every),
           f"rank {rank}: parameters differ across ranks")
     split = _profile_steps(torch, t, rank) if profile else None
-    sides = _exchange_sides(torch, t, rank) if profile else None
+    sides = None
+    if profile:
+        sides = (_exchange_sides if t.padded is None else _padded_sides)(torch, t, rank)
     plan = t.layout.plan_fwd
     return {
         "split": split, "sides": sides,
@@ -1095,9 +1251,10 @@ def phase_time_quant(torch, card, lanes):
 
 def phase_pad(torch, seed):
     """quant_rows and dequant_rows against their plain versions on the card,
-    bit for bit: bits 2/4/8, f32 and bf16 rows, row counts that are no
-    multiple of the TPU kernel's 256, f_true < F, a constant row, no rows;
-    and the round trip within one step."""
+    in their contiguous forms bit for bit: bits 2/4/8, f32 and bf16 rows,
+    row counts that are no multiple of the TPU kernel's 256, f_true < F, a
+    constant row, no rows; and the round trip within one step. Then their
+    lane forms on mixed-bucket tables (:func:`_hold_frames`)."""
     from adaqp_tpu_torch.ops import quant_cuda as qc
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -1145,6 +1302,74 @@ def phase_pad(torch, seed):
     say(f"[pad] {cases} cases (bits 2/4/8, F 640/256/18, f32/bf16, N 0/1/33/25,700, a constant "
         f"row): kernels equal the plain versions bit for bit (max |difference| quant_rows "
         f"{worst_q:g}, dequant_rows {worst_d:g}); round trip within one step")
+    lane_q, lane_d = _hold_frames(torch, seed)
+    return max(worst_q, lane_q), max(worst_d, lane_d)
+
+
+def _hold_frames(torch, seed):
+    """The lane forms (quant_frames, dequant_frames) against their plain
+    versions on the card, on the lane tables of random K=4 plans with 2-,
+    4- and 8-bit buckets (``tests/torch_helpers.py``): each rank's send
+    buffer and ranges bit for bit; each rank's received rows stored at their
+    destinations bit for bit (forward), or added there within 1e-6 * sum
+    |terms| of index_add_'s (backward: the atomics' order; row 0 comes back
+    from every peer); the sentinels of both directions dropped. Returns the
+    largest differences (send bytes and ranges, received rows)."""
+    import numpy as np
+
+    from adaqp_tpu_torch.assigner.assignment import buckets_from_assignment, random_assignment
+    from adaqp_tpu_torch.comm.exchange import padded_wire
+    from adaqp_tpu_torch.ops import quant_cuda as qc
+
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from torch_helpers import random_plan, rank_buckets, received_frames
+
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    saved = (qc.quant_rows.launches, qc.dequant_rows.launches)
+    worst_q = worst_d = worst_sum = 0.0
+    cases = []
+    n_rows = 10_240
+    for forward, f, ft, dtype in ((True, 640, 602, torch.bfloat16), (False, 256, 256, torch.float32),
+                                  (True, 256, 256, torch.bfloat16), (False, 18, 18, torch.float32),
+                                  (True, 18, 17, torch.float32)):
+        plan = random_plan(rng, 4, n_rows, lanes=(1_000, 3_000))
+        lowered = buckets_from_assignment(plan, random_assignment(plan, 1, seed), n_rows)[0]
+        check(len(lowered[0]) == 3, "the random plan lacks a width")
+        n_src, out_len = (n_rows, plan.r_pad) if forward else (plan.r_pad, n_rows)
+        frames = [getattr(padded_wire(rank_buckets(lowered, r, "cuda"), ft, f),
+                          "fwd" if forward else "bwd") for r in range(4)]
+        bufs = []
+        for r, fr in enumerate(frames):
+            x = torch.randn(n_src, f, generator=gen, device="cuda").to(dtype)
+            keys = [qc.stream_key(seed, r, i) for i in range(len(fr.bits))]
+            got, rng_k = qc.quant_frames(x, fr, keys, with_range=True)
+            want, rng_p = qc._quant_frames_torch(x, fr, keys, with_range=True)
+            worst_q = max(worst_q, float((got.int() - want.int()).abs().max()),
+                          float((rng_k - rng_p).abs().max()))
+            check(torch.equal(got, want) and torch.equal(rng_k, rng_p),
+                  f"quant_frames differs from its plain version (rank {r}, F={f}, {dtype})")
+            bufs.append(got)
+        for r, fr in enumerate(frames):
+            recv = received_frames(bufs, frames, r)
+            zeros = torch.zeros(out_len, f, device="cuda")
+            got = qc.dequant_frames(recv, fr, zeros.clone(), add=not forward)
+            want = qc._dequant_frames_torch(recv, fr, zeros.clone(), add=not forward)
+            worst_d = max(worst_d, float((got - want).abs().max()))
+            if forward:
+                check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+                      f"dequant_frames differs from its plain version (rank {r}, F={f})")
+                continue
+            scale = _abs_sums(torch, recv, fr, out_len, f)
+            worst_sum = max(worst_sum, float(((got - want).abs() / (scale + 1e-30)).max()))
+            check(bool(((got - want).abs() <= 1e-6 * scale).all()),
+                  f"the backward sums differ beyond 1e-6 * sum |terms| (rank {r}, F={f})")
+        cases.append(f"{'fwd' if forward else 'bwd'} F={f} f_true={ft} {str(dtype)[6:]} lanes "
+                     f"{[fr.n for fr in frames]}")
+    qc.quant_rows.launches, qc.dequant_rows.launches = saved
+    say(f"[pad] lane forms on K=4 tables of 2/4/8-bit buckets ({'; '.join(cases)}): send "
+        f"buffers, ranges and stored rows equal the plain versions bit for bit; backward sums "
+        f"within {worst_sum:.2e} of sum |terms| (limit 1e-6)")
     return worst_q, worst_d
 
 
@@ -1254,6 +1479,22 @@ def phase_train_pad(torch, args, k4):
     say(f"[train_pad] layer-0 buckets after the last assignment (bits, K*cap lanes): {r0['pad_shapes']}")
     _say_volume("train_pad", r0)
     _say_split("train_pad", r0["split"])
+    check(r0["sides"], "no padded exchange was recorded")
+    tot = dict.fromkeys(("send_ms", "recv_ms", "old_send_ms", "old_recv_ms"), 0.0)
+    for x in r0["sides"]:
+        say(f"[train_pad] rank 0 exchange, layer {x['layer']} {x['dir']} F={x['F']} "
+            f"f_true={x['f_true']} {x['dtype']}: {x['lanes']} lanes, (bits, lanes) "
+            f"{x['buckets']}; send side (quant_frames) {x['send_ms']:.4f} ms, receive side "
+            f"(dequant_frames) {x['recv_ms']:.4f} ms; the per-bucket composition before: send "
+            f"{x['old_send_ms']:.4f} ms, receive {x['old_recv_ms']:.4f} ms (CUDA events behind a "
+            "backlog)")
+        for k in tot:
+            tot[k] += x[k]
+    say(f"[train_pad] rank 0, the {len(r0['sides'])} exchanges of one step: send + receive "
+        f"{tot['send_ms'] + tot['recv_ms']:.4f} ms on the lane tables (send "
+        f"{tot['send_ms']:.4f}, receive {tot['recv_ms']:.4f}); per bucket before "
+        f"{tot['old_send_ms'] + tot['old_recv_ms']:.4f} ms (send {tot['old_send_ms']:.4f}, "
+        f"receive {tot['old_recv_ms']:.4f})")
     csv = np.genfromtxt(r0["csv"], delimiter=",", names=True)
     check(list(csv["Worker"]) == [0, 1, 2, 3], "the time CSV lacks a rank's row")
     for b in ("Comm", "Quant", "Central", "Marginal"):
@@ -1267,66 +1508,135 @@ def phase_train_pad(torch, args, k4):
     return res
 
 
+def _case_frames(torch, gen, case):
+    """Lane tables of one shape of :func:`_pad_cases` on the card: the
+    probe's identity tables, or source and destination rows drawn within
+    the shape's ranges, about one lane in eight a sentinel (a source past
+    the rows backward, a destination past the output), destinations unique
+    forward and repeated backward."""
+    from adaqp_tpu_torch.ops import quant_cuda as qc
+
+    kind, bits, counts, f, ft, dt, n_src, n_out = case
+    n = sum(counts)
+    dev = "cuda"
+    if kind == "probe":
+        src = dst = torch.arange(n, device=dev)
+    else:
+        src = torch.randint(0, n_src, (n,), generator=gen, device=dev)
+        if kind == "bwd":
+            dst = torch.randint(0, n_out, (n,), generator=gen, device=dev)
+            src[torch.rand(n, generator=gen, device=dev) < 0.125] = n_src
+        else:
+            dst = torch.randperm(n_out + n, generator=gen, device=dev)[:n]
+        dst[torch.rand(n, generator=gen, device=dev) < 0.125] = n_out
+        dst = dst.clamp(max=n_out)
+    cuts = torch.tensor(counts).cumsum(0)[:-1].tolist()
+    return qc.make_frames(bits, list(torch.tensor_split(src, cuts)),
+                          list(torch.tensor_split(dst, cuts)), ft)
+
+
 def phase_time_pad(torch, card, res):
-    """quant_rows and dequant_rows at every shape train_pad gave them (each
-    rank's buckets under each assignment, forward and backward, and the
-    probe's), held against their plain versions bit for bit; then timed at
-    the largest layer-0 bucket: bf16 rows of 640 columns with 602 true, and
-    the codes of the wire's 604 columns back. Returns the two kernels' time
-    rows and their max |kernel - plain| (codes, scale, rmin; rows)."""
+    """quant_rows and dequant_rows in their lane forms on tables of every
+    shape train_pad gave them (each rank's directions under each
+    assignment, and the probe's identity tables; :func:`_case_frames`), held
+    against their plain versions: send buffers and stored rows bit for bit,
+    backward sums within 1e-6 * sum |terms|. Then both timed at the largest
+    layer-0 bucket on identity tables (bf16 rows of 640 columns, 602 true),
+    beside their bounds (bytes, and the operations of their hot loops'
+    SASS), their plain versions, torch.addcdiv for the receive arithmetic,
+    and their contiguous forms at the same rows. Returns the two kernels'
+    time rows and their max |kernel - plain| (send bytes and ranges;
+    rows)."""
     from adaqp_tpu_torch.ops import quant_cuda as qc
     from adaqp_tpu_torch.ops.quant import pad_features
 
     gen = torch.Generator(device="cuda").manual_seed(4)
-    cases = sorted({tuple(c) for r in res for c in r["pad_cases"]})
+    cases = sorted({c for r in res for c in r["pad_cases"]})
     saved = (qc.quant_rows.launches, qc.dequant_rows.launches)
     worst_q = worst_d = 0.0
-    inputs = {}  # the forward's bf16 rows at each (bits, N, F)
-    for bits, n, f, ft, dt in cases:
-        x = torch.randn(n, f, generator=gen, device="cuda").to(getattr(torch, dt))
-        fw = pad_features(ft)
-        q, sc, rm = qc.quant_rows(x, bits, ft, 5)
-        q0, sc0, rm0 = qc._quant_rows_torch(x, bits, ft, 5)
-        # the receiver's form: the wire's columns, the pair through bf16
-        p = torch.stack([sc, rm], dim=-1).to(torch.bfloat16).float()
-        qw, pscale, prmin = q[:, :fw].contiguous(), p[:, 0].contiguous(), p[:, 1].contiguous()
-        y, y0 = qc.dequant_rows(qw, pscale, prmin), qc._dequant_rows_torch(qw, pscale, prmin)
-        tag = f"bits={bits} N={n} F={f} f_true={ft} {dt}"
-        worst_q = max(worst_q, float((q.int() - q0.int()).abs().max()),
-                      float((sc - sc0).abs().max()), float((rm - rm0).abs().max()))
+    for case in cases:
+        kind, bits, counts, f, ft, dt, n_src, n_out = case
+        fr = _case_frames(torch, gen, case)
+        x = torch.randn(n_src, f, generator=gen, device="cuda").to(getattr(torch, dt))
+        keys = [qc.stream_key(5, i) for i in range(len(bits))]
+        add = kind == "bwd"
+        got, rng = qc.quant_frames(x, fr, keys, with_range=add)
+        want, rng0 = qc._quant_frames_torch(x, fr, keys, with_range=add)
+        tag = f"{kind} bits {bits} lanes {counts} F={f} f_true={ft} {dt}"
+        worst_q = max(worst_q, float((got.int() - want.int()).abs().max()),
+                      float((rng - rng0).abs().max()) if add else 0.0)
+        check(torch.equal(got, want) and (not add or torch.equal(rng, rng0)),
+              f"{tag}: quant_frames differs from the plain version")
+        zeros = torch.zeros(n_out, f, device="cuda")
+        y = qc.dequant_frames(got, fr, zeros.clone(), add)
+        y0 = qc._dequant_frames_torch(got, fr, zeros.clone(), add)
         worst_d = max(worst_d, float((y - y0).abs().max()))
-        check(torch.equal(q, q0) and torch.equal(sc, sc0) and torch.equal(rm, rm0),
-              f"{tag}: quant_rows differs from the plain version")
-        check(torch.equal(y, y0), f"{tag}: dequant_rows differs from the plain version")
-        if dt == "bfloat16":
-            inputs[(bits, n, f)] = (x, qw, pscale, prmin)
-    say(f"[time] quant_rows and dequant_rows equal their plain versions bit for bit at all "
-        f"{len(cases)} shapes train_pad gave them (bits, K*cap or K*s_pad rows, F, f_true, dtype): "
-        f"{cases}")
+        tol = 1e-6 * _abs_sums(torch, got, fr, n_out, f) if add else 0.0
+        check(bool(((y - y0).abs() <= tol).all()), f"{tag}: dequant_frames differs from the "
+              "plain version")
+    say(f"[time] quant_rows and dequant_rows (lane forms) equal their plain versions at all "
+        f"{len(cases)} shapes train_pad gave them (direction, bits, lanes a bucket, F, f_true, "
+        f"dtype, source rows, output rows): {cases}")
+    clock = sm_clock_mhz()
+    sass = {"quant": sass_per_element("quant_rows", "17quant_rows_kernelILb1ELb1E", "I2F",
+                                      cheapest=True),
+            "dequant": sass_per_element("quant_rows", "19dequant_rows_kernelILb1ELb1ELb0E", "I2F",
+                                        cheapest=True)}
+    for name, (counts, elems, n_ins) in sass.items():
+        say(f"[time] {card} | SASS of the {name}_rows lane form's cheapest coding loop: {n_ins} "
+            f"instructions for {elems} elements; an element: "
+            + ", ".join(f"{v:.2f} {k}" for k, v in counts.items()))
     # the largest layer-0 bucket of training (the probe's rows aside)
     bits, n = max(res[0]["pad_shapes"], key=lambda s: s[1])
-    f, ft, fw = 640, 602, pad_features(602)
-    x, qw, sc, rm = inputs[(bits, n, f)]
-    ms_q = cuda_ms(torch, lambda: qc.quant_rows(x, bits, ft, 5), reps=20, backlog=True)
-    ms_d = cuda_ms(torch, lambda: qc.dequant_rows(qw, sc, rm), reps=20, backlog=True)
+    f, ft = 640, 602
+    fw = pad_features(ft)
+    x = torch.randn(n, f, generator=gen, device="cuda").to(torch.bfloat16)
+    ident = torch.arange(n, device="cuda")
+    fr = qc.make_frames((bits,), [ident], [ident], ft)
+    buf = qc.quant_frames(x, fr, (5,))[0]
+    out = torch.empty(n, f, device="cuda")
+    ms_q = cuda_ms(torch, lambda: qc.quant_frames(x, fr, (5,)), reps=20, backlog=True)
+    ms_d = cuda_ms(torch, lambda: qc.dequant_frames(buf, fr, out), reps=20, backlog=True)
+    # the contiguous forms at the same rows: the codes of the wire's columns
+    # back, with the pair through bf16
+    q, sc, rm = qc.quant_rows(x, bits, ft, 5)
+    p = torch.stack([sc, rm], dim=-1).to(torch.bfloat16).float()
+    qw, ps, pr = q[:, :fw].contiguous(), p[:, 0].contiguous(), p[:, 1].contiguous()
+    ms_qc = cuda_ms(torch, lambda: qc.quant_rows(x, bits, ft, 5), reps=20, backlog=True)
+    ms_dc = cuda_ms(torch, lambda: qc.dequant_rows(qw, ps, pr), reps=20, backlog=True)
     qc.quant_rows.launches, qc.dequant_rows.launches = saved
-    plain_q = cuda_ms(torch, lambda: qc._quant_rows_torch(x, bits, ft, 5), reps=3, warmup=1)
-    plain_d = cuda_ms(torch, lambda: qc._dequant_rows_torch(qw, sc, rm), reps=3, warmup=1)
+    clock_now = sm_clock_mhz()[0]
+    plain_q = cuda_ms(torch, lambda: qc._quant_frames_torch(x, fr, (5,)), reps=3, warmup=1)
+    plain_d = cuda_ms(torch, lambda: qc._dequant_frames_torch(buf, fr, out), reps=3, warmup=1)
     # one library call computes rmin + q / scale (the port never calls it)
-    lib_d = cuda_ms(torch, lambda: torch.addcdiv(rm[:, None], qw, sc[:, None]), reps=20,
+    lib_d = cuda_ms(torch, lambda: torch.addcdiv(pr[:, None], qw, ps[:, None]), reps=20,
                     backlog=True)
-    lib_err = float((torch.addcdiv(rm[:, None], qw, sc[:, None])
-                     - qc._dequant_rows_torch(qw, sc, rm)).abs().max())
-    bytes_q = n * f * 2 + n * f + 8 * n
-    bytes_d = n * fw + 8 * n + 4 * n * fw
-    bq, bd = bytes_q / PEAK_BYTES_S * 1e3, bytes_d / PEAK_BYTES_S * 1e3
-    say(f"[time] {card} | quant_rows N={n} F={f} f_true={ft} {bits} bits bf16: kernel {ms_q:.4f} ms; "
-        f"bound {bq:.4f} ms by bytes ({bytes_q / 1e6:.1f} MB); plain {plain_q:.3f} ms; library none")
-    say(f"[time] {card} | dequant_rows N={n} F={fw}: kernel {ms_d:.4f} ms; bound {bd:.4f} ms by "
-        f"bytes ({bytes_d / 1e6:.1f} MB); plain {plain_d:.3f} ms; torch.addcdiv {lib_d:.4f} ms "
-        f"(max |addcdiv - plain| {lib_err:g})")
-    return ((dict(ms=ms_q, plain_ms=plain_q, bound_ms=bq, bound_by="bytes", library_ms=None),
-             dict(ms=ms_d, plain_ms=plain_d, bound_ms=bd, bound_by="bytes", library_ms=lib_d)),
+    lib_err = float((torch.addcdiv(pr[:, None], qw, ps[:, None])
+                     - qc._dequant_rows_torch(qw, ps, pr)).abs().max())
+    # rows read once, frames written once, the four lane tables read; then
+    # frames and three tables read, rows written once
+    bytes_q = n * f * 2 + fr.nbytes + 4 * 8 * n
+    bytes_d = fr.nbytes + 3 * 8 * n + n * f * 4
+    bounds = []
+    for nbytes, (counts, _, _), elems in ((bytes_q, sass["quant"], n * fw),
+                                          (bytes_d, sass["dequant"], n * ft)):
+        b_ms = nbytes / PEAK_BYTES_S * 1e3
+        o_ms, pipe = ops_ms(counts, elems, clock[1])
+        bounds.append((max(b_ms, o_ms), "bytes" if b_ms >= o_ms else "operations", b_ms, o_ms,
+                       pipe))
+    (bq, byq, bqb, bqo, pq), (bd, byd, bdb, bdo, pd) = bounds
+    say(f"[time] {card} | quant_rows (quant_frames) N={n} F={f} f_true={ft} {bits} bits bf16, "
+        f"identity tables: kernel {ms_q:.4f} ms; bound {bq:.4f} ms by {byq} (bytes {bqb:.4f} ms, "
+        f"{bytes_q / 1e6:.1f} MB; operations {bqo:.4f} ms on the {pq} pipe, {n * fw} elements "
+        f"at {clock[1]:g} MHz; SM clock {clock_now:g} MHz after the runs); plain {plain_q:.3f} "
+        f"ms; library none; contiguous form quant_rows {ms_qc:.4f} ms")
+    say(f"[time] {card} | dequant_rows (dequant_frames) N={n} F={f} f_true={ft}: kernel "
+        f"{ms_d:.4f} ms; bound {bd:.4f} ms by {byd} (bytes {bdb:.4f} ms, {bytes_d / 1e6:.1f} MB; "
+        f"operations {bdo:.4f} ms on the {pd} pipe, {n * ft} elements); plain {plain_d:.3f} ms; "
+        f"torch.addcdiv {lib_d:.4f} ms on the {fw} wire columns (max |addcdiv - plain| "
+        f"{lib_err:g}); contiguous form dequant_rows {ms_dc:.4f} ms")
+    return ((dict(ms=ms_q, plain_ms=plain_q, bound_ms=bq, bound_by=byq, library_ms=None),
+             dict(ms=ms_d, plain_ms=plain_d, bound_ms=bd, bound_by=byd, library_ms=lib_d)),
             (worst_q, worst_d))
 
 

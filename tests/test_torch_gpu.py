@@ -10,10 +10,14 @@ card's machine (no JAX there) runs them without the suite's conftest:
 (``chip_smoke.py``'s phase ``gpu_tests`` runs exactly that.) The CPU
 tests of each module hold its plain version against the JAX package.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
+from adaqp_tpu_torch.assigner.assignment import buckets_from_assignment, random_assignment
+from adaqp_tpu_torch.comm.exchange import padded_wire
 from adaqp_tpu_torch.comm.wire import wire_cols
 from adaqp_tpu_torch.ops import quant_cuda as qc
 from adaqp_tpu_torch.ops import spmm_block as tblock
@@ -24,7 +28,8 @@ from adaqp_tpu_torch.scripts import microbench_dma_gather as dg
 from adaqp_tpu_torch.scripts import microbench_expand as me
 from adaqp_tpu_torch.scripts import microbench_gather as gb
 from adaqp_tpu_torch.scripts import probe_r5 as pr
-from torch_helpers import merged_targets, random_edges, random_wire, received, strip_cases
+from torch_helpers import (merged_targets, random_edges, random_plan, random_wire, rank_buckets,
+                           received, received_frames, strip_cases)
 
 
 @pytest.fixture
@@ -148,6 +153,54 @@ def test_cuda_padded_kernels_match_plain(rng, cuda_device, bits, dtype):
     assert torch.equal(q, q0) and torch.equal(s, s0) and torch.equal(r, r0)
     assert torch.equal(qc.dequant_rows(q, s, r), qc._dequant_rows_torch(q0, s0, r0))
     assert (qc.quant_rows.launches, qc.dequant_rows.launches) == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("f,ft", [(640, 602), (256, 256), (18, 17)])
+@pytest.mark.parametrize("forward", [True, False], ids=["fwd", "bwd"])
+def test_cuda_frame_kernels_match_plain(rng, cuda_device, forward, f, ft, dtype):
+    """quant_frames and dequant_frames (one launch a direction) against
+    their plain versions on the lane tables of a random K=4 plan with 2-,
+    4- and 8-bit buckets: every rank's send buffer and ranges bit for bit;
+    the received rows stored at their halo slots bit for bit (forward), or
+    added into their owners' rows within 1e-6 * sum |terms| (backward: the
+    atomics add in another order than index_add_, and row 0 comes back from
+    every peer); the sentinel lanes of both directions dropped."""
+    n_rows = 3000
+    plan = random_plan(rng, 4, n_rows, lanes=(200, 800))
+    lowered = buckets_from_assignment(plan, random_assignment(plan, 1, 3), n_rows)[0]
+    assert len(lowered[0]) == 3
+    ft = ft if forward else f  # the backward's rows are every column live
+    n_src, out_len = (n_rows, plan.r_pad) if forward else (plan.r_pad, n_rows)
+    frames = [getattr(padded_wire(rank_buckets(lowered, r, cuda_device), ft, f),
+                      "fwd" if forward else "bwd") for r in range(4)]
+    bufs = []
+    for r, fr in enumerate(frames):
+        x = torch.tensor(_rows(rng, n_src, f, ft), device=cuda_device).to(dtype)
+        keys = [qc.stream_key(9, r, i) for i in range(len(fr.bits))]
+        before = qc.quant_rows.launches
+        got, rng_k = qc.quant_frames(x, fr, keys, with_range=True)
+        assert qc.quant_rows.launches == before + (fr.n > 0)
+        want, rng_p = qc._quant_frames_torch(x, fr, keys, with_range=True)
+        assert torch.equal(got, want) and torch.equal(rng_k, rng_p), f"rank {r}"
+        bufs.append(got)
+    for r, fr in enumerate(frames):
+        recv = received_frames(bufs, frames, r)
+        zeros = torch.zeros(out_len, f, device=cuda_device)
+        before = qc.dequant_rows.launches
+        got = qc.dequant_frames(recv, fr, zeros.clone(), add=not forward)
+        assert qc.dequant_rows.launches == before + (fr.n > 0)
+        want = qc._dequant_frames_torch(recv, fr, zeros.clone(), add=not forward)
+        if forward:
+            assert torch.equal(got.view(torch.int32), want.view(torch.int32)), f"rank {r}"
+            continue
+        # each lane's row on a row of its own, then its |terms| summed
+        own = dataclasses.replace(fr, dst=torch.arange(fr.n, device=cuda_device))
+        terms = qc._dequant_frames_torch(recv, own, torch.zeros(fr.n, f, device=cuda_device))
+        keep = fr.dst < out_len
+        scale = zeros.clone().index_add_(0, fr.dst[keep], terms[keep].abs())
+        assert bool(((got - want).abs() <= 1e-6 * scale).all()), f"rank {r}: sums"
 
 
 @pytest.mark.gpu

@@ -285,3 +285,115 @@ def unpack_by_buckets(w, recvbuf, scatter_add, f_true, f_pad):
     if s_tot:
         out.index_add_(0, torch.cat(w.d_rows), rows)
     return out
+
+
+def random_plan(rng, k, n_rows, lanes=(3, 12), skip=((0, 1),), spare=3):
+    """A random boundary plan (the port's ``ExchangePlan``) over ``k``
+    ranks of ``n_rows`` local rows: every channel but those in ``skip``
+    carries ``lanes`` lanes of random rows, row 0 sent to every peer; each
+    receiver's halo slots follow its senders in rank order, ``spare`` more
+    slots receive nothing."""
+    from adaqp_tpu_torch.graph.layout import ExchangePlan
+
+    counts = np.zeros((k, k), np.int64)
+    for s in range(k):
+        for r in range(k):
+            if s != r and (s, r) not in skip:
+                counts[s, r] = rng.integers(*lanes)
+    s_pad = max(int(counts.max()), 1)
+    num_remote = counts.sum(0)
+    r_pad = int(num_remote.max()) + spare
+    send_idx = np.zeros((k, k, s_pad), np.int32)
+    recv_slot = np.full((k, k, s_pad), r_pad, np.int32)
+    for r in range(k):
+        off = 0
+        for s in range(k):
+            c = int(counts[s, r])
+            if s == r or not c:
+                continue
+            send_idx[s, r, :c] = rng.integers(0, n_rows, c)
+            send_idx[s, r, 0] = 0  # a row sent to every peer
+            recv_slot[r, s, :c] = off + np.arange(c)
+            off += c
+    zeros = np.zeros((k, k, s_pad), np.float32)
+    return ExchangePlan(send_idx, recv_slot, counts, num_remote, zeros, zeros,
+                        np.full((k, r_pad), -1, np.int64), s_pad, r_pad)
+
+
+def rank_buckets(lowered, rank, device=None):
+    """One layer's ``buckets_from_assignment`` output -> rank ``rank``'s
+    ``(bits, quads)`` of int64 ``[K, cap]`` tensors."""
+    import torch
+
+    bits, arrays = lowered
+    return bits, tuple(tuple(torch.as_tensor(a[rank]).long().to(device) for a in quad)
+                       for quad in arrays)
+
+
+def received_frames(bufs, frames, rank):
+    """Rank ``rank``'s receive buffer of the padded wire: per bucket, chunk
+    ``rank`` of each sender's slice, senders ascending (what each bucket's
+    all-to-all delivers)."""
+    import torch
+
+    k = len(bufs)
+    parts = []
+    for i in range(len(frames[rank].bits)):
+        for buf, fr in zip(bufs, frames):
+            parts.append(fr.views(buf)[i].reshape(k, -1)[rank])
+    return torch.cat(parts) if parts else bufs[rank][:0]
+
+
+def frames_by_buckets(x, buckets, key, f_true, backward=False):
+    """The send side as the padded exchange composed it before one kernel
+    launch served a direction: per bucket the lane gather (the backward's
+    over the rows and a zero row for the sentinel slots), the plain
+    ``quant_rows``, ``to_width``, ``pack_rows``, the bf16 pair and the
+    frame's concatenation: one uint8 ``[K, cap, bytes + 4]`` tensor a
+    bucket."""
+    import torch
+
+    from adaqp_tpu_torch.ops.quant import pack_rows, pad_features, to_width
+    from adaqp_tpu_torch.ops.quant_cuda import _quant_rows_torch, stream_key
+
+    bits, arrays = buckets
+    src = torch.cat([x, x.new_zeros((1, x.shape[1]))]) if backward else x
+    out = []
+    for i, (b, quad) in enumerate(zip(bits, arrays)):
+        rows = src[quad[2] if backward else quad[0]]
+        k, cap, f = rows.shape
+        q, scale, rmin = _quant_rows_torch(rows.reshape(k * cap, f), b, f_true,
+                                           stream_key(key, i))
+        wire = pack_rows(to_width(q, pad_features(f_true)), b)
+        pair = torch.stack([scale, rmin], dim=-1).to(torch.bfloat16).view(torch.uint8)
+        out.append(torch.cat([wire, pair], dim=-1).reshape(k, cap, wire.shape[1] + 4))
+    return out
+
+
+def unframe_by_buckets(recv, buckets, f, f_true, out_len, backward=False):
+    """The receive side as the padded exchange composed it before, from
+    each bucket's received ``[K, cap, bytes + 4]`` frames: the frame's
+    split, ``unpack_rows``, the plain ``dequant_rows`` with the bf16 pair
+    widened, ``true_columns``, then ``rows[recv_slot] = ...`` (forward) or
+    ``index_add_`` into the owners' rows (backward), a spare row taking the
+    sentinels."""
+    import torch
+
+    from adaqp_tpu_torch.ops.quant import pad_features, true_columns, unpack_rows
+    from adaqp_tpu_torch.ops.quant_cuda import _dequant_rows_torch
+
+    bits, arrays = buckets
+    out = torch.zeros((out_len + 1, f), dtype=torch.float32)
+    for b, quad, buf in zip(bits, arrays, recv):
+        k, cap, nb = buf.shape
+        wire = buf[..., :-4].reshape(k * cap, nb - 4)
+        p = buf[..., -4:].contiguous().view(torch.bfloat16).reshape(k * cap, 2).float()
+        q = unpack_rows(wire, b, pad_features(f_true)).contiguous()
+        rows = true_columns(_dequant_rows_torch(q, p[:, 0].contiguous(), p[:, 1].contiguous()),
+                            f_true, f)
+        dest = (quad[3] if backward else quad[1]).reshape(-1)
+        if backward:
+            out.index_add_(0, dest, rows)
+        else:
+            out[dest] = rows
+    return out[:out_len]
