@@ -102,17 +102,48 @@ __device__ __forceinline__ void code_bytes(const float* __restrict__ row, int f,
                                            uint8_t* __restrict__ fb, int lane) {
   constexpr int kM = 8 / kPack;
   for (int p = lane; p < n_cb; p += 32) {
+    float e[kM];
+    if constexpr (kFull && kM == 4) {  // one 16-byte load (rows start on 16 bytes)
+      const float4 t = reinterpret_cast<const float4*>(row)[p];
+      e[0] = t.x, e[1] = t.y, e[2] = t.z, e[3] = t.w;
+    } else if constexpr (kFull && kM == 2) {
+      const float2 t = reinterpret_cast<const float2*>(row)[p];
+      e[0] = t.x, e[1] = t.y;
+    } else {
+#pragma unroll
+      for (int t = 0; t < kM; ++t) e[t] = kFull || p * kM + t < f ? row[p * kM + t] : 0.f;
+    }
     uint32_t byte = 0;
 #pragma unroll
     for (int t = 0; t < kM; ++t) {
       const int c = p * kM + t;
       if (kFull || c < f) {
-        const float v = add_uniform(__fmul_rn(__fsub_rn(row[c], lo), s), h2,
+        const float v = add_uniform(__fmul_rn(__fsub_rn(e[t], lo), s), h2,
                                     static_cast<uint32_t>(c));
         byte |= static_cast<uint32_t>(__float2int_rd(fminf(fmaxf(v, 0.f), qmax))) << (t * kPack);
       }
     }
     fb[p] = static_cast<uint8_t>(byte);
+  }
+}
+
+// The 8-bit codes of one lane as words j = lane, lane + 32, ... < n_words
+// (word j: columns 4j .. 4j + 3, all in the row, one 16-byte load from
+// shared memory), stored straight to the lane's 4-byte aligned codes `out`.
+__device__ __forceinline__ void code_words8(const float* __restrict__ row, int n_words, float lo,
+                                            float s, float qmax, uint32_t h2,
+                                            uint32_t* __restrict__ out, int lane) {
+  for (int j = lane; j < n_words; j += 32) {
+    const float4 t = reinterpret_cast<const float4*>(row)[j];
+    const float e[4] = {t.x, t.y, t.z, t.w};
+    uint32_t w = 0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float v = add_uniform(__fmul_rn(__fsub_rn(e[k], lo), s), h2,
+                                  static_cast<uint32_t>(4 * j + k));
+      w |= static_cast<uint32_t>(__float2int_rd(fminf(fmaxf(v, 0.f), qmax))) << (8 * k);
+    }
+    out[j] = w;
   }
 }
 
@@ -173,6 +204,24 @@ quant_rows_kernel(const void* __restrict__ x, int64_t n_rows, int n_lanes, int f
   const uint32_t h2 = row_hash(bk.key[b], static_cast<uint32_t>(kFrames ? index[l] : l));
   uint8_t* g = out + (kFrames ? frame_off[l] : static_cast<int64_t>(l) * f);
   const int lead = static_cast<int>(reinterpret_cast<uintptr_t>(g) & 3);
+  const int n_code = kFrames ? f_wire : f;  // coded columns
+  if ((!kFrames || bits == 8) && lead == 0 && n_code <= f && n_code % 4 == 0) {
+    // a byte a code on 4-byte aligned codes: whole words, no staging (the
+    // frames of an 8-bit bucket all start on 4 bytes: its buffer slice
+    // does, and frames are f_wire + 4 bytes)
+    code_words8(row, n_code / 4, lo, s, qmax, h2, reinterpret_cast<uint32_t*>(g), lane);
+    if (lane == 0) {
+      if constexpr (kFrames) {  // the bf16 pair: scale in the low half, rmin in the high
+        reinterpret_cast<uint32_t*>(g)[n_code / 4] =
+            (static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(lo))) << 16) |
+            __bfloat16_as_ushort(__float2bfloat16_rn(s));
+      } else {
+        scale_out[l] = s;
+        rmin_out[l] = lo;
+      }
+    }
+    return;
+  }
   uint8_t* fb = fbase + lead;  // the frame sits at the global frame's offset modulo 4
   int n;
   if constexpr (kFrames) {
