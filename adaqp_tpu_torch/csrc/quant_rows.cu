@@ -45,21 +45,29 @@
 //
 // What bounds them. quant_rows reads each lane's row once and writes its
 // frame: at train_pad's largest layer-0 bucket (34,240 lanes of 640 bf16
-// columns, 602 true, 8 bits) 43.8 MB and 20.8 MB, 19.3 us at 3.35 TB/s. Its
-// hash costs a dozen integer-pipe operations an element and two
-// conversions (chip_smoke.py counts them in the SASS of the built library),
-// about 10-14 us at that shape, so bytes bound it. dequant_rows reads the
-// frames and writes f_out floats a lane (87.7 MB at that shape, 32.5 us):
-// bytes bound it.
+// columns, 602 true, 8 bits) 43.8 MB and 20.8 MB with the lane tables,
+// 19.6 us at 3.35 TB/s. Its hash and rounding cost about ten
+// integer-pipe operations an element and two conversions (chip_smoke.py
+// counts them in the SASS of the built library), about 12 us at that
+// shape, so bytes bound it. dequant_rows reads the frames and writes f_out
+// floats a lane (87.7 MB at that shape, 32.6 us): bytes bound it.
 //
 // The design. quant_rows: one warp a lane. It copies the source row into
 // shared memory as f32 (16-byte loads where the row's address allows),
-// taking min and max on the way; then lane j codes frame bytes j, j + 32,
-// ... from shared memory (neighbouring lanes on neighbouring columns) into
-// a frame staged in shared memory at the global frame's offset modulo 4,
-// adds the pair, and stores the frame with aligned 4-byte stores,
-// neighbouring lanes on neighbouring words, and byte stores at its two
-// ragged ends (frames of 306 or 155 bytes start anywhere). dequant_rows:
+// taking min and max on the way. A lane whose codes are a byte each and
+// start on 4 bytes (every frame of an 8-bit bucket whose slice does, as
+// every slice does when the capacities are multiples of 8, since frames
+// are f_wire + 4 bytes; every contiguous row of a multiple-of-4 width)
+// then codes word j = columns 4j
+// .. 4j + 3 from one 16-byte shared load and stores it straight to global
+// memory, neighbouring lanes on neighbouring words. The other frames (306
+// or 155 bytes at 4 or 2 bits start anywhere): lane j codes frame bytes j,
+// j + 32, ... (its columns in one vector load) into a frame staged in
+// shared memory at the global frame's offset modulo 4, and the warp stores
+// it with aligned 4-byte stores and byte stores at its two ragged ends.
+// Persistent warps that fetched the next lane's row with cp.async while
+// coding this one, blocks of 64 or 128 threads, and several row loads a
+// thread in flight were each measured and were no faster. dequant_rows:
 // one warp a lane, its scale and rmin loaded once; each lane takes 4
 // neighbouring columns at a time, loads their codes with aligned word loads
 // (a funnel shift where they straddle two words), divides each by the scale

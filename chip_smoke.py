@@ -21,7 +21,8 @@ version and a library call where one exists. It also drives the probes of
 ``microbench_expand``, ``probe_r5``) through their mains, and runs the
 card-only pytest cases. Phases: env, build, agg
 (block_spmm, compact_spmm and gather_rows), pad (quant_rows and
-dequant_rows), quant (quant_pack and unpack_dequant in their contiguous
+dequant_rows in their contiguous form and on the lane tables of synthetic
+K=4 padded wires), quant (quant_pack and unpack_dequant in their contiguous
 form and over the lane tables of synthetic K=4 wires), gather (ring_gather,
 window_gather and compact_item against their plain versions, the two
 mains with their launches checked, then each kernel timed with its
@@ -40,11 +41,13 @@ padded wire, with the probe), e2e_agg (K=2 card against CPU for block,
 compact and segment), train_agg (the products GCN through the four
 aggregations), time (after k1, train_k, train_pad and train_agg; after
 train_pad it first holds quant_rows and dequant_rows against their plain
-versions at every shape that run gave them; with ``--profile``, also a
-device-time breakdown of a few training steps of the K=1 Reddit run and of
-each train_agg run; train_k and train_pad always profile three more steps
-of rank 0, and train_k times rank 0's send and receive sides of each
-exchange of one more step, holding them against the plain versions). The
+versions on lane tables of every shape that run gave them; with
+``--profile``, also a device-time breakdown of a few training steps of the
+K=1 Reddit run and of each train_agg run; train_k and train_pad always
+profile three more steps of rank 0 and time rank 0's send and receive
+sides of each exchange of one more step, holding them against the plain
+versions; train_pad also times the per-bucket composition its exchange
+ran before on the same inputs). The
 quant kernels' bounds count the operations of their hot loops in the SASS
 of the built library (``cuobjdump``) beside their bytes. The runs that check exact
 launch counts of training alone turn the probe off; train_pad counts the
