@@ -199,12 +199,10 @@ def _mix32(x: torch.Tensor) -> torch.Tensor:
     return x ^ (x >> 16)
 
 
-def uniforms(key: int, n: int, f: int, device=None,
-             rows: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """f32 [n, f] uniforms in [0, 1) of launch ``key`` at rows 0..n-1, or
-    at the int64 ``rows`` [n] (plain version of the kernel's generator)."""
-    row = (torch.arange(n, device=device, dtype=torch.int64) if rows is None
-           else rows.to(device=device, dtype=torch.int64))[:, None]
+def uniforms(key: int, n: int, f: int, device=None) -> torch.Tensor:
+    """f32 [n, f] uniforms in [0, 1) of launch ``key`` (plain version of
+    the kernel's generator)."""
+    row = torch.arange(n, device=device, dtype=torch.int64)[:, None]
     col = torch.arange(f, device=device, dtype=torch.int64)[None, :]
     h = _mix32(_mix32(row ^ (key & _MASK)) ^ col)
     return (h & 0xFFFFFF).to(torch.float32) * (2.0**-24)
@@ -302,10 +300,10 @@ def _quant_frames_torch(x: torch.Tensor, fr: Frames, keys: Sequence[int],
     rng = torch.zeros(n, dtype=torch.float32, device=dev) if with_range else None
     xz = torch.cat([x, x.new_zeros((1, f))])  # the sentinels' zero row
     for bi, sl in _bucket_slices(fr):
+        # a bucket's lanes are its batch's rows in order (make_frames)
         b, src = fr.bits[bi], fr.src[sl]
         rows = xz[src.clamp(max=n)]
-        u = uniforms(keys[bi], src.numel(), f, dev, rows=fr.index[sl])
-        q, scale, rmin = quantize_rows(rows, b, u, fr.f_true)
+        q, scale, rmin = _quant_rows_torch(rows, b, fr.f_true, keys[bi])
         pair = torch.stack([scale, rmin], dim=-1).to(torch.bfloat16).view(torch.uint8)
         frame = torch.cat([pack_rows(to_width(q, fr.f_wire), b), pair], dim=-1)
         buf[fr.frame_off[sl, None] + torch.arange(fr.frame_bytes(bi), device=dev)] = frame
