@@ -244,20 +244,16 @@ class QuantPending:
                 range_proxy(rng, fr.f_true) if want_trace else None)
 
 
-def padded_start(h: torch.Tensor, buckets, r_pad: int, key: int = 0,
-                 f_true: Optional[int] = None):
-    """Start a padded exchange of ``h`` [L, F] without waiting: f32
-    buckets (``FP_BITS``) ship each bucket's gathered rows; quantized ones
-    go through :func:`quant_start` on their lane tables, bucket ``i`` with
-    the key ``stream_key(key, i)``."""
-    f = h.shape[1]
-    ft = f if f_true is None else f_true
+def padded_start(h: torch.Tensor, buckets, r_pad: int) -> PaddedPending:
+    """Start the f32 padded exchange of ``h`` [L, F] (buckets of
+    ``FP_BITS``) without waiting: each bucket's gathered rows ship as they
+    are."""
     bits, arrays = buckets
     if any(b != FP_BITS for b in bits):
-        return quant_start(h, padded_wire(buckets, ft, f), r_pad, key, ft)
+        raise ValueError(f"bucket widths {bits}: quantized buckets start with quant_start")
     with torch.no_grad():
         shipped = [_ship(h[send_idx], recv_slot, True) for send_idx, recv_slot, _, _ in arrays]
-    return PaddedPending(buckets, shipped, r_pad, f, h.device)
+    return PaddedPending(buckets, shipped, r_pad, h.shape[1], h.device)
 
 
 def quant_start(h: torch.Tensor, wire: PaddedWire, r_pad: int, key: int,
@@ -317,5 +313,6 @@ def exchange_quant(h: torch.Tensor, keys: Sequence[int], sink: Optional[torch.Te
     ``comm.py:193-222``): ``keys = (forward key, backward key)``;
     ``f_true`` the true feature columns of ``h`` (the range and the wire
     width). Remote rows f32 [r_pad, F]."""
-    buckets = (tuple(bucket_bits), tuple(bucket_arrays))
-    return padded_finish(h, sink, padded_start(h, buckets, r_pad, keys[0], f_true), keys[1])
+    ft = h.shape[1] if f_true is None else f_true
+    wire = padded_wire((tuple(bucket_bits), tuple(bucket_arrays)), ft, h.shape[1])
+    return padded_finish(h, sink, quant_start(h, wire, r_pad, keys[0], ft), keys[1])

@@ -55,21 +55,25 @@ __device__ __forceinline__ void put_chunk(uint4 u, int v, int f_true, float* __r
   }
 }
 
-// Copies row r of x [n, f] into `row` as f32 (16-byte loads where the row's
-// address allows, then scalar ones); returns this lane's min and max over
-// columns < f_true (reduced over the warp by the caller).
+// Copies the first n columns of row r of x [rows, f] into `row` as f32:
+// where the row's address allows, 16-byte loads up to the chunk that holds
+// column n - 1 while it lies in the row (up to n rounded up to 8 columns:
+// a partial chunk costs no second round trip to memory, scalar loads
+// would), then scalar ones; returns this lane's min and max over columns <
+// f_true <= n (reduced over the warp by the caller).
 template <bool kBf16>
-__device__ __forceinline__ void stage_row(const void* __restrict__ x, int64_t r, int f,
+__device__ __forceinline__ void stage_row(const void* __restrict__ x, int64_t r, int f, int n,
                                           int f_true, float* __restrict__ row, int lane,
                                           float& lo, float& hi) {
   constexpr int kEs = kBf16 ? 2 : 4;
   constexpr int kPer = 16 / kEs;  // elements a 16-byte load
   const char* base = static_cast<const char*>(x) + r * f * kEs;
-  const int nvec = (reinterpret_cast<uintptr_t>(base) & 15) == 0 ? f / kPer : 0;
+  const int nvec =
+      (reinterpret_cast<uintptr_t>(base) & 15) == 0 ? min((n + kPer - 1) / kPer, f / kPer) : 0;
   for (int v = lane; v < nvec; v += 32) {
     put_chunk<kBf16>(__ldg(reinterpret_cast<const uint4*>(base) + v), v, f_true, row, lo, hi);
   }
-  for (int c = nvec * kPer + lane; c < f; c += 32) {
+  for (int c = nvec * kPer + lane; c < n; c += 32) {
     const float e = load<kBf16>(x, static_cast<size_t>(r) * f + c);
     row[c] = e;
     if (c < f_true) {

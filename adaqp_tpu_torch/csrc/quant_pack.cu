@@ -143,7 +143,7 @@ pack_lanes_kernel(const void* __restrict__ x, int n_lanes, int f, int f_true, Bu
   const int wpr = bk.wpr[b];
   const int64_t wo = tables ? word_off[l] : static_cast<int64_t>(l) * wpr;
   float lo = INFINITY, hi = -INFINITY;
-  stage_row<kBf16>(x, tables ? src[l] : l, f, f_true, row, lane, lo, hi);
+  stage_row<kBf16>(x, tables ? src[l] : l, f, f, f_true, row, lane, lo, hi);
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) {
     lo = fminf(lo, __shfl_xor_sync(0xffffffffu, lo, o));

@@ -43,18 +43,20 @@
 // FMA contraction, no fast-math flag), as the plain versions' separate
 // PyTorch ops do.
 //
-// What bounds them. quant_rows reads each lane's row once and writes its
-// frame: at train_pad's largest layer-0 bucket (34,240 lanes of 640 bf16
-// columns, 602 true, 8 bits) 43.8 MB and 20.8 MB with the lane tables,
-// 19.6 us at 3.35 TB/s. Its hash and rounding cost about ten
+// What bounds them. quant_rows reads the columns of each lane's row that
+// its frame codes once (min(f, f_wire)) and writes its frame: at
+// train_pad's largest layer-0 bucket (34,240 lanes of 640 bf16 columns,
+// 602 true, 604 on the wire, 8 bits) 41.4 MB and 20.8 MB with the lane
+// tables, 18.9 us at 3.35 TB/s. Its hash and rounding cost about ten
 // integer-pipe operations an element and two conversions (chip_smoke.py
 // counts them in the SASS of the built library), about 12 us at that
 // shape, so bytes bound it. dequant_rows reads the frames and writes f_out
 // floats a lane (87.7 MB at that shape, 32.6 us): bytes bound it.
 //
-// The design. quant_rows: one warp a lane. It copies the source row into
-// shared memory as f32 (16-byte loads where the row's address allows),
-// taking min and max on the way. A lane whose codes are a byte each and
+// The design. quant_rows: one warp a lane. It copies the source row's
+// coded columns (all f without lane tables) into shared memory as f32
+// (16-byte loads where the row's address allows), taking min and max on
+// the way. A lane whose codes are a byte each and
 // start on 4 bytes (every frame of an 8-bit bucket whose slice does, as
 // every slice does when the capacities are multiples of 8, since frames
 // are f_wire + 4 bytes; every contiguous row of a multiple-of-4 width)
@@ -187,7 +189,8 @@ quant_rows_kernel(const void* __restrict__ x, int64_t n_rows, int n_lanes, int f
   const int warp = threadIdx.x >> 5;
   const int l = blockIdx.x * kWarps + warp;
   if (l >= n_lanes) return;  // warp-uniform
-  const int rf = (f + 3) & ~3;
+  const int fs = kFrames ? min(f, f_wire) : f;  // the columns the codes read
+  const int rf = (fs + 7) & ~7;  // stage_row may stage up to fs rounded up to 8
   float* row = reinterpret_cast<float*>(smem) + warp * (rf + fb_stride / 4);
   uint8_t* fbase = reinterpret_cast<uint8_t*>(row + rf);
   const int64_t r = kFrames ? src[l] : l;
@@ -195,9 +198,9 @@ quant_rows_kernel(const void* __restrict__ x, int64_t n_rows, int n_lanes, int f
   const int bits = bk.bits[b];
   float lo = INFINITY, hi = -INFINITY;
   if (r < n_rows) {
-    stage_row<kBf16>(x, r, f, f_true, row, lane, lo, hi);
+    stage_row<kBf16>(x, r, f, fs, f_true, row, lane, lo, hi);
   } else {  // a sentinel: the zero row
-    for (int c = lane; c < f; c += 32) row[c] = 0.f;
+    for (int c = lane; c < fs; c += 32) row[c] = 0.f;
     lo = hi = 0.f;
   }
 #pragma unroll
@@ -213,7 +216,7 @@ quant_rows_kernel(const void* __restrict__ x, int64_t n_rows, int n_lanes, int f
   uint8_t* g = out + (kFrames ? frame_off[l] : static_cast<int64_t>(l) * f);
   const int lead = static_cast<int>(reinterpret_cast<uintptr_t>(g) & 3);
   const int n_code = kFrames ? f_wire : f;  // coded columns
-  if ((!kFrames || bits == 8) && lead == 0 && n_code <= f && n_code % 4 == 0) {
+  if ((!kFrames || bits == 8) && lead == 0 && n_code <= fs && n_code % 4 == 0) {
     // a byte a code on 4-byte aligned codes: whole words, no staging (the
     // frames of an 8-bit bucket all start on 4 bytes: its buffer slice
     // does, and frames are f_wire + 4 bytes)
@@ -235,13 +238,13 @@ quant_rows_kernel(const void* __restrict__ x, int64_t n_rows, int n_lanes, int f
   if constexpr (kFrames) {
     const int n_cb = f_wire * bits / 8;
     const bool full = f_wire <= f;
-    switch (bits * 2 + full) {
-      case 4: code_bytes<2, false>(row, f, n_cb, lo, s, qmax, h2, fb, lane); break;
-      case 5: code_bytes<2, true>(row, f, n_cb, lo, s, qmax, h2, fb, lane); break;
-      case 8: code_bytes<4, false>(row, f, n_cb, lo, s, qmax, h2, fb, lane); break;
-      case 9: code_bytes<4, true>(row, f, n_cb, lo, s, qmax, h2, fb, lane); break;
-      case 16: code_bytes<8, false>(row, f, n_cb, lo, s, qmax, h2, fb, lane); break;
-      default: code_bytes<8, true>(row, f, n_cb, lo, s, qmax, h2, fb, lane); break;
+    switch (bits * 2 + full) {  // not full: fs = f, codes 0 past it
+      case 4: code_bytes<2, false>(row, fs, n_cb, lo, s, qmax, h2, fb, lane); break;
+      case 5: code_bytes<2, true>(row, fs, n_cb, lo, s, qmax, h2, fb, lane); break;
+      case 8: code_bytes<4, false>(row, fs, n_cb, lo, s, qmax, h2, fb, lane); break;
+      case 9: code_bytes<4, true>(row, fs, n_cb, lo, s, qmax, h2, fb, lane); break;
+      case 16: code_bytes<8, false>(row, fs, n_cb, lo, s, qmax, h2, fb, lane); break;
+      default: code_bytes<8, true>(row, fs, n_cb, lo, s, qmax, h2, fb, lane); break;
     }
     if (lane < 4) {  // the bf16 pair: scale in the low half, rmin in the high
       const uint32_t pw =
@@ -378,13 +381,14 @@ extern "C" int adaqp_quant_rows(const void* x, int is_bf16, int64_t n_rows, int 
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n_lanes <= 0) return 0;
+  const int fs = frames ? min(f, f_wire) : f;  // the columns a warp stages
   int max_frame = f;
   if (frames) {
     max_frame = 0;
     for (int i = 0; i < nb; ++i) max_frame = max(max_frame, f_wire * bits[i] / 8 + 4);
   }
   const int fb_stride = (3 + max_frame + 15) & ~15;
-  const size_t smem = static_cast<size_t>(kWarps) * (((f + 3) & ~3) * sizeof(float) + fb_stride);
+  const size_t smem = static_cast<size_t>(kWarps) * (((fs + 7) & ~7) * sizeof(float) + fb_stride);
   auto kernel = frames ? (is_bf16 ? quant_rows_kernel<true, true> : quant_rows_kernel<false, true>)
                        : (is_bf16 ? quant_rows_kernel<true, false> : quant_rows_kernel<false, false>);
   if (smem > 48 * 1024) {

@@ -806,88 +806,70 @@ def _pad_cases(t, probe=False):
     return cases
 
 
-def _bucket_sides(torch, buckets, f_true, backward):
-    """The padded exchange's device work as it ran before one launch served
-    a direction (per bucket, around the contiguous kernels): the send side
-    ``fn(x, keys, trace) -> frames`` (the lane gather, for the backward
-    over the rows and a zero row, with the variance trace when ``trace``;
-    ``quant_rows`` with bucket ``i``'s key ``keys[i]``, ``to_width``,
-    ``pack_rows``, the bf16 pair, the frame) and the receive side
-    ``fn(frames, out_rows, f) -> rows`` (the frame's split,
-    ``unpack_rows``, ``dequant_rows`` with the pair widened,
-    ``true_columns``, then the placement into a spare-row buffer or
-    ``index_add_``)."""
-    from adaqp_tpu_torch.comm.exchange import variance_proxy
-    from adaqp_tpu_torch.ops import quant_cuda as qc
-    from adaqp_tpu_torch.ops.quant import pack_rows, pad_features, to_width, true_columns, unpack_rows
+def _parent_rows(torch, csrc):
+    """The contiguous ``quant_rows`` and ``dequant_rows`` kernels of the
+    ``quant_rows.cu`` in ``csrc`` (an older tree's sources, from before one
+    launch served a direction: codes a byte a column, one launch a bucket),
+    built with the port's ``nvcc`` flags and wrapped with the port's
+    contiguous signatures."""
+    import ctypes
+    import subprocess
 
-    bits, arrays = buckets
-    fw = pad_features(f_true)
+    from adaqp_tpu_torch.utils.cuda_build import NVCC_FLAGS, nvcc_path
 
-    def send(x, keys, trace):
-        f = x.shape[1]
-        src = torch.cat([x.float(), x.new_zeros((1, f), dtype=torch.float32)]) if backward else x
-        proxy = torch.zeros(x.shape[0] + 1, device=x.device) if trace else None
-        out = []
-        for i, (b, quad) in enumerate(zip(bits, arrays)):
-            idx = quad[2] if backward else quad[0]
-            rows = src[idx]
-            if trace:
-                proxy[idx.reshape(-1)] = variance_proxy(rows, f).reshape(-1)
-            k, cap, _ = rows.shape
-            q, scale, rmin = qc.quant_rows(rows.reshape(k * cap, f), b, f_true, keys[i])
-            wire = pack_rows(to_width(q, fw), b)
-            pair = torch.stack([scale, rmin], dim=-1).to(torch.bfloat16)
-            out.append(torch.cat([wire, pair.view(torch.uint8)], dim=-1).reshape(k, cap, -1))
+    so = os.path.join(WORK, "libquant_rows_parent.so")
+    os.makedirs(WORK, exist_ok=True)
+    subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", so, os.path.join(csrc, "quant_rows.cu")],
+                   check=True, capture_output=True)
+    lib = ctypes.CDLL(so)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.adaqp_quant_rows.argtypes = [vp, ci, ci, ci, ci, ci, ctypes.c_uint32, vp, vp, vp, ci, vp]
+    lib.adaqp_dequant_rows.argtypes = [vp, vp, vp, ci, ci, vp, ci, vp]
+
+    def quant_rows(x, bits, f_true, key):
+        x = x.contiguous()
+        (n, f), dev = x.shape, x.device
+        q = torch.empty((n, f), dtype=torch.uint8, device=dev)
+        scale, rmin = (torch.empty(n, device=dev) for _ in range(2))
+        rc = lib.adaqp_quant_rows(x.data_ptr(), int(x.dtype == torch.bfloat16), n, f,
+                                  min(f_true, f), bits, key & 0xFFFFFFFF, q.data_ptr(),
+                                  scale.data_ptr(), rmin.data_ptr(), dev.index,
+                                  torch.cuda.current_stream(dev).cuda_stream) if n else 0
+        check(rc == 0, f"the older quant_rows failed to launch ({rc})")
+        return q, scale, rmin
+
+    def dequant_rows(q, scale, rmin):
+        (n, f), dev = q.shape, q.device
+        out = torch.empty((n, f), device=dev)
+        rc = lib.adaqp_dequant_rows(q.data_ptr(), scale.data_ptr(), rmin.data_ptr(), n, f,
+                                    out.data_ptr(), dev.index,
+                                    torch.cuda.current_stream(dev).cuda_stream) if n else 0
+        check(rc == 0, f"the older dequant_rows failed to launch ({rc})")
         return out
 
-    def recv(frames, n_out, f):
-        out = torch.zeros((n_out + 1, f), dtype=torch.float32, device=frames[0].device)
-        for b, quad, buf in zip(bits, arrays, frames):
-            k, cap, _ = buf.shape
-            wire, p = buf[..., :-4], buf[..., -4:].contiguous().view(torch.bfloat16)
-            q = unpack_rows(wire.reshape(k * cap, -1), b, fw).contiguous()
-            p = p.reshape(k * cap, 2).float()
-            rows = true_columns(qc.dequant_rows(q, p[:, 0].contiguous(), p[:, 1].contiguous()),
-                                f_true, f)
-            dest = (quad[3] if backward else quad[1]).reshape(-1)
-            if backward:
-                out.index_add_(0, dest, rows)
-            else:
-                out[dest] = rows
-        return out[:n_out]
-
-    return send, recv
+    return quant_rows, dequant_rows
 
 
-def _abs_sums(torch, buf, fr, n_out, f):
-    """Sum |terms| of each output row a backward receive adds (the scale of
-    its rounding): each lane's plain row on a row of its own, then the
-    absolute values added into the lanes' destinations."""
-    import dataclasses
-
-    from adaqp_tpu_torch.ops import quant_cuda as qc
-
-    own = dataclasses.replace(fr, dst=torch.arange(fr.n, device=buf.device))
-    terms = qc._dequant_frames_torch(buf, own, torch.zeros(fr.n, f, device=buf.device))
-    keep = fr.dst < n_out
-    return torch.zeros(n_out, f, device=buf.device).index_add_(0, fr.dst[keep], terms[keep].abs())
-
-
-def _padded_sides(torch, t, rank, reps=20):
+def _padded_sides(torch, t, rank, parent_rows=None, reps=20):
     """Rank 0's send side (``quant_frames``) and receive side (a zero
     buffer and ``dequant_frames``) of every exchange of one more padded
     training step (every rank takes it), each timed alone on the card on
     the step's own lane tables, source rows and received buffers, ``reps``
     calls between CUDA events behind a backlog of some 100 ms; beside each,
     the per-bucket composition the exchange ran before
-    (:func:`_bucket_sides`) on the same inputs. The kernels are held
-    against their plain versions and against that composition. Returns a
-    dict a call on rank 0, else None."""
+    (``tests/torch_helpers.py``: ``frames_by_buckets``,
+    ``unframe_by_buckets``) on the same inputs, around this tree's
+    contiguous kernels (``old_*``) and, with ``parent_rows`` (a ``csrc``
+    directory: :func:`_parent_rows`), around that tree's (``parent_*``).
+    The kernels are held against their plain versions and against each
+    composition. Returns a dict a call on rank 0, else None."""
     import torch.distributed as dist
 
     from adaqp_tpu_torch.comm import exchange as ex
     from adaqp_tpu_torch.ops import quant_cuda as qc
+
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from torch_helpers import abs_sums, frames_by_buckets, unframe_by_buckets
 
     sends, recvs = [], []
     quant_frames, dequant_frames = ex.quant_frames, ex.dequant_frames
@@ -909,6 +891,9 @@ def _padded_sides(torch, t, rank, reps=20):
     if rank != 0:
         dist.barrier()
         return None
+    kernels = {"old": (qc.quant_rows, qc.dequant_rows)}
+    if parent_rows:
+        kernels["parent"] = _parent_rows(torch, parent_rows)
     saved = (qc.quant_rows.launches, qc.dequant_rows.launches)
     out, spin = [], 200_000_000
     for x, fr, keys, trace in sends:
@@ -923,27 +908,36 @@ def _padded_sides(torch, t, rank, reps=20):
         zeros = torch.zeros(n_out, f, device="cuda")
         rows = qc.dequant_frames(buf, fr, zeros.clone(), add)
         rows0 = qc._dequant_frames_torch(buf, fr, zeros.clone(), add)
-        tol = 1e-6 * _abs_sums(torch, buf, fr, n_out, f) if add else 0.0
+        tol = 1e-6 * abs_sums(buf, fr, n_out, f) if add else 0.0
         check(bool(((rows - rows0).abs() <= tol).all()),
               f"{tag}: the received rows differ from the plain version's")
-        # and against the per-bucket composition of before, on the same inputs
-        bsend, brecv = _bucket_sides(torch, t.buckets[layer], fr.f_true, add)
-        old = bsend(x, keys, trace)
-        check(torch.equal(torch.cat([o.reshape(-1) for o in old]), got),
-              f"{tag}: the send buffer differs from the per-bucket frames")
-        frames = [v.reshape(o.shape) for v, o in zip(fr.views(buf), old)]
-        check(bool(((brecv(frames, n_out, f) - rows).abs() <= tol).all()),
-              f"{tag}: the received rows differ from the per-bucket composition's")
         ms_s = cuda_ms(torch, lambda: qc.quant_frames(x, fr, keys, trace), reps, backlog=True,
                        spin=spin)
         ms_r = cuda_ms(torch, lambda: qc.dequant_frames(
             buf, fr, torch.zeros(n_out, f, device="cuda"), add), reps, backlog=True, spin=spin)
-        old_s = cuda_ms(torch, lambda: bsend(x, keys, trace), reps, backlog=True, spin=spin)
-        old_r = cuda_ms(torch, lambda: brecv(frames, n_out, f), reps, backlog=True, spin=spin)
-        out.append({"layer": layer, "dir": "bwd" if add else "fwd", "F": f,
-                    "f_true": fr.f_true, "dtype": str(x.dtype)[6:], "lanes": fr.n,
-                    "buckets": list(zip(fr.bits, fr.counts)), "send_ms": ms_s, "recv_ms": ms_r,
-                    "old_send_ms": old_s, "old_recv_ms": old_r})
+        res = {"layer": layer, "dir": "bwd" if add else "fwd", "F": f, "f_true": fr.f_true,
+               "dtype": str(x.dtype)[6:], "lanes": fr.n,
+               "buckets": list(zip(fr.bits, fr.counts)), "send_ms": ms_s, "recv_ms": ms_r}
+        # the per-bucket composition of before on the same inputs
+        buckets, ft = t.buckets[layer], fr.f_true
+        for name, (quant_rows, dequant_rows) in kernels.items():
+            def send():
+                into = torch.zeros(x.shape[0] + 1, device="cuda") if trace else None
+                return frames_by_buckets(x, buckets, keys, ft, add, into, quant_rows)
+
+            old = send()
+            check(torch.equal(torch.cat([o.reshape(-1) for o in old]), got),
+                  f"{tag}: the send buffer differs from the per-bucket frames ({name})")
+            frames = [v.reshape(o.shape) for v, o in zip(fr.views(buf), old)]
+
+            def recv():
+                return unframe_by_buckets(frames, buckets, f, ft, n_out, add, dequant_rows)
+
+            check(bool(((recv() - rows).abs() <= tol).all()),
+                  f"{tag}: the received rows differ from the per-bucket composition's ({name})")
+            res[f"{name}_send_ms"] = cuda_ms(torch, send, reps, backlog=True, spin=spin)
+            res[f"{name}_recv_ms"] = cuda_ms(torch, recv, reps, backlog=True, spin=spin)
+        out.append(res)
     qc.quant_rows.launches, qc.dequant_rows.launches = saved
     dist.barrier()
     return out
@@ -1010,9 +1004,10 @@ def _exchange_sides(torch, t, rank, reps=20):
     return out
 
 
-def _train_k_worker(rank, world, device, cfg, graph_fn, profile):
+def _train_k_worker(rank, world, device, cfg, graph_fn, profile, parent_rows=None):
     """One rank of the K=4 Reddit-width run: train, then report counts,
-    memory and a checksum of the parameters that every rank must share."""
+    memory and a checksum of the parameters that every rank must share
+    (``parent_rows``: :func:`_padded_sides`)."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -1059,7 +1054,8 @@ def _train_k_worker(rank, world, device, cfg, graph_fn, profile):
     split = _profile_steps(torch, t, rank) if profile else None
     sides = None
     if profile:
-        sides = (_exchange_sides if t.padded is None else _padded_sides)(torch, t, rank)
+        sides = (_exchange_sides(torch, t, rank) if t.padded is None
+                 else _padded_sides(torch, t, rank, parent_rows))
     plan = t.layout.plan_fwd
     return {
         "split": split, "sides": sides,
@@ -1325,7 +1321,7 @@ def _hold_frames(torch, seed):
     from adaqp_tpu_torch.ops import quant_cuda as qc
 
     sys.path.insert(0, os.path.join(HERE, "tests"))
-    from torch_helpers import random_plan, rank_buckets, received_frames
+    from torch_helpers import abs_sums, random_plan, rank_buckets, received_frames
 
     rng = np.random.default_rng(seed)
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -1363,7 +1359,7 @@ def _hold_frames(torch, seed):
                 check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
                       f"dequant_frames differs from its plain version (rank {r}, F={f})")
                 continue
-            scale = _abs_sums(torch, recv, fr, out_len, f)
+            scale = abs_sums(recv, fr, out_len, f)
             worst_sum = max(worst_sum, float(((got - want).abs() / (scale + 1e-30)).max()))
             check(bool(((got - want).abs() <= 1e-6 * scale).all()),
                   f"the backward sums differ beyond 1e-6 * sum |terms| (rank {r}, F={f})")
@@ -1440,7 +1436,7 @@ def phase_train_pad(torch, args, k4):
            cfg.measure_breakdown) == (3, 256, 0.5, True, 0.01, True),
           "reddit.yaml no longer holds the Reddit GCN settings, or the probe is off")
     t0 = time.perf_counter()
-    res = spawn(_train_k_worker, 4, "cuda", args=(cfg, graph_fn, True),
+    res = spawn(_train_k_worker, 4, "cuda", args=(cfg, graph_fn, True, args.parent_rows),
                 workdir=os.path.join(WORK, "launch"), timeout_s=480)
     wall = time.perf_counter() - t0
     r0 = res[0]
@@ -1483,21 +1479,27 @@ def phase_train_pad(torch, args, k4):
     _say_volume("train_pad", r0)
     _say_split("train_pad", r0["split"])
     check(r0["sides"], "no padded exchange was recorded")
-    tot = dict.fromkeys(("send_ms", "recv_ms", "old_send_ms", "old_recv_ms"), 0.0)
+    before = {"old": "this tree's contiguous kernels"}
+    if args.parent_rows:
+        before["parent"] = f"the contiguous kernels of {args.parent_rows}"
+    tot = dict.fromkeys(["send_ms", "recv_ms"] + [f"{k}_{d}_ms" for k in before
+                                                   for d in ("send", "recv")], 0.0)
     for x in r0["sides"]:
         say(f"[train_pad] rank 0 exchange, layer {x['layer']} {x['dir']} F={x['F']} "
             f"f_true={x['f_true']} {x['dtype']}: {x['lanes']} lanes, (bits, lanes) "
             f"{x['buckets']}; send side (quant_frames) {x['send_ms']:.4f} ms, receive side "
-            f"(dequant_frames) {x['recv_ms']:.4f} ms; the per-bucket composition before: send "
-            f"{x['old_send_ms']:.4f} ms, receive {x['old_recv_ms']:.4f} ms (CUDA events behind a "
-            "backlog)")
+            f"(dequant_frames) {x['recv_ms']:.4f} ms; the per-bucket composition before, "
+            + "; ".join(f"on {what}: send {x[k + '_send_ms']:.4f} ms, receive "
+                        f"{x[k + '_recv_ms']:.4f} ms" for k, what in before.items())
+            + " (CUDA events behind a backlog)")
         for k in tot:
             tot[k] += x[k]
     say(f"[train_pad] rank 0, the {len(r0['sides'])} exchanges of one step: send + receive "
         f"{tot['send_ms'] + tot['recv_ms']:.4f} ms on the lane tables (send "
-        f"{tot['send_ms']:.4f}, receive {tot['recv_ms']:.4f}); per bucket before "
-        f"{tot['old_send_ms'] + tot['old_recv_ms']:.4f} ms (send {tot['old_send_ms']:.4f}, "
-        f"receive {tot['old_recv_ms']:.4f})")
+        f"{tot['send_ms']:.4f}, receive {tot['recv_ms']:.4f}); per bucket before, "
+        + "; ".join(f"on {what}: {tot[k + '_send_ms'] + tot[k + '_recv_ms']:.4f} ms (send "
+                    f"{tot[k + '_send_ms']:.4f}, receive {tot[k + '_recv_ms']:.4f})"
+                    for k, what in before.items()))
     csv = np.genfromtxt(r0["csv"], delimiter=",", names=True)
     check(list(csv["Worker"]) == [0, 1, 2, 3], "the time CSV lacks a rank's row")
     for b in ("Comm", "Quant", "Central", "Marginal"):
@@ -1553,6 +1555,9 @@ def phase_time_pad(torch, card, res):
     from adaqp_tpu_torch.ops import quant_cuda as qc
     from adaqp_tpu_torch.ops.quant import pad_features
 
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from torch_helpers import abs_sums
+
     gen = torch.Generator(device="cuda").manual_seed(4)
     cases = sorted({c for r in res for c in r["pad_cases"]})
     saved = (qc.quant_rows.launches, qc.dequant_rows.launches)
@@ -1574,7 +1579,7 @@ def phase_time_pad(torch, card, res):
         y = qc.dequant_frames(got, fr, zeros.clone(), add)
         y0 = qc._dequant_frames_torch(got, fr, zeros.clone(), add)
         worst_d = max(worst_d, float((y - y0).abs().max()))
-        tol = 1e-6 * _abs_sums(torch, got, fr, n_out, f) if add else 0.0
+        tol = 1e-6 * abs_sums(got, fr, n_out, f) if add else 0.0
         check(bool(((y - y0).abs() <= tol).all()), f"{tag}: dequant_frames differs from the "
               "plain version")
     say(f"[time] quant_rows and dequant_rows (lane forms) equal their plain versions at all "
@@ -1616,9 +1621,10 @@ def phase_time_pad(torch, card, res):
                     backlog=True)
     lib_err = float((torch.addcdiv(pr[:, None], qw, ps[:, None])
                      - qc._dequant_rows_torch(qw, ps, pr)).abs().max())
-    # rows read once, frames written once, the four lane tables read; then
-    # frames and three tables read, rows written once
-    bytes_q = n * f * 2 + fr.nbytes + 4 * 8 * n
+    # the columns a frame codes read once (min(F, F_wire) of each row),
+    # frames written once, the four lane tables read; then frames and three
+    # tables read, rows written once
+    bytes_q = n * min(f, fw) * 2 + fr.nbytes + 4 * 8 * n
     bytes_d = fr.nbytes + 3 * 8 * n + n * f * 4
     bounds = []
     for nbytes, (counts, _, _), elems in ((bytes_q, sass["quant"], n * fw),
@@ -2693,10 +2699,16 @@ def main():
                         "gpu_tests, e2e, e2e_k, e2e_pad, k1, train_k, train_pad, e2e_agg, "
                         "train_agg); build always runs, and the result lines print only for a "
                         "full run")
+    p.add_argument("--parent_rows", type=str, default=None,
+                   help="a csrc directory of an older tree whose quant_rows.cu has the "
+                        "contiguous C interface: train_pad also times the per-bucket padded "
+                        "exchange around its kernels")
     p.add_argument("--profile", action="store_true",
                    help="also trace a few K=1 training steps with torch.profiler (the "
                         "Reddit run and each train_agg run)")
     args = p.parse_args()
+    if args.parent_rows:
+        args.parent_rows = os.path.abspath(args.parent_rows)
     only = None if args.only is None else set(args.only.split(","))
     try:
         import torch

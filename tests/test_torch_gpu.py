@@ -10,8 +10,6 @@ card's machine (no JAX there) runs them without the suite's conftest:
 (``chip_smoke.py``'s phase ``gpu_tests`` runs exactly that.) The CPU
 tests of each module hold its plain version against the JAX package.
 """
-import dataclasses
-
 import numpy as np
 import pytest
 import torch
@@ -28,8 +26,8 @@ from adaqp_tpu_torch.scripts import microbench_dma_gather as dg
 from adaqp_tpu_torch.scripts import microbench_expand as me
 from adaqp_tpu_torch.scripts import microbench_gather as gb
 from adaqp_tpu_torch.scripts import probe_r5 as pr
-from torch_helpers import (merged_targets, random_edges, random_plan, random_wire, rank_buckets,
-                           received, received_frames, strip_cases)
+from torch_helpers import (abs_sums, merged_targets, random_edges, random_plan, random_wire,
+                           rank_buckets, received, received_frames, strip_cases)
 
 
 @pytest.fixture
@@ -195,12 +193,8 @@ def test_cuda_frame_kernels_match_plain(rng, cuda_device, forward, f, ft, dtype)
         if forward:
             assert torch.equal(got.view(torch.int32), want.view(torch.int32)), f"rank {r}"
             continue
-        # each lane's row on a row of its own, then its |terms| summed
-        own = dataclasses.replace(fr, dst=torch.arange(fr.n, device=cuda_device))
-        terms = qc._dequant_frames_torch(recv, own, torch.zeros(fr.n, f, device=cuda_device))
-        keep = fr.dst < out_len
-        scale = zeros.clone().index_add_(0, fr.dst[keep], terms[keep].abs())
-        assert bool(((got - want).abs() <= 1e-6 * scale).all()), f"rank {r}: sums"
+        assert bool(((got - want).abs() <= 1e-6 * abs_sums(recv, fr, out_len, f)).all()), \
+            f"rank {r}: sums"
 
 
 @pytest.mark.gpu

@@ -72,7 +72,7 @@ def test_frames_reproduce_the_bucket_composition(k, shape, forward, dtype):
         key = 1000 + r
         keys = [qc.stream_key(key, i) for i in range(len(fr.bits))]
         buf, rng_rows = qc.quant_frames(x, fr, keys, with_range=True)
-        want = frames_by_buckets(x, b, key, ft, backward=not forward)
+        want = frames_by_buckets(x, b, keys, ft, backward=not forward)
         assert buf.dtype == torch.uint8 and buf.shape == (fr.nbytes,)
         for i, (view, w) in enumerate(zip(fr.views(buf), want)):
             assert torch.equal(view, w.reshape(-1)), f"rank {r} bucket {i}: frames differ"

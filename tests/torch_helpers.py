@@ -344,52 +344,60 @@ def received_frames(bufs, frames, rank):
     return torch.cat(parts) if parts else bufs[rank][:0]
 
 
-def frames_by_buckets(x, buckets, key, f_true, backward=False):
+def frames_by_buckets(x, buckets, keys, f_true, backward=False, trace=None, quant_rows=None):
     """The send side as the padded exchange composed it before one kernel
-    launch served a direction: per bucket the lane gather (the backward's
-    over the rows and a zero row for the sentinel slots), the plain
-    ``quant_rows``, ``to_width``, ``pack_rows``, the bf16 pair and the
+    launch served a direction: per bucket ``i`` the lane gather (the
+    backward's over the rows and a zero row for the sentinel slots; with
+    ``trace``, an f32 ``[rows + 1]`` tensor, each gathered row's variance
+    proxy into its slot), ``quant_rows`` (default the plain version) with
+    the key ``keys[i]``, ``to_width``, ``pack_rows``, the bf16 pair and the
     frame's concatenation: one uint8 ``[K, cap, bytes + 4]`` tensor a
     bucket."""
     import torch
 
+    from adaqp_tpu_torch.comm.exchange import variance_proxy
     from adaqp_tpu_torch.ops.quant import pack_rows, pad_features, to_width
-    from adaqp_tpu_torch.ops.quant_cuda import _quant_rows_torch, stream_key
+    from adaqp_tpu_torch.ops.quant_cuda import _quant_rows_torch
 
+    quant_rows = quant_rows or _quant_rows_torch
     bits, arrays = buckets
-    src = torch.cat([x, x.new_zeros((1, x.shape[1]))]) if backward else x
+    f = x.shape[1]
+    src = torch.cat([x, x.new_zeros((1, f))]) if backward else x
     out = []
     for i, (b, quad) in enumerate(zip(bits, arrays)):
-        rows = src[quad[2] if backward else quad[0]]
-        k, cap, f = rows.shape
-        q, scale, rmin = _quant_rows_torch(rows.reshape(k * cap, f), b, f_true,
-                                           stream_key(key, i))
+        idx = quad[2] if backward else quad[0]
+        rows = src[idx]
+        if trace is not None:
+            trace[idx.reshape(-1)] = variance_proxy(rows, f).reshape(-1)
+        k, cap, _ = rows.shape
+        q, scale, rmin = quant_rows(rows.reshape(k * cap, f), b, f_true, keys[i])
         wire = pack_rows(to_width(q, pad_features(f_true)), b)
         pair = torch.stack([scale, rmin], dim=-1).to(torch.bfloat16).view(torch.uint8)
         out.append(torch.cat([wire, pair], dim=-1).reshape(k, cap, wire.shape[1] + 4))
     return out
 
 
-def unframe_by_buckets(recv, buckets, f, f_true, out_len, backward=False):
+def unframe_by_buckets(recv, buckets, f, f_true, out_len, backward=False, dequant_rows=None):
     """The receive side as the padded exchange composed it before, from
     each bucket's received ``[K, cap, bytes + 4]`` frames: the frame's
-    split, ``unpack_rows``, the plain ``dequant_rows`` with the bf16 pair
-    widened, ``true_columns``, then ``rows[recv_slot] = ...`` (forward) or
-    ``index_add_`` into the owners' rows (backward), a spare row taking the
-    sentinels."""
+    split, ``unpack_rows``, ``dequant_rows`` (default the plain version)
+    with the bf16 pair widened, ``true_columns``, then ``rows[recv_slot] =
+    ...`` (forward) or ``index_add_`` into the owners' rows (backward), a
+    spare row taking the sentinels: f32 ``[out_len, f]``."""
     import torch
 
     from adaqp_tpu_torch.ops.quant import pad_features, true_columns, unpack_rows
     from adaqp_tpu_torch.ops.quant_cuda import _dequant_rows_torch
 
+    dequant_rows = dequant_rows or _dequant_rows_torch
     bits, arrays = buckets
-    out = torch.zeros((out_len + 1, f), dtype=torch.float32)
+    out = torch.zeros((out_len + 1, f), dtype=torch.float32, device=recv[0].device)
     for b, quad, buf in zip(bits, arrays, recv):
         k, cap, nb = buf.shape
         wire = buf[..., :-4].reshape(k * cap, nb - 4)
         p = buf[..., -4:].contiguous().view(torch.bfloat16).reshape(k * cap, 2).float()
         q = unpack_rows(wire, b, pad_features(f_true)).contiguous()
-        rows = true_columns(_dequant_rows_torch(q, p[:, 0].contiguous(), p[:, 1].contiguous()),
+        rows = true_columns(dequant_rows(q, p[:, 0].contiguous(), p[:, 1].contiguous()),
                             f_true, f)
         dest = (quad[3] if backward else quad[1]).reshape(-1)
         if backward:
@@ -397,3 +405,21 @@ def unframe_by_buckets(recv, buckets, f, f_true, out_len, backward=False):
         else:
             out[dest] = rows
     return out[:out_len]
+
+
+def abs_sums(buf, fr, n_out, f):
+    """Sum |terms| of each row a backward receive of ``buf`` on the lane
+    tables ``fr`` adds into an ``[n_out, f]`` output (the scale of its
+    rounding): each lane's plain row on a row of its own, then the absolute
+    values added into the lanes' destinations."""
+    import dataclasses
+
+    import torch
+
+    from adaqp_tpu_torch.ops.quant_cuda import _dequant_frames_torch
+
+    own = dataclasses.replace(fr, dst=torch.arange(fr.n, device=buf.device))
+    terms = _dequant_frames_torch(buf, own, torch.zeros(fr.n, f, device=buf.device))
+    keep = fr.dst < n_out
+    return torch.zeros(n_out, f, device=buf.device).index_add_(0, fr.dst[keep],
+                                                               terms[keep].abs())
