@@ -1,5 +1,5 @@
 // ring_gather for NVIDIA Hopper (sm_90a): rows gathered by index through a
-// ring of in-flight bulk copies.
+// ring of in-flight bulk copies on every SM.
 //
 // It replaces the TPU kernel `kern` of scripts/microbench_dma_gather.py:72
 // (mk_dma_gather): out[j] = h[idx[j]] for j < chunk, repeated over `iters`
@@ -13,26 +13,32 @@
 // with a masked reduce, because Mosaic cannot slice one row of a tiled HBM
 // buffer (the script's docstring). Here each copy moves one row.
 //
-// The design. One warp per thread block owns a contiguous range of
-// rows_per_block output rows and walks k = 0 .. iters * rows - 1 (pass-major,
-// as the TPU's k walked passes of the chunk). Shared memory holds `depth`
-// ring slots of one row each, one mbarrier per slot, and the block's
-// indices. Lane 0 fills slot k % depth with one cp.async.bulk global ->
-// shared copy of row idx[k % rows] that completes on the slot's mbarrier
-// (the counterpart of make_async_copy plus a DMA semaphore); the warp waits
-// on that barrier (phase parity (k / depth) & 1), writes the slot to its
-// output row with 16-byte stores, and lane 0 then refills the slot with copy
-// k + depth. So each block keeps min(depth, rows * iters) row copies in
-// flight, and the ring wraps across passes.
-//
-// The caller picks the grid (ring_plan in scripts/microbench_dma_gather.py):
-// one block over the whole chunk is the reference's form, `depth` copies in
-// flight for the stream; many blocks of a few rows each put
-// blocks * min(depth, rows * iters) copies in flight. One warp's wait /
-// store / re-issue loop bounds a block at some 360 cycles a row (1.6 ns a
-// row warm at 32 rows a block, chip_smoke.py on an NVIDIA H100 80GB HBM3 at
-// 700 W), so the many-block form runs 4 rows a block, 1,024 blocks for
-// 4,096 rows, and takes a block a row when there are fewer rows than SMs.
+// The design. The TPU's one program ran on the whole TensorCore; its
+// counterpart here is one persistent block an SM (the caller's grid,
+// ring_plan in scripts/microbench_dma_gather.py), and `depth` is the copies
+// in flight a block. Block b owns the contiguous output rows
+// [b * chunk / blocks, (b + 1) * chunk / blocks) and walks the items
+// k = 0 .. iters * rows - 1 of its rows, pass-major (as the TPU's k walked
+// passes of the chunk). Shared memory holds `depth` ring slots of one row
+// each, one mbarrier a slot, and the block's indices. No row passes
+// through registers: a row comes in by one cp.async.bulk global -> shared
+// copy that completes on its slot's mbarrier, and goes out by one
+// cp.async.bulk shared -> global copy in a bulk group of its own. The
+// block's ring is split among `issuers` warps, of which one thread each
+// runs: issuer w takes the items k = w (mod issuers) and the slots
+// s = w (mod issuers), so the block still keeps min(depth, iters * rows)
+// copies in flight. For each item it waits on the slot's barrier, issues
+// the store and commits it, then refills the slot of its previous item
+// once cp.async.bulk.wait_group.read 1 says that item's store has read it
+// (with one slot, its only item's store: wait_group.read 0). A row costs
+// its thread a handful of instructions, but an issuing thread moves about
+// one row each 700-770 cycles, whatever its slots: refilling a slot half a
+// ring after its store, or not fencing the proxies before a store, changed
+// nothing (0.70-0.75 ns a row warm at 4 issuers; NVIDIA H100 80GB HBM3 at
+// 700 W, chip_smoke.py's timing of the issuers). The issuers set an SM's
+// pace: 8 issuers 0.38-0.40 ns a row, 16 0.23-0.24, 32 0.20-0.21, where
+// the L2 that holds a warm pass's rows takes over; hence up to 32 warps a
+// block, one a slot.
 //
 // What bounds it: bytes. Each row is read once and written once, with a
 // 4-byte index: chunk * (2 * row_bytes + 4) bytes a pass, 0.31 ns a row for
@@ -51,7 +57,7 @@
 
 namespace {
 
-constexpr int kThreads = 32;  // one warp a block
+constexpr int kMaxIssuers = 32;  // warps a block at most
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -63,13 +69,23 @@ __device__ __forceinline__ void barrier_init(uint64_t* bar) {
 
 // One row copy global -> shared that completes `bytes` of transaction on
 // `bar`, after the issuing thread's arrival that expects them.
-__device__ __forceinline__ void copy_row(void* dst, const void* src, uint32_t bytes,
+__device__ __forceinline__ void load_row(void* dst, const void* src, uint32_t bytes,
                                          uint64_t* bar) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
                ::"r"(smem_u32(bar)), "r"(bytes) : "memory");
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
       ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar)) : "memory");
+}
+
+// One row copy shared -> global, committed as a bulk group of its own.
+__device__ __forceinline__ void store_row(void* dst, const void* src, uint32_t bytes) {
+  // the slot was written by the asynchronous proxy and is read by it: order
+  // the barrier's observation before the store's read
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
+               ::"l"(dst), "r"(smem_u32(src)), "r"(bytes) : "memory");
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
 }
 
 __device__ __forceinline__ bool try_wait(uint64_t* bar, uint32_t parity) {
@@ -92,93 +108,109 @@ __host__ __device__ inline size_t ring_offset(int depth, int rows) {
   return (rows_offset(depth) + static_cast<size_t>(rows) * sizeof(int32_t) + 127) / 128 * 128;
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kMaxIssuers * 32)
 ring_gather_kernel(const uint8_t* h, const int32_t* idx, uint8_t* out, int chunk, int iters,
-                   int depth, int row_bytes, int rows_per_block) {
+                   int depth, int row_bytes, int max_rows, int issuers) {
   extern __shared__ __align__(128) uint8_t smem[];
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
   int32_t* rows = reinterpret_cast<int32_t*>(smem + rows_offset(depth));
-  uint8_t* ring = smem + ring_offset(depth, rows_per_block);
-  const int lane = threadIdx.x;
-  const int j0 = blockIdx.x * rows_per_block;
-  const int nj = min(rows_per_block, chunk - j0);
+  uint8_t* ring = smem + ring_offset(depth, max_rows);
+  const long long b = blockIdx.x;
+  const int j0 = static_cast<int>(b * chunk / gridDim.x);
+  const int nj = static_cast<int>((b + 1) * chunk / gridDim.x) - j0;
   if (nj <= 0) return;
-  for (int j = lane; j < nj; j += kThreads) rows[j] = idx[j0 + j];
-  if (lane == 0) {
+  for (int j = threadIdx.x; j < nj; j += blockDim.x) rows[j] = idx[j0 + j];
+  if (threadIdx.x == 0) {
     for (int s = 0; s < depth; ++s) barrier_init(&bars[s]);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
   }
-  __syncwarp();
+  __syncthreads();
+  const int w = threadIdx.x >> 5;
   const long long total = static_cast<long long>(iters) * nj;
+  if ((threadIdx.x & 31) != 0 || w >= issuers || w >= total) return;
+  // issuer w: items w, w + issuers, ... (n of them) through its d slots
+  // w, w + issuers, ...; both cursors advance by increments, with no
+  // division on the per-row path
+  const long long n = (total - 1 - w) / issuers + 1;
+  const int d = (depth - 1 - w) / issuers + 1;
   const uint32_t bytes = static_cast<uint32_t>(row_bytes);
-  // positions advance by increments: no division on the per-row path
-  long long issued = 0;  // lane 0's copies so far; the next goes to row pj, slot ps
-  int pj = 0, ps = 0;
-  auto issue_next = [&]() {
-    copy_row(ring + static_cast<size_t>(ps) * row_bytes,
-             h + static_cast<size_t>(rows[pj]) * row_bytes, bytes, &bars[ps]);
-    if (++ps == depth) ps = 0;
-    if (++pj == nj) pj = 0;
-    ++issued;
+  const size_t slot_step = static_cast<size_t>(issuers) * row_bytes;
+  uint8_t* const ring_w = ring + static_cast<size_t>(w) * row_bytes;
+  uint64_t* const bars_w = bars + w;
+  int lrow = w % nj, lq = 0;  // the next load: its row in the block, its slot
+  long long loaded = 0;
+  auto load_next = [&]() {
+    load_row(ring_w + lq * slot_step, h + static_cast<size_t>(rows[lrow]) * row_bytes, bytes,
+             bars_w + lq * issuers);
+    if (++lq == d) lq = 0;
+    lrow += issuers;
+    while (lrow >= nj) lrow -= nj;
+    ++loaded;
   };
-  if (lane == 0) {
-    while (issued < depth && issued < total) issue_next();
-  }
-  const int vecs = row_bytes / 16;
-  int j = 0, slot = 0;
-  uint32_t phase = 0;  // parity of the slots' current use: flips as the ring wraps
-  for (long long k = 0; k < total; ++k) {
-    while (!try_wait(&bars[slot], phase)) {
+  while (loaded < d && loaded < n) load_next();
+  int srow = w % nj, sq = 0;  // the next store: its row, its slot
+  uint32_t phase = 0;         // parity of the slots' current use: flips as the ring wraps
+  for (long long m = 0; m < n; ++m) {
+    while (!try_wait(bars_w + sq * issuers, phase)) {
     }
-    const uint4* src = reinterpret_cast<const uint4*>(ring + static_cast<size_t>(slot) * row_bytes);
-    uint4* dst = reinterpret_cast<uint4*>(out + static_cast<size_t>(j0 + j) * row_bytes);
-    for (int v = lane; v < vecs; v += kThreads) dst[v] = src[v];
-    // every lane has read the slot before lane 0 hands it to the next copy
-    __syncwarp();
-    if (lane == 0 && issued < total) issue_next();
-    if (++j == nj) j = 0;
-    if (++slot == depth) {
-      slot = 0;
+    store_row(out + static_cast<size_t>(j0 + srow) * row_bytes, ring_w + sq * slot_step, bytes);
+    if (loaded < n) {
+      if (d == 1) {
+        asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+        load_next();
+      } else if (m >= 1) {
+        // the previous item's store has read its slot: refill that slot
+        asm volatile("cp.async.bulk.wait_group.read 1;" ::: "memory");
+        load_next();
+      }
+    }
+    srow += issuers;
+    while (srow >= nj) srow -= nj;
+    if (++sq == d) {
+      sq = 0;
       phase ^= 1;
     }
   }
+  // the slots stay valid until every store has read them
+  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
 }
 
 }  // namespace
 
 // Shared memory a launch takes: `depth` slots of `row_bytes` with their
-// barriers and rows_per_block indices. The wrapper checks it against the
-// card's 227 KB a block.
-extern "C" size_t adaqp_ring_gather_smem(int depth, int row_bytes, int rows_per_block) {
-  return ring_offset(depth, rows_per_block) + static_cast<size_t>(depth) * row_bytes;
+// barriers and max_rows indices. The wrapper checks it against the card's
+// 227 KB a block.
+extern "C" size_t adaqp_ring_gather_smem(int depth, int row_bytes, int max_rows) {
+  return ring_offset(depth, max_rows) + static_cast<size_t>(depth) * row_bytes;
 }
 
 // h [n_rows, row_bytes] (any element type, row_bytes a multiple of 16 and
 // h 16-byte aligned); idx int32 [chunk] in [0, n_rows); out [chunk,
 // row_bytes], 16-byte aligned; iters >= 1 passes, depth >= 1 copies in
-// flight a block; `blocks` blocks of rows_per_block rows each (the last
-// may hold fewer; blocks * rows_per_block >= chunk). Launches on `stream`
-// of CUDA device `device` and returns cudaGetLastError() (0 on success),
-// or cudaErrorInvalidValue for a grid that does not cover the chunk; it
-// does not synchronise.
+// flight a block; `blocks` blocks, block b owning rows [b * chunk / blocks,
+// (b + 1) * chunk / blocks), none more than max_rows; `issuers` (1 to 32,
+// at most depth) warps a block issue the copies. Launches on `stream` of
+// CUDA device `device` and returns cudaGetLastError() (0 on success), or
+// cudaErrorInvalidValue for a grid that does not fit the chunk; it does
+// not synchronise.
 extern "C" int adaqp_ring_gather(const void* h, const void* idx, void* out, int chunk,
                                  int iters, int depth, int row_bytes, int blocks,
-                                 int rows_per_block, int device, void* stream) {
+                                 int max_rows, int issuers, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (chunk <= 0) return 0;
-  if (blocks < 1 || rows_per_block < 1 ||
-      static_cast<long long>(blocks) * rows_per_block < chunk) {
+  if (blocks < 1 || blocks > chunk || max_rows < (chunk + blocks - 1) / blocks ||
+      issuers < 1 || issuers > kMaxIssuers || issuers > depth || iters < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t smem = adaqp_ring_gather_smem(depth, row_bytes, rows_per_block);
+  const size_t smem = adaqp_ring_gather_smem(depth, row_bytes, max_rows);
   err = cudaFuncSetAttribute(ring_gather_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  ring_gather_kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  ring_gather_kernel<<<blocks, issuers * 32, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(h), static_cast<const int32_t*>(idx),
-      static_cast<uint8_t*>(out), chunk, iters, depth, row_bytes, rows_per_block);
+      static_cast<uint8_t*>(out), chunk, iters, depth, row_bytes, max_rows, issuers);
   return static_cast<int>(cudaGetLastError());
 }
 

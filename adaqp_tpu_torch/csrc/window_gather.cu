@@ -16,37 +16,49 @@
 // torch.gather loop bit for bit.
 //
 // The design. The TPU held the whole window in VMEM; a [4096, 256] f32
-// window (4 MiB) exceeds a block's 227 KB of shared memory. So each block
-// stages a slab of `s` whole lines of the gather axis in shared memory --
-// s columns of x for axis 0, s rows for axis 1, at most 64 KB so three
-// blocks fit an SM -- and computes the outputs of those lines at a range
-// of positions along the gather axis: kThreads * kPer = 2,048 outputs a
-// block, kPer a thread, with their indices loaded once into registers.
-// Every iteration gathers each output's value from the slab through a
-// volatile shared-memory load, so the compiler cannot hoist the gather out
-// of the iteration loop (the per-iteration slope of the time measures the
-// gather), and adds it into the thread's accumulator. A [4096, 256] f32
-// window runs as 512 blocks of 4 columns x 512 positions.
+// window (4 MiB) exceeds a block's 227 KB of shared memory. So the grid
+// covers the lines of the non-gather axis only (columns of x for axis 0,
+// rows for axis 1): block b stages its `lines` lines whole -- every
+// position of the gather axis -- and computes every output of them, so
+// each element of x, and of a full index, is read from device memory once
+// by one block. The caller's plan (window_plan in
+// scripts/microbench_gather.py) picks `lines` for about one wave of one or
+// two blocks an SM, the slab's `stride` and the staging loads' width
+// `unit`. Staging takes no division: thread t stages gather positions t,
+// t + kThreads, ... -- for axis 0 each position's segment of `lines`
+// columns by `unit`-byte loads into a slab [L][stride] whose positions lie
+// an odd number of words apart (a warp's random rows of one line then
+// spread over all 32 banks), for axis 1 each line by `unit`-byte vectors
+// into a slab [lines][stride]. Then each thread takes kPer outputs at a
+// time: their slab offsets (and the full index's values) are worked out
+// once, and every iteration gathers each output's value from the slab
+// through a volatile shared-memory load, so that the compiler cannot
+// hoist the gather out of the iteration loop (the per-iteration slope of
+// the time measures the gather), and adds it into the thread's
+// accumulator.
 //
 // What bounds it: bytes for one iteration (x read once, the index read
 // once, the output written once), the f32 adds for many: iters * R * C
-// adds at the card's f32 rate. The slabs are re-read from L2 by each
-// block that shares them (L2 holds the window), and each iteration costs
-// one shared-memory gather an output.
+// adds at the card's f32 rate; each iteration costs one shared-memory
+// gather an output.
 //
 // The indices must lie in [0, x.shape[axis]); the kernel trusts them.
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kPer = 8;                      // outputs a thread
-constexpr int kOutputs = kThreads * kPer;    // outputs a block
-constexpr int kSlabBytes = 64 * 1024;        // target shared memory a block
-constexpr int kMaxLines = 32;                // lines a slab at most
-constexpr int kMaxSmem = 227 * 1024;         // a block's limit on Hopper
+namespace cg = cooperative_groups;
+
+constexpr int kThreads = 512;
+constexpr int kPer = 8;               // outputs a thread at a time
+constexpr int kStage = 8;             // staging loads a thread in flight
+constexpr int kMaxSmem = 227 * 1024;  // a block's limit on Hopper
+constexpr int kMaxCluster = 8;        // blocks a cluster at most (the portable size)
 
 // Elements travel as their bits (S): volatile loads of a bf16 struct do
 // not compile, and bits convert to f32 exactly.
@@ -74,128 +86,368 @@ struct Elem<true> {
   }
 };
 
+// U bytes as one load
+template <int U>
+struct Unit;
+template <>
+struct Unit<16> {
+  using T = uint4;
+};
+template <>
+struct Unit<8> {
+  using T = uint2;
+};
+template <>
+struct Unit<4> {
+  using T = uint32_t;
+};
+template <>
+struct Unit<2> {
+  using T = uint16_t;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// U bytes as one load from U-aligned global memory, and one store to
+// shared memory: a vector (kWide: dst U-aligned) or U / 4 words (dst
+// 4-byte aligned).
+template <int U>
+__device__ __forceinline__ typename Unit<U>::T load_unit(const uint8_t* src) {
+  return __ldg(reinterpret_cast<const typename Unit<U>::T*>(src));
+}
+template <int U, bool kWide>
+__device__ __forceinline__ void store_unit(uint8_t* dst, typename Unit<U>::T v) {
+  if constexpr (kWide || U <= 4) {
+    *reinterpret_cast<typename Unit<U>::T*>(dst) = v;
+  } else {
+    const uint32_t* w = reinterpret_cast<const uint32_t*>(&v);
+#pragma unroll
+    for (int k = 0; k < U / 4; ++k) reinterpret_cast<uint32_t*>(dst)[k] = w[k];
+  }
+}
+
+// U (4, 8 or 16) bytes global -> shared without passing through registers;
+// complete after cp.async.wait_all.
+template <int U>
+__device__ __forceinline__ void copy_async(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;" ::"r"(smem_u32(dst)), "l"(src), "n"(U)
+               : "memory");
+}
+
+__host__ __device__ inline size_t round16(size_t n) { return (n + 15) / 16 * 16; }
+
+// The slab of x: axis 0 [L][stride], axis 1 [lines][stride] elements.
+__host__ __device__ inline size_t slab_bytes(int axis, int L, int lines, int stride, int esize) {
+  return round16(static_cast<size_t>(axis == 0 ? L : lines) * stride * esize);
+}
+
+// The staged index after it, for the block's own positions (a cluster's
+// block: L / cluster of them, rounded up): a full one axis 0
+// [positions][lines], axis 1 [lines][L rounded up to 4]; a 1-D one
+// [positions rounded up to 4].
+__host__ __device__ inline int index_stride(int L) { return (L + 3) / 4 * 4; }
+__host__ __device__ inline size_t index_bytes(int axis, int full, int L, int lines,
+                                              int cluster) {
+  const int own = (L + cluster - 1) / cluster;
+  if (!full) return static_cast<size_t>(index_stride(own)) * 4;
+  return static_cast<size_t>(axis == 0 ? own : index_stride(L)) * lines * 4;
+}
+
 // x [rows, cols] row-major. The gather axis has length L (rows for axis 0,
-// cols for axis 1); the block owns lines [m0, m0 + s) of the other axis
-// and positions [p0, p0 + kOutputs / s) of the gather axis.
-template <int kAxis, bool kFull, bool kBf16>
+// cols for axis 1); block b owns lines [b * lines, b * lines + lines) of
+// the other axis, M of them in all, at every position of the gather axis.
+// Axis 0 in clusters of `cluster` blocks: cluster k owns lines [k * lines,
+// k * lines + lines), and its block of rank q stages and computes the
+// positions [q * L / cluster, (q + 1) * L / cluster), then copies the
+// others' staged positions from their shared memory. kUnit is the staging
+// loads' width for x; the full index's is kIUnit, as many positions wide.
+template <int kAxis, bool kFull, bool kBf16, int kUnit>
 __global__ void __launch_bounds__(kThreads)
-window_gather_kernel(const void* x_, const int32_t* idx, void* out_, int rows, int cols,
-                     int lines, int iters) {
+window_gather_kernel(const void* __restrict__ x_, const int32_t* __restrict__ idx, void* out_,
+                     int rows, int cols, int lines, int stride, int cluster, int iters) {
   using E = Elem<kBf16>;
   using S = typename E::S;
+  constexpr int kIUnit = kUnit * 4 / static_cast<int>(sizeof(S)) > 16
+                             ? 16 : kUnit * 4 / static_cast<int>(sizeof(S));
   extern __shared__ __align__(16) uint8_t smem[];
   S* slab = reinterpret_cast<S*>(smem);
   const S* x = static_cast<const S*>(x_);
   S* out = static_cast<S*>(out_);
   const int L = kAxis == 0 ? rows : cols;
   const int M = kAxis == 0 ? cols : rows;
-  const int m0 = blockIdx.x * lines;
+  const int q = kAxis == 0 ? blockIdx.x % cluster : 0;  // rank in the cluster
+  const int m0 = (kAxis == 0 ? blockIdx.x / cluster : blockIdx.x) * lines;
   const int sm = min(lines, M - m0);
-  const int per = kOutputs / lines;  // positions a block
-  const int p0 = blockIdx.y * per;
-  const int np = min(per, L - p0);
-  // stage lines [m0, m0 + sm): axis 0 slab[l * lines + i] = x[l, m0 + i],
-  // axis 1 slab[i * L + l] = x[m0 + i, l]
-  for (int e = threadIdx.x; e < L * sm; e += kThreads) {
-    if (kAxis == 0) {
-      const int l = e / sm, i = e % sm;
-      slab[l * lines + i] = x[static_cast<size_t>(l) * cols + m0 + i];
-    } else {
-      const int i = e / L, l = e % L;
-      slab[i * L + l] = x[static_cast<size_t>(m0 + i) * cols + l];
+  // this block's positions along the gather axis
+  const int p0 = kAxis == 0 ? static_cast<int>(static_cast<long long>(q) * L / cluster) : 0;
+  const int p1 = kAxis == 0 ? static_cast<int>(static_cast<long long>(q + 1) * L / cluster) : L;
+  const int li = index_stride(L);
+  int32_t* islab = reinterpret_cast<int32_t*>(
+      smem + slab_bytes(kAxis, L, lines, stride, static_cast<int>(sizeof(S))));
+  // the index first, by asynchronous copies, so that its loads and x's are
+  // in flight together
+  if (!kFull) {
+    for (int l = p0 + threadIdx.x; l < p1; l += kThreads) copy_async<4>(islab + l - p0, idx + l);
+  } else if (kAxis == 0) {
+    // position p's segment: sm entries of row p, to islab[(p - p0) * lines + i]
+    const int seg = sm * 4;
+    for (int p = p0 + threadIdx.x; p < p1; p += kThreads) {
+      const uint8_t* src =
+          reinterpret_cast<const uint8_t*>(idx + static_cast<size_t>(p) * cols + m0);
+      uint8_t* dst = reinterpret_cast<uint8_t*>(islab + static_cast<size_t>(p - p0) * lines);
+      for (int b = 0; b < seg; b += kIUnit) copy_async<kIUnit>(dst + b, src + b);
+    }
+  } else {
+    // line i: row m0 + i of the index, to islab[i * li + l]
+    const int units = L * 4 / kIUnit;
+    for (int i = 0; i < sm; ++i) {
+      const uint8_t* src =
+          reinterpret_cast<const uint8_t*>(idx + static_cast<size_t>(m0 + i) * cols);
+      uint8_t* dst = reinterpret_cast<uint8_t*>(islab + static_cast<size_t>(i) * li);
+      for (int u = threadIdx.x; u < units; u += kThreads) {
+        copy_async<kIUnit>(dst + u * kIUnit, src + u * kIUnit);
+      }
     }
   }
-  __syncthreads();
-  int off[kPer];      // each output's gather address in the slab
-  size_t dst[kPer];   // and its place in out
-  bool live[kPer];
+  if (kAxis == 0) {
+    // position p's segment: sm columns of row p, to slab[p * stride + i]
+    // (kStage loads a thread in flight, then their stores: an odd number
+    // of words apart, the positions take no vector stores)
+    using T = typename Unit<kUnit>::T;
+    T v[kStage];
+    const int seg = sm * static_cast<int>(sizeof(S));
+    const uint8_t* src = reinterpret_cast<const uint8_t*>(x + m0);
+    uint8_t* dst = reinterpret_cast<uint8_t*>(slab);
+    const size_t src_row = static_cast<size_t>(cols) * sizeof(S);
+    const size_t dst_row = static_cast<size_t>(stride) * sizeof(S);
+    for (int pp = p0 + threadIdx.x; pp < p1; pp += kThreads * kStage) {
+      for (int b = 0; b < seg; b += kUnit) {
 #pragma unroll
-  for (int j = 0; j < kPer; ++j) {
-    const int e = threadIdx.x + j * kThreads;
-    live[j] = e < sm * np;
-    const int ee = live[j] ? e : 0;
-    int i, p;  // line in the slab, position along the gather axis
-    if (kAxis == 0) {
-      p = p0 + ee / sm;
-      i = ee % sm;
-    } else {
-      i = ee / np;
-      p = p0 + ee % np;
+        for (int j = 0; j < kStage; ++j) {
+          const int p = pp + j * kThreads;
+          if (p < p1) v[j] = load_unit<kUnit>(src + p * src_row + b);
+        }
+#pragma unroll
+        for (int j = 0; j < kStage; ++j) {
+          const int p = pp + j * kThreads;
+          if (p < p1) store_unit<kUnit, false>(dst + p * dst_row + b, v[j]);
+        }
+      }
     }
-    const int r = kAxis == 0 ? p : m0 + i;
-    const int c = kAxis == 0 ? m0 + i : p;
-    dst[j] = static_cast<size_t>(r) * cols + c;
-    const int g = kFull ? idx[dst[j]] : idx[p];
-    off[j] = kAxis == 0 ? g * lines + i : i * L + g;
+  } else {
+    // line i: row m0 + i of x, to slab[i * stride + l]; by asynchronous
+    // copies, or 2-byte loads for a line of an odd number of bf16 values
+    const int units = L * static_cast<int>(sizeof(S)) / kUnit;
+    for (int i = 0; i < sm; ++i) {
+      const uint8_t* src =
+          reinterpret_cast<const uint8_t*>(x + static_cast<size_t>(m0 + i) * cols);
+      uint8_t* dst = reinterpret_cast<uint8_t*>(slab + static_cast<size_t>(i) * stride);
+      for (int u = threadIdx.x; u < units; u += kThreads) {
+        if constexpr (kUnit >= 4) {
+          copy_async<kUnit>(dst + u * kUnit, src + u * kUnit);
+        } else {
+          store_unit<kUnit, true>(dst + u * kUnit, load_unit<kUnit>(src + u * kUnit));
+        }
+      }
+    }
   }
+  asm volatile("cp.async.wait_all;" ::: "memory");
+  if (kAxis == 0 && cluster > 1) {
+    // the other blocks' positions, word by word from their shared memory;
+    // the second sync keeps every block's slab until its peers have read it
+    cg::cluster_group cl = cg::this_cluster();
+    cl.sync();
+    const int row_w = stride * static_cast<int>(sizeof(S)) / 4;  // words a position
+    uint32_t* mine = reinterpret_cast<uint32_t*>(smem);
+    for (int r = 1; r < cluster; ++r) {
+      const int peer = (q + r) % cluster;  // each block starts at another peer
+      const uint32_t* theirs = cl.map_shared_rank(mine, peer);
+      const int w0 = static_cast<int>(static_cast<long long>(peer) * L / cluster) * row_w;
+      const int w1 = static_cast<int>(static_cast<long long>(peer + 1) * L / cluster) * row_w;
+      uint32_t w[kStage];
+      for (int ww = w0 + threadIdx.x; ww < w1; ww += kThreads * kStage) {
+#pragma unroll
+        for (int j = 0; j < kStage; ++j) {
+          if (ww + j * kThreads < w1) w[j] = theirs[ww + j * kThreads];
+        }
+#pragma unroll
+        for (int j = 0; j < kStage; ++j) {
+          if (ww + j * kThreads < w1) mine[ww + j * kThreads] = w[j];
+        }
+      }
+    }
+    cl.sync();
+  } else {
+    __syncthreads();
+  }
+  // the block's outputs e = 0 .. total - 1: axis 0 position-major (e =
+  // (p - p0) * sm + i, x's order), axis 1 line-major (e = i * L + p)
+  const int total = sm * (p1 - p0);
   const volatile S* win = slab;
-  float acc[kPer];
-#pragma unroll
-  for (int j = 0; j < kPer; ++j) acc[j] = 0.f;
-#pragma unroll 1
-  for (int k = 0; k < iters; ++k) {
+  for (int e0 = threadIdx.x; e0 < total; e0 += kThreads * kPer) {
+    int off[kPer];     // each output's gather address in the slab
+    size_t dst[kPer];  // and its place in out
+    bool live[kPer];
 #pragma unroll
     for (int j = 0; j < kPer; ++j) {
-      acc[j] = E::add(acc[j], E::to_float(win[off[j]]));
+      const int e = e0 + j * kThreads;
+      live[j] = e < total;
+      const int ee = live[j] ? e : e0;
+      int i, p;  // line in the slab, position along the gather axis
+      if (kAxis == 0) {
+        p = ee / sm;
+        i = ee - p * sm;
+        p += p0;
+      } else {
+        i = ee / L;
+        p = ee - i * L;
+      }
+      const int r = kAxis == 0 ? p : m0 + i;
+      const int c = kAxis == 0 ? m0 + i : p;
+      dst[j] = static_cast<size_t>(r) * cols + c;
+      const int g = !kFull ? islab[p - p0]
+                           : islab[kAxis == 0 ? (p - p0) * lines + i : i * li + p];
+      off[j] = kAxis == 0 ? g * stride + i : i * stride + g;
     }
-  }
+    float acc[kPer];
 #pragma unroll
-  for (int j = 0; j < kPer; ++j) {
-    if (live[j]) out[dst[j]] = E::from_float(acc[j]);
+    for (int j = 0; j < kPer; ++j) acc[j] = 0.f;
+#pragma unroll 1
+    for (int k = 0; k < iters; ++k) {
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        acc[j] = E::add(acc[j], E::to_float(win[off[j]]));
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      if (live[j]) out[dst[j]] = E::from_float(acc[j]);
+    }
   }
 }
 
-template <int kAxis, bool kFull, bool kBf16>
-int launch(const void* x, const void* idx, void* out, int rows, int cols, int iters,
-           cudaStream_t s) {
-  const int esize = kBf16 ? 2 : 4;
-  const int L = kAxis == 0 ? rows : cols;
-  const int M = kAxis == 0 ? cols : rows;
-  const size_t line_bytes = static_cast<size_t>(L) * esize;
-  int lines = static_cast<int>(kSlabBytes / line_bytes);
-  lines = lines < 1 ? 1 : (lines > kMaxLines ? kMaxLines : lines);
-  lines = lines > M ? M : lines;
-  const size_t smem = line_bytes * lines;
-  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = window_gather_kernel<kAxis, kFull, kBf16>;
+template <int kAxis, bool kFull, bool kBf16, int kUnit>
+int launch(const void* x, const void* idx, void* out, int rows, int cols, int lines, int stride,
+           int cluster, int iters, size_t smem, cudaStream_t s) {
+  auto kernel = window_gather_kernel<kAxis, kFull, kBf16, kUnit>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int per = kOutputs / lines;
-  const dim3 grid((M + lines - 1) / lines, (L + per - 1) / per);
-  kernel<<<grid, kThreads, smem, s>>>(x, static_cast<const int32_t*>(idx), out, rows, cols,
-                                      lines, iters);
+  const int M = kAxis == 0 ? cols : rows;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((M + lines - 1) / lines * cluster);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = cluster > 1 ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, kernel, x, static_cast<const int32_t*>(idx), out, rows, cols,
+                           lines, stride, cluster, iters);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int kAxis, bool kFull, bool kBf16>
+int launch_unit(int unit, const void* x, const void* idx, void* out, int rows, int cols,
+                int lines, int stride, int cluster, int iters, size_t smem, cudaStream_t s) {
+  switch (unit) {
+    case 16:
+      return launch<kAxis, kFull, kBf16, 16>(x, idx, out, rows, cols, lines, stride, cluster,
+                                             iters, smem, s);
+    case 8:
+      return launch<kAxis, kFull, kBf16, 8>(x, idx, out, rows, cols, lines, stride, cluster,
+                                            iters, smem, s);
+    case 4:
+      return launch<kAxis, kFull, kBf16, 4>(x, idx, out, rows, cols, lines, stride, cluster,
+                                            iters, smem, s);
+    default:
+      if constexpr (kBf16) {
+        return launch<kAxis, kFull, kBf16, 2>(x, idx, out, rows, cols, lines, stride, cluster,
+                                              iters, smem, s);
+      }
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 template <int kAxis, bool kFull>
-int launch_dtype(int is_bf16, const void* x, const void* idx, void* out, int rows, int cols,
-                 int iters, cudaStream_t s) {
-  return is_bf16 ? launch<kAxis, kFull, true>(x, idx, out, rows, cols, iters, s)
-                 : launch<kAxis, kFull, false>(x, idx, out, rows, cols, iters, s);
+int launch_dtype(int is_bf16, int unit, const void* x, const void* idx, void* out, int rows,
+                 int cols, int lines, int stride, int cluster, int iters, size_t smem,
+                 cudaStream_t s) {
+  return is_bf16 ? launch_unit<kAxis, kFull, true>(unit, x, idx, out, rows, cols, lines, stride,
+                                                   cluster, iters, smem, s)
+                 : launch_unit<kAxis, kFull, false>(unit, x, idx, out, rows, cols, lines, stride,
+                                                    cluster, iters, smem, s);
 }
 
 }  // namespace
 
-// x [rows, cols] f32 (is_bf16 = 0) or bf16, row-major; idx int32 [rows,
-// cols] (full = 1) or [x.shape[axis]] (full = 0); out like x, written in
-// full; iters >= 1. Launches on `stream` of CUDA device `device` and
-// returns cudaGetLastError() (0 on success), or cudaErrorInvalidValue when
-// one line of the gather axis exceeds a block's shared memory; it does not
-// synchronise.
+// Shared memory a launch takes (the slab and the staged index), or 0 for
+// a plan the kernel cannot run: `lines` >= 1; axis 0: stride >= lines,
+// positions a whole number of words apart, clusters of 1 to 8 blocks;
+// axis 1: stride >= L, lines 16-byte aligned, no clusters; `unit` (2, 4, 8
+// or 16 bytes, at least an element) divides the row stride, the staged
+// segments and their starts.
+extern "C" size_t adaqp_window_gather_smem(int rows, int cols, int axis, int full, int is_bf16,
+                                           int lines, int stride, int unit, int cluster) {
+  const int esize = is_bf16 ? 2 : 4;
+  const int L = axis == 0 ? rows : cols;
+  const int M = axis == 0 ? cols : rows;
+  if (lines < 1 || (unit != 2 && unit != 4 && unit != 8 && unit != 16) || unit < esize ||
+      (cols * esize) % unit || cluster < 1 || cluster > kMaxCluster) {
+    return 0;
+  }
+  if (axis == 0) {
+    if (stride < lines || (stride * esize) % 4 || (lines * esize) % unit ||
+        ((M % lines) * esize) % unit) {
+      return 0;
+    }
+  } else if (stride < L || (stride * esize) % 16 || cluster != 1) {
+    return 0;
+  }
+  return slab_bytes(axis, L, lines, stride, esize) + index_bytes(axis, full, L, lines, cluster);
+}
+
+// x [rows, cols] f32 (is_bf16 = 0) or bf16, row-major, `unit`-byte
+// aligned; idx int32 [rows, cols] (full = 1), aligned to `unit` bytes of x's
+// elements as many of its own (at most 16), or [x.shape[axis]] (full = 0);
+// out like x, written in full; iters >= 1; the plan's `lines`, `stride`,
+// `unit` and `cluster` (adaqp_window_gather_smem). Launches on `stream` of
+// CUDA device `device` and returns the launch's error (0 on success), or
+// cudaErrorInvalidValue for a plan the kernel cannot run or whose slab
+// exceeds a block's shared memory; it does not synchronise.
 extern "C" int adaqp_window_gather(const void* x, const void* idx, void* out, int rows,
                                    int cols, int axis, int full, int is_bf16, int iters,
-                                   int device, void* stream) {
+                                   int lines, int stride, int unit, int cluster, int device,
+                                   void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (rows <= 0 || cols <= 0) return 0;
+  const size_t smem =
+      adaqp_window_gather_smem(rows, cols, axis, full, is_bf16, lines, stride, unit, cluster);
+  const int iunit = std::min(16, unit * 4 / (is_bf16 ? 2 : 4));
+  if (smem == 0 || smem > static_cast<size_t>(kMaxSmem) || iters < 1 ||
+      reinterpret_cast<uintptr_t>(x) % unit ||
+      reinterpret_cast<uintptr_t>(idx) % (full ? iunit : 4)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   auto s = static_cast<cudaStream_t>(stream);
   if (axis == 0) {
-    return full ? launch_dtype<0, true>(is_bf16, x, idx, out, rows, cols, iters, s)
-                : launch_dtype<0, false>(is_bf16, x, idx, out, rows, cols, iters, s);
+    return full ? launch_dtype<0, true>(is_bf16, unit, x, idx, out, rows, cols, lines, stride,
+                                        cluster, iters, smem, s)
+                : launch_dtype<0, false>(is_bf16, unit, x, idx, out, rows, cols, lines, stride,
+                                         cluster, iters, smem, s);
   }
-  return full ? launch_dtype<1, true>(is_bf16, x, idx, out, rows, cols, iters, s)
-              : launch_dtype<1, false>(is_bf16, x, idx, out, rows, cols, iters, s);
+  return full ? launch_dtype<1, true>(is_bf16, unit, x, idx, out, rows, cols, lines, stride,
+                                      cluster, iters, smem, s)
+              : launch_dtype<1, false>(is_bf16, unit, x, idx, out, rows, cols, lines, stride,
+                                       cluster, iters, smem, s);
 }
 
 extern "C" const char* adaqp_window_gather_error_string(int code) {

@@ -5,15 +5,17 @@ The port's counterpart of ``scripts/microbench_dma_gather.py``. Its kernel
 of that script's ``mk_dma_gather`` (``:72``, called at ``:116``):
 ``out[j] = h[idx[j]]`` for ``j < chunk``, repeated over ``iters`` passes in
 one launch, with ``depth`` row copies in flight per thread block through a
-ring of shared-memory slots (one ``cp.async.bulk`` and one ``mbarrier`` a
-slot). It asks how fast the card gathers rows by index, and how much index
-locality (uniform, sorted or banded indices) matters, against the library
-gather (``index_select`` summed over the same passes).
+ring of shared-memory slots (one ``cp.async.bulk`` in and one out a row,
+one ``mbarrier`` a slot). It asks how fast the card gathers rows by index,
+and how much index locality (uniform, sorted or banded indices) matters,
+against the library gather (``index_select`` summed over the same passes).
 
 The grid is a second knob (:func:`ring_plan`): by default the reference's
-form, one program keeping ``depth`` copies in flight over the whole
-stream; ``--many_blocks`` the many-block form, 4 rows a block. Each line
-prints the copies in flight for the stream.
+form, the TPU's one program carried to each SM, one persistent block an
+SM keeping ``depth`` copies in flight over its share of the stream;
+``--many_blocks`` the many-block form, 4 rows a block; ``blocks=1`` in
+:func:`ring_gather` the ring on one SM. Each line prints the grid and the
+copies in flight for the stream.
 
     python -m adaqp_tpu_torch.scripts.microbench_dma_gather            # bf16
     python -m adaqp_tpu_torch.scripts.microbench_dma_gather --f32      # and f32
@@ -45,6 +47,10 @@ CHUNK = 4096       # gathered rows a pass
 DEPTHS = (4, 8, 16, 32, 64)
 MAX_SMEM = 227 * 1024  # shared memory a block can use on Hopper
 ROWS_A_BLOCK = 4  # rows a block owns in the many-block form
+# warps a block that issue the ring's copies, each with its share of the
+# slots (at most depth of them): an issuing thread moves a row each 700 or
+# so cycles, so the SM's pace grows with them (csrc/ring_gather.cu)
+ISSUERS = 32
 
 
 def idx_variants(rng: np.random.Generator, n: int = N, chunk: int = CHUNK) -> dict:
@@ -61,25 +67,36 @@ def idx_variants(rng: np.random.Generator, n: int = N, chunk: int = CHUNK) -> di
 
 
 def ring_plan(chunk: int, iters: int, depth: int, many_blocks: bool = False,
-              sms: int = 1) -> tuple:
-    """``(blocks, rows a block, copies in flight)`` of one launch.
+              sms: int = 1, blocks: int | None = None) -> tuple:
+    """``(blocks, rows a block at most, copies in flight)`` of one launch.
 
-    By default the reference's form: one block over the whole stream.
-    ``many_blocks``: ``ROWS_A_BLOCK`` rows a block, and at least one block
-    an SM (``sms``) while rows last. A block keeps ``min(depth, its rows *
-    iters)`` row copies in flight; the third entry sums them over blocks."""
+    By default the reference's form: one persistent block an SM (``sms``),
+    at most one a row. ``many_blocks``: ``ROWS_A_BLOCK`` rows a block, and
+    at least one block an SM while rows last. ``blocks`` sets the grid
+    (``blocks=1``: the ring on one SM). The chunk is split evenly: block b
+    owns rows ``[b * chunk // blocks, (b + 1) * chunk // blocks)``. A block
+    keeps ``min(depth, its rows * iters)`` row copies in flight; the third
+    entry sums them over blocks."""
     if chunk <= 0:
         return 0, 0, 0
-    blocks = 1
-    if many_blocks:
+    if blocks is None and many_blocks:
         blocks = -(-chunk // ROWS_A_BLOCK)
         if blocks < sms:
-            blocks = min(sms, chunk)
-    rows = -(-chunk // blocks)
-    blocks = -(-chunk // rows)
-    last = chunk - (blocks - 1) * rows
-    in_flight = (blocks - 1) * min(depth, rows * iters) + min(depth, last * iters)
-    return blocks, rows, in_flight
+            blocks = -(-chunk // -(-chunk // min(sms, chunk)))
+    elif blocks is None:
+        blocks = sms
+    blocks = max(1, min(blocks, chunk))
+    q, r = divmod(chunk, blocks)
+    in_flight = r * min(depth, (q + 1) * iters) + (blocks - r) * min(depth, q * iters)
+    return blocks, q + (r > 0), in_flight
+
+
+def ring_issuers(depth: int, issuers: int | None = None, items: int | None = None) -> int:
+    """Warps of a block that issue copies: ``issuers`` (default
+    ``ISSUERS``), at most ``depth`` and at most the block's ``items`` (its
+    rows times the passes)."""
+    cap = min(depth, depth if items is None else items)
+    return max(1, min(ISSUERS if issuers is None else issuers, cap))
 
 
 def _ring_gather_torch(h: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -92,7 +109,7 @@ def _lib() -> ctypes.CDLL:
     lib = load_library("ring_gather")
     if lib.adaqp_ring_gather.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.adaqp_ring_gather.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, vp]
+        lib.adaqp_ring_gather.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, vp]
         lib.adaqp_ring_gather.restype = ci
         lib.adaqp_ring_gather_smem.argtypes = [ci, ci, ci]
         lib.adaqp_ring_gather_smem.restype = ctypes.c_size_t
@@ -108,14 +125,14 @@ def sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _ring_gather_cuda(h, idx, iters, depth, many_blocks):
+def _ring_gather_cuda(h, idx, iters, depth, many_blocks, blocks, issuers):
     chunk, row_bytes = idx.numel(), h.shape[1] * h.element_size()
     out = torch.empty((chunk, h.shape[1]), dtype=h.dtype, device=h.device)
     if chunk == 0:
         return out
     if h.data_ptr() % 16 or out.data_ptr() % 16:
         raise ValueError("ring_gather's bulk copies need 16-byte-aligned h and out")
-    grid, rows, _ = ring_plan(chunk, iters, depth, many_blocks, sm_count(h.device))
+    grid, rows, _ = ring_plan(chunk, iters, depth, many_blocks, sm_count(h.device), blocks)
     lib = _lib()
     smem = lib.adaqp_ring_gather_smem(depth, row_bytes, rows)
     if smem > MAX_SMEM:
@@ -123,7 +140,8 @@ def _ring_gather_cuda(h, idx, iters, depth, many_blocks):
                          f"{smem} bytes of shared memory, more than a block's {MAX_SMEM}")
     rc = lib.adaqp_ring_gather(
         h.data_ptr(), idx.data_ptr(), out.data_ptr(), chunk, iters, depth, row_bytes, grid,
-        rows, h.device.index, torch.cuda.current_stream(h.device).cuda_stream,
+        rows, ring_issuers(depth, issuers, rows * iters), h.device.index,
+        torch.cuda.current_stream(h.device).cuda_stream,
     )
     raise_on(lib.adaqp_ring_gather_error_string, rc, "ring_gather")
     ring_gather.launches += 1
@@ -131,13 +149,15 @@ def _ring_gather_cuda(h, idx, iters, depth, many_blocks):
 
 
 def ring_gather(h: torch.Tensor, idx: torch.Tensor, iters: int, depth: int,
-                many_blocks: bool = False) -> torch.Tensor:
+                many_blocks: bool = False, blocks: int | None = None,
+                issuers: int | None = None) -> torch.Tensor:
     """``h[idx]`` for contiguous 2-D ``h`` and int32 ``idx`` [chunk] in
     ``[0, h.shape[0])``, computed ``iters`` times over in one launch with
     ``depth`` row copies in flight per thread block, on the grid of
-    :func:`ring_plan` (one block over the whole stream, the reference's
-    form; ``many_blocks``: 4 rows a block). Rows must be a multiple of 16
-    bytes (the bulk copy's unit). An empty ``idx`` launches nothing.
+    :func:`ring_plan` (one block an SM, the reference's form;
+    ``many_blocks``: 4 rows a block; ``blocks``: that many), the copies
+    issued by :func:`ring_issuers` warps a block (``issuers`` caps them). Rows must be a multiple
+    of 16 bytes (the bulk copy's unit). An empty ``idx`` launches nothing.
 
     CUDA ``h``: the kernel (one more ``ring_gather.launches`` per launch);
     the indices are trusted, as by the library's gather on the card. CPU
@@ -152,8 +172,11 @@ def ring_gather(h: torch.Tensor, idx: torch.Tensor, iters: int, depth: int,
                          "of the bulk copy's 16 bytes")
     if iters < 1 or depth < 1:
         raise ValueError(f"iters ({iters}) and depth ({depth}) must be at least 1")
+    if (blocks is not None and blocks < 1) or (issuers is not None and not 1 <= issuers <= 32):
+        raise ValueError(f"blocks ({blocks}) must be at least 1 and issuers ({issuers}) 1 to 32")
     if h.device.type == "cuda":
-        return _ring_gather_cuda(h, idx.contiguous(), iters, depth, many_blocks)
+        return _ring_gather_cuda(h, idx.contiguous(), iters, depth, many_blocks, blocks,
+                                 issuers)
     if h.device.type == "cpu":
         return _ring_gather_torch(h, idx)
     raise ValueError(f"no ring_gather for device {h.device}")
@@ -179,7 +202,7 @@ def main(argv=None) -> dict:
     p.add_argument("--f32", action="store_true", help="also run f32 rows after bf16")
     p.add_argument("--many_blocks", action="store_true",
                    help="the many-block form, 4 rows a block (default: the reference's one "
-                        "program over the stream)")
+                        "program, as one block an SM)")
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: the CUDA card; raises without one)")
     p.add_argument("--seed", type=int, default=0)
@@ -207,10 +230,11 @@ def main(argv=None) -> dict:
                     raise RuntimeError(f"ring_gather {name} {vname} depth={depth} differs "
                                        "from h[idx]")
                 t = time_call(lambda: ring_gather(h, i, iters, depth, args.many_blocks), dev)
-                grid, _, flight = ring_plan(CHUNK, iters, depth, args.many_blocks, sm_count(dev))
+                grid, rows, flight = ring_plan(CHUNK, iters, depth, args.many_blocks,
+                                               sm_count(dev))
                 print(f"ring gather {name} {vname:8s} depth={depth:3d} blocks={grid:4d} "
-                      f"in_flight={flight:5d}: {t / (iters * CHUNK) * 1e9:7.1f} ns/row  "
-                      f"correct={ok}", flush=True)
+                      f"issuers={ring_issuers(depth, None, rows * iters):2d} in_flight={flight:5d}: "
+                      f"{t / (iters * CHUNK) * 1e9:7.1f} ns/row  correct={ok}", flush=True)
         if not args.f32:
             break
     return {"ring_gather": ring_gather.launches - before}

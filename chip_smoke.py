@@ -26,8 +26,8 @@ K=4 padded wires), quant (quant_pack and unpack_dequant in their contiguous
 form and over the lane tables of synthetic K=4 wires), gather (ring_gather,
 window_gather and compact_item against their plain versions, the two
 mains with their launches checked, then each kernel timed with its
-per-iteration slope, ring_gather also with L2 flushed, one block over the
-stream and many), expand (expand_spmm's four variants against their plain
+per-iteration slope, ring_gather also with L2 flushed, one block an SM,
+one over the stream and many), expand (expand_spmm's four variants against their plain
 versions, its main on a Reddit-degree layout of 32,768 nodes, 2,048 dense
 tiles (``--full``: Reddit's size), then each variant timed beside
 block_spmm, torch.sparse.mm and its bound), r5 (transpose_u32 bit for bit
@@ -2122,6 +2122,11 @@ def phase_time_agg(torch, card, runs):
 PEAK_F32_FLOP_S = 67e12
 
 
+# ring_gather's grids: 4 rows a block; one block an SM (the reference's
+# form); one block over the whole stream (the form before, on one SM)
+RING_FORMS = {"many": {"many_blocks": True}, "persistent": {}, "one block": {"blocks": 1}}
+
+
 def _gather_wrappers():
     from adaqp_tpu_torch.scripts import microbench_dma_gather as dg
     from adaqp_tpu_torch.scripts import microbench_gather as gb
@@ -2146,7 +2151,8 @@ def _item_inputs(torch, rng, gen, fc):
 def phase_gather(torch, seed):
     """The gather probes' kernels against their plain versions on the card:
     ring_gather bit for bit with h[idx] at every depth 1/4/8/16/32/64, in
-    the many-block form and as one block over the stream, idx
+    the many-block form, as one block an SM (the reference's form) and as
+    one block over the stream, idx
     uniform, sorted, banded and rows 0 and N-1 alternating, bf16 and f32, F
     256 and 640, chunk 8 and 4,096, one to three passes, and an empty idx;
     window_gather bit for bit with its torch.gather loop over axis 0 and 1,
@@ -2184,12 +2190,13 @@ def phase_gather(torch, seed):
                     want = dg._ring_gather_torch(h, i)
                     for depth in (1, 4, 8, 16, 32, 64):
                         iters = 1 + depth % 3  # 1 to 3 passes: the ring wraps across them
-                        for many in (True, False):  # many blocks; one over the stream
-                            got = dg.ring_gather(h, i, iters, depth, many)
+                        # many blocks; one an SM; one over the stream
+                        for form in RING_FORMS.values():
+                            got = dg.ring_gather(h, i, iters, depth, **form)
                             worst("ring_gather", got, want)
                             check(torch.equal(got, want), f"ring_gather {str(dtype)[6:]} F={f} "
-                                  f"chunk={chunk} {vname} depth={depth} many_blocks={many}: "
-                                  "differs from h[idx]")
+                                  f"chunk={chunk} {vname} depth={depth} {form}: differs from "
+                                  "h[idx]")
                             cases += 1
     before = dg.ring_gather.launches
     got = dg.ring_gather(h, torch.empty(0, dtype=torch.int32, device="cuda"), 1, 4)
@@ -2246,8 +2253,8 @@ def phase_gather(torch, seed):
     said = {**dg.main([]), **gb.main([])}
     torch.cuda.synchronize()
     launches = {k: w.launches for k, w in wrappers.items()}
-    # dma: one dtype x two idx x five depths, one block over the stream (the
-    # main's default, the reference's form); gather: sections of 2 + 3 and
+    # dma: one dtype x two idx x five depths, one block an SM (the main's
+    # default, the reference's form); gather: sections of 2 + 3 and
     # 8 windows, 4 items; each a timed call, its warm-up and a check
     plan = {"ring_gather": 30, "microbench_gather.py:72": 15,
             "microbench_gather.py:130": 24, "microbench_gather.py:212": 12}
@@ -2281,16 +2288,69 @@ def _bound(nbytes, ops, rate):
     return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
 
 
-def phase_time_gather(torch, card, seed):
+def _parent_gather(torch, csrc):
+    """The ``ring_gather`` and ``window_gather`` kernels of the ``csrc``
+    directory of an older tree (one warp a block copying each row through
+    registers, its grid given; a block a slab of lines and a range of
+    positions), built with the port's ``nvcc`` flags and wrapped with that
+    tree's C signatures: ``ring(h, idx, iters, depth, blocks, rows)`` and
+    ``window(x, idx, iters, axis)``."""
+    import ctypes
+
+    from adaqp_tpu_torch.utils.cuda_build import NVCC_FLAGS, nvcc_path
+
+    os.makedirs(WORK, exist_ok=True)
+    libs = {}
+    procs = {name: subprocess.Popen([nvcc_path(), *NVCC_FLAGS, "-o",
+                                     os.path.join(WORK, f"lib{name}_parent.so"),
+                                     os.path.join(csrc, f"{name}.cu")],
+                                    stdout=subprocess.DEVNULL, stderr=subprocess.PIPE)
+             for name in ("ring_gather", "window_gather")}
+    for name, proc in procs.items():
+        err = proc.communicate()[1]
+        check(proc.returncode == 0, f"the older {name}.cu failed to build: {err[-2000:]}")
+        libs[name] = ctypes.CDLL(os.path.join(WORK, f"lib{name}_parent.so"))
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    libs["ring_gather"].adaqp_ring_gather.argtypes = [vp, vp, vp] + [ci] * 7 + [vp]
+    libs["window_gather"].adaqp_window_gather.argtypes = [vp, vp, vp] + [ci] * 7 + [vp]
+
+    def ring(h, idx, iters, depth, blocks, rows):
+        out = torch.empty((idx.numel(), h.shape[1]), dtype=h.dtype, device=h.device)
+        rc = libs["ring_gather"].adaqp_ring_gather(
+            h.data_ptr(), idx.data_ptr(), out.data_ptr(), idx.numel(), iters, depth,
+            h.shape[1] * h.element_size(), blocks, rows, h.device.index,
+            torch.cuda.current_stream(h.device).cuda_stream)
+        check(rc == 0, f"the older ring_gather failed to launch ({rc})")
+        return out
+
+    def window(x, idx, iters, axis):
+        out = torch.empty_like(x)
+        rc = libs["window_gather"].adaqp_window_gather(
+            x.data_ptr(), idx.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1], axis,
+            int(tuple(idx.shape) == tuple(x.shape)), int(x.dtype == torch.bfloat16), iters,
+            x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
+        check(rc == 0, f"the older window_gather failed to launch ({rc})")
+        return out
+
+    return ring, window
+
+
+def phase_time_gather(torch, card, seed, parent_csrc=None):
     """Each gather kernel at its script's shapes with CUDA events: its time
     at one iteration (one pass) beside its bound, its plain version and the
     library call; its time at the script's I iterations and at 2I, and the
     per-iteration slope (t(2I) - t(I)) / I, which must be nonzero (work
     hoisted out of the loop would make it vanish). ring_gather warm (I =
     50 passes over the same 4,096 rows, L2-resident) and cold (one pass,
-    L2 flushed) at every depth and index locality, as one block over the
-    stream (the reference's form, depths 4-64) and as many blocks of 4
-    rows, each time beside the copies in flight for the stream."""
+    L2 flushed) at every depth and index locality, as one block an SM (the
+    reference's form, depths 4-64) and as many blocks of 4 rows, each time
+    beside the copies in flight for the stream; then, uniform idx alone,
+    one block over the stream at depth 64 (the grid before) and the
+    issuing warps a block at depths 16 and 64. window_gather at the
+    script's windows, and at 11a and 11b in other clusters and with 1 to 8
+    lines a block alone.
+    ``parent_csrc``: an older tree's ``csrc`` directory, whose kernels
+    (:func:`_parent_gather`) are timed beside these on the same inputs."""
     import numpy as np
 
     from adaqp_tpu_torch.ops.spmm_block import expand_masks
@@ -2303,6 +2363,7 @@ def phase_time_gather(torch, card, seed):
     gen = torch.Generator(device="cuda").manual_seed(seed)
     rng = np.random.default_rng(seed)
     rows = {}
+    parent = _parent_gather(torch, parent_csrc) if parent_csrc else None
 
     # ring_gather: bf16 h [233,472, 256], 4,096 rows a pass
     f, chunk = 256, dg.CHUNK
@@ -2313,6 +2374,34 @@ def phase_time_gather(torch, card, seed):
         f"pass by bytes ({bound_ms * 1e6 / chunk:.3f} ns/row)")
     sms = dg.sm_count(h.device)
     cold = {}
+
+    def ring_case(vname, i, form, depth, issuers=None, warm=True):
+        """One grid and depth: a cold pass, then 50 and 100 warm passes."""
+        kw = dict(RING_FORMS[form], issuers=issuers)
+        c = _cold_ms(torch, lambda: dg.ring_gather(h, i, 1, depth, **kw))
+        grid, most, flight = dg.ring_plan(chunk, 1, depth, sms=sms, **RING_FORMS[form])
+        line = (f"[time] {card} | ring_gather {vname:8s} {form:10s} blocks={grid:4d} "
+                f"issuers={dg.ring_issuers(depth, issuers, most):2d} depth={depth:2d}: cold "
+                f"{c:.5f} ms a pass, {flight} in flight")
+        if warm:
+            # a call of 0.05-0.1 ms is as short as its host time: queued
+            # behind a spin, the calls run back to back and a slow host call
+            # does not swamp the slope
+            reps = 3 if form == "one block" else 20
+            t1 = cuda_ms(torch, lambda: dg.ring_gather(h, i, 50, depth, **kw), reps=reps,
+                         backlog=True)
+            t2 = cuda_ms(torch, lambda: dg.ring_gather(h, i, 100, depth, **kw), reps=reps,
+                         backlog=True)
+            slope = (t2 - t1) / 50
+            check(slope > 0.05 * t1 / 50, f"ring_gather {form} depth={depth}: the slope "
+                  f"{slope:g} ms a pass is near zero: work left the loop")
+            flight50 = dg.ring_plan(chunk, 50, depth, sms=sms, **RING_FORMS[form])[2]
+            line += (f"; warm {t1 / (50 * chunk) * 1e6:.3f} ns/row at 50 passes ({t1:.4f} ms, "
+                     f"{flight50} in flight), 100 passes {t2:.4f} ms, slope {slope * 1e3:.3f} "
+                     "us a pass")
+        say(line)
+        return c
+
     for vname, vi in dg.idx_variants(rng, dg.N, chunk).items():
         i = torch.from_numpy(vi).cuda()
         lib = _cold_ms(torch, lambda: torch.index_select(h, 0, i))
@@ -2320,58 +2409,84 @@ def phase_time_gather(torch, card, seed):
         say(f"[time] {card} | ring_gather {vname:8s} torch.index_select (plain and library) cold "
             f"{lib:.5f} ms a pass; the script's library loop warm {warm_lib * 1e6:.3f} ns/row")
         cold[(vname, "index_select")] = lib
-        # the reference's form (one block keeps `depth` copies in flight for
-        # the stream) at its depths, then the many-block form (4 rows a block)
-        for many, depths in ((False, (4, 8, 16, 32, 64)), (True, (1, 4, 8, 16, 32, 64))):
+        # the reference's form (one block an SM keeps `depth` copies in
+        # flight over its share) at its depths, then the many-block form
+        for form, depths in (("persistent", (4, 8, 16, 32, 64)), ("many", (1, 4, 8, 16, 32, 64))):
             for depth in depths:
-                c = _cold_ms(torch, lambda: dg.ring_gather(h, i, 1, depth, many))
-                cold[(vname, many, depth)] = c
-                grid, _, flight = dg.ring_plan(chunk, 1, depth, many, sms)
-                line = (f"[time] {card} | ring_gather {vname:8s} blocks={grid:4d} "
-                        f"depth={depth:2d}: cold {c:.5f} ms a pass, {flight} in flight")
-                if depth > 1:
-                    # a many-block call of 0.05-0.1 ms is as short as its
-                    # host time: queued behind a spin, the calls run back to
-                    # back and a slow host call does not swamp the slope
-                    reps = 20 if many else 3
-                    t1 = cuda_ms(torch, lambda: dg.ring_gather(h, i, 50, depth, many),
-                                 reps=reps, backlog=True)
-                    t2 = cuda_ms(torch, lambda: dg.ring_gather(h, i, 100, depth, many),
-                                 reps=reps, backlog=True)
-                    slope = (t2 - t1) / 50
-                    check(slope > 0.05 * t1 / 50, f"ring_gather blocks={grid} depth={depth}: "
-                          f"the slope {slope:g} ms a pass is near zero: work left the loop")
-                    flight50 = dg.ring_plan(chunk, 50, depth, many, sms)[2]
-                    line += (f"; warm {t1 / (50 * chunk) * 1e6:.3f} ns/row at 50 passes "
-                             f"({t1:.4f} ms, {flight50} in flight), 100 passes {t2:.4f} ms, "
-                             f"slope {slope * 1e3:.3f} us a pass")
-                say(line)
-    # the kernels line: uniform idx in the main's form, one block over the
-    # stream, at its deepest ring
+                cold[(vname, form, depth)] = ring_case(vname, i, form, depth, warm=depth > 1)
+        if vname == "uniform":
+            # the grid before (the ring on one SM) beside the new, and the
+            # issuing warps a block
+            ring_case(vname, i, "one block", 64)
+            for depth in (16, 64):
+                for issuers in (1, 4, 8, 16):
+                    ring_case(vname, i, "persistent", depth, issuers)
+        if parent and vname == "uniform":
+            # the older tree's kernel: one warp a block copies each row
+            # through registers; its reference form one block, its many-block
+            # form 4 rows a block
+            check(torch.equal(parent[0](h, i, 3, 64, 1, chunk), dg._ring_gather_torch(h, i)),
+                  "the older ring_gather differs from h[idx]")
+            for depth in (4, 16, 64):
+                for blocks, rows_b in ((1, chunk), (chunk // 4, 4)):
+                    c = _cold_ms(torch, lambda: parent[0](h, i, 1, depth, blocks, rows_b))
+                    t1 = cuda_ms(torch, lambda: parent[0](h, i, 50, depth, blocks, rows_b),
+                                 reps=3 if blocks == 1 else 20, backlog=True)
+                    say(f"[time] {card} | parent ring_gather {vname:8s} blocks={blocks:4d} "
+                        f"depth={depth:2d}: cold {c:.5f} ms a pass; warm "
+                        f"{t1 / (50 * chunk) * 1e6:.3f} ns/row at 50 passes ({t1:.4f} ms)")
+    # the kernels line: uniform idx in the main's form, one block an SM, at
+    # its deepest ring
     lib = cold[("uniform", "index_select")]
-    rows["ring_gather"] = dict(ms=cold[("uniform", False, 64)], plain_ms=lib, bound_ms=bound_ms,
-                               bound_by=bound_by, library_ms=lib)
+    rows["ring_gather"] = dict(ms=cold[("uniform", "persistent", 64)], plain_ms=lib,
+                               bound_ms=bound_ms, bound_by=bound_by, library_ms=lib)
 
-    def window_case(tag, x, ii, axis, iters_i=200):
-        """Times one window_gather case; returns its row at one iteration."""
+    def window_case(tag, x, ii, axis, iters_i=200, lines=None, cluster=None):
+        """Times one window_gather case (and, with ``parent``, the older
+        tree's kernel on it); returns its row at one iteration. One
+        iteration is timed on the card's clock, calls queued behind a spin
+        (a call is shorter than its host time), and paced by the host, as
+        PRs 5-10 timed it."""
         full = gb.full_index(x, ii, axis)
-        t1 = cuda_ms(torch, lambda: gb.window_gather(x, ii, 1, axis), reps=20)
-        ti = cuda_ms(torch, lambda: gb.window_gather(x, ii, iters_i, axis), reps=5)
-        t2 = cuda_ms(torch, lambda: gb.window_gather(x, ii, 2 * iters_i, axis), reps=5)
+        plan = gb.window_plan(*x.shape, axis, x.element_size(),
+                              tuple(ii.shape) == tuple(x.shape), sms, lines, 16, cluster)
+
+        def kernel(iters):
+            return gb.window_gather(x, ii, iters, axis, lines, cluster)
+
+        t1 = cuda_ms(torch, lambda: kernel(1), reps=20, backlog=True)
+        paced = cuda_ms(torch, lambda: kernel(1), reps=20)
+        ti = cuda_ms(torch, lambda: kernel(iters_i), reps=5)
+        t2 = cuda_ms(torch, lambda: kernel(2 * iters_i), reps=5)
         slope = (t2 - ti) / iters_i
         check(slope > 0.05 * ti / iters_i, f"window_gather {tag}: the slope {slope:g} ms an "
               "iteration is near zero: work left the loop")
-        plain = cuda_ms(torch, lambda: gb._window_gather_torch(x, ii, 1, axis), reps=20)
+        plain = cuda_ms(torch, lambda: gb._window_gather_torch(x, ii, 1, axis), reps=20,
+                        backlog=True)
         plain_i = cuda_ms(torch, lambda: gb._window_gather_torch(x, ii, iters_i, axis), reps=2,
                           warmup=1)
-        lib = cuda_ms(torch, lambda: torch.gather(x, axis, full), reps=20)
+        lib = cuda_ms(torch, lambda: torch.gather(x, axis, full), reps=20, backlog=True)
+        lib_paced = cuda_ms(torch, lambda: torch.gather(x, axis, full), reps=20)
         nbytes = x.numel() * x.element_size() * 2 + ii.numel() * 4
         b1, by1 = _bound(nbytes, x.numel(), PEAK_F32_FLOP_S)
         bi, byi = _bound(nbytes, x.numel() * iters_i, PEAK_F32_FLOP_S)
-        say(f"[time] {card} | window_gather {tag}: 1 iteration {t1:.5f} ms (bound {b1:.5f} by "
-            f"{by1}; plain {plain:.5f}; torch.gather {lib:.5f}); {iters_i} iterations {ti:.4f} ms "
-            f"(bound {bi:.5f} by {byi}; plain {plain_i:.3f}), {2 * iters_i} {t2:.4f} ms, slope "
-            f"{slope * 1e3:.4f} us an iteration")
+        tag += (f" ({plan.lines} lines a {'cluster' if plan.cluster > 1 else 'block'}, "
+                f"{plan.blocks} blocks, {plan.cluster} a cluster, {plan.unit}-byte loads)")
+        say(f"[time] {card} | window_gather {tag}: 1 iteration {t1:.5f} ms (paced {paced:.5f}; "
+            f"bound {b1:.5f} by {by1}; plain {plain:.5f}; torch.gather {lib:.5f}, paced "
+            f"{lib_paced:.5f}); {iters_i} iterations {ti:.4f} ms (bound {bi:.5f} by {byi}; plain "
+            f"{plain_i:.3f}), {2 * iters_i} {t2:.4f} ms, slope {slope * 1e3:.4f} us an iteration")
+        if parent and lines is None and cluster is None:
+            want = gb._window_gather_torch(x, ii, 3, axis)
+            check(torch.equal(parent[1](x, ii, 3, axis), want),
+                  f"the older window_gather {tag} differs from its plain version")
+            p1 = cuda_ms(torch, lambda: parent[1](x, ii, 1, axis), reps=20, backlog=True)
+            pp = cuda_ms(torch, lambda: parent[1](x, ii, 1, axis), reps=20)
+            pi = cuda_ms(torch, lambda: parent[1](x, ii, iters_i, axis), reps=5)
+            p2 = cuda_ms(torch, lambda: parent[1](x, ii, 2 * iters_i, axis), reps=5)
+            say(f"[time] {card} | parent window_gather {tag.split(' (')[0]}: 1 iteration "
+                f"{p1:.5f} ms (paced {pp:.5f}); {iters_i} iterations {pi:.4f} ms, "
+                f"{2 * iters_i} {p2:.4f} ms, slope {(p2 - pi) / iters_i * 1e3:.4f} us an iteration")
         return dict(ms=t1, plain_ms=plain, bound_ms=b1, bound_by=by1, library_ms=lib)
 
     # the element gather (:72) at [4096, 256], full index (rows broadcast),
@@ -2380,6 +2495,10 @@ def phase_time_gather(torch, card, seed):
     x = torch.randn(4096, 256, generator=gen, device="cuda")
     ii = idx_rows[:, None].expand(4096, 256).contiguous()
     rows["window_gather"] = window_case("[4096, 256] f32 full idx axis 0", x, ii, 0)
+    # the plan takes clusters of 4 blocks; then other clusters, and a block
+    # owning its lines alone (8 f32 lines and their index exceed 227 KB)
+    for lines, cluster in ((None, 2), (None, 8), (1, None), (2, None), (4, None)):
+        window_case("[4096, 256] f32 full idx axis 0", x, ii, 0, lines=lines, cluster=cluster)
     window_case("[4096, 256] bf16 full idx axis 0", x.to(torch.bfloat16), ii, 0)
     for ff in (256, 640):
         for axis in (0, 1):
@@ -2392,6 +2511,11 @@ def phase_time_gather(torch, card, seed):
                 row = window_case(f"{list(shape)} bf16 {form} idx axis {axis}", x, ii, axis)
                 if (ff, axis, form) == (256, 0, "1-D"):
                     rows["window_gather_square"] = row
+                    # the plan takes clusters of 8; then smaller ones and a block alone
+                    for lines, cluster in ((None, 2), (None, 4), (1, None), (2, None),
+                                           (4, None), (8, None)):
+                        window_case(f"{list(shape)} bf16 {form} idx axis {axis}", x, ii, axis,
+                                    lines=lines, cluster=cluster)
 
     # compact_item at fc 256 and 384, kinds 0 and 1
     for fc in (256, 384):
@@ -2703,12 +2827,18 @@ def main():
                    help="a csrc directory of an older tree whose quant_rows.cu has the "
                         "contiguous C interface: train_pad also times the per-bucket padded "
                         "exchange around its kernels")
+    p.add_argument("--parent_gather", type=str, default=None,
+                   help="a csrc directory of an older tree: the gather timing also times its "
+                        "ring_gather.cu and window_gather.cu (their older C interfaces) on the "
+                        "same inputs")
     p.add_argument("--profile", action="store_true",
                    help="also trace a few K=1 training steps with torch.profiler (the "
                         "Reddit run and each train_agg run)")
     args = p.parse_args()
     if args.parent_rows:
         args.parent_rows = os.path.abspath(args.parent_rows)
+    if args.parent_gather:
+        args.parent_gather = os.path.abspath(args.parent_gather)
     only = None if args.only is None else set(args.only.split(","))
     try:
         import torch
@@ -2738,7 +2868,7 @@ def main():
     pack_err, quant_err = run("quant", phase_quant, torch, SEED) if want("quant") else (None, None)
     if want("gather"):
         gather_errs, gather_l = run("gather", phase_gather, torch, SEED)
-        gtimes = run("time", phase_time_gather, torch, card, SEED)
+        gtimes = run("time", phase_time_gather, torch, card, SEED, args.parent_gather)
     if want("expand"):
         expand_err, expand_l, expand_lay, expand_host = run("expand", phase_expand, torch, args)
         etimes = run("time", phase_time_expand, torch, card, expand_lay, expand_host)

@@ -81,34 +81,68 @@ def test_ring_gather_takes_the_edges_and_no_rows():
     assert empty.shape == (0, 8)
 
 
-@pytest.mark.parametrize("chunk,iters,depth,many,sms,want", [
-    # the reference's form: one block keeps `depth` copies in flight for the stream
-    (4096, 1, 4, False, 132, (1, 4096, 4)),
-    (4096, 1, 64, False, 132, (1, 4096, 64)),
-    (4097, 1, 64, False, 132, (1, 4097, 64)),
-    (8, 1, 64, False, 132, (1, 8, 8)),
-    (8, 3, 64, False, 132, (1, 8, 24)),
+@pytest.mark.parametrize("chunk,iters,depth,many,sms,blocks,want", [
+    # the reference's form: one block an SM keeps `depth` copies in flight
+    # over its share of the stream, the chunk split evenly (4 blocks of 32
+    # rows, 128 of 31)
+    (4096, 1, 4, False, 132, None, (132, 32, 528)),
+    (4096, 1, 64, False, 132, None, (132, 32, 4096)),
+    (4097, 1, 64, False, 132, None, (132, 32, 4097)),
+    (4096, 50, 16, False, 132, None, (132, 32, 2112)),
+    # fewer rows than SMs: a block a row
+    (8, 1, 64, False, 132, None, (8, 1, 8)),
+    (8, 3, 64, False, 132, None, (8, 1, 24)),
+    (131, 2, 4, False, 132, None, (131, 1, 262)),
+    # one SM, as the CPU counts them
+    (4096, 1, 64, False, 1, None, (1, 4096, 64)),
+    # a grid of one block: the ring on one SM
+    (4096, 1, 64, False, 132, 1, (1, 4096, 64)),
+    (8, 3, 64, False, 132, 1, (1, 8, 24)),
+    (4096, 1, 64, True, 132, 1, (1, 4096, 64)),
+    # a grid given outright, never more blocks than rows
+    (10, 1, 4, False, 132, 3, (3, 4, 10)),
+    (4, 1, 4, False, 132, 9, (4, 1, 4)),
     # the many-block form: 4 rows a block, at least a block an SM
-    (4096, 1, 4, True, 132, (1024, 4, 4096)),
-    (4096, 1, 64, True, 132, (1024, 4, 4096)),
-    (4096, 50, 64, True, 132, (1024, 4, 65536)),
-    (4096, 1, 1, True, 132, (1024, 4, 1024)),
-    (300, 1, 8, True, 132, (100, 3, 300)),
-    (8, 1, 4, True, 132, (8, 1, 8)),
-    (10, 2, 64, True, 132, (10, 1, 20)),
-    (0, 1, 4, False, 132, (0, 0, 0)),
+    (4096, 1, 4, True, 132, None, (1024, 4, 4096)),
+    (4096, 1, 64, True, 132, None, (1024, 4, 4096)),
+    (4096, 50, 64, True, 132, None, (1024, 4, 65536)),
+    (4096, 1, 1, True, 132, None, (1024, 4, 1024)),
+    (300, 1, 8, True, 132, None, (100, 3, 300)),
+    (8, 1, 4, True, 132, None, (8, 1, 8)),
+    (10, 2, 64, True, 132, None, (10, 1, 20)),
+    (0, 1, 4, False, 132, None, (0, 0, 0)),
 ])
-def test_ring_plan(chunk, iters, depth, many, sms, want):
-    assert dg.ring_plan(chunk, iters, depth, many, sms) == want
+def test_ring_plan(chunk, iters, depth, many, sms, blocks, want):
+    assert dg.ring_plan(chunk, iters, depth, many, sms, blocks) == want
+
+
+@pytest.mark.parametrize("chunk,blocks", [(4096, 132), (4097, 132), (131, 131), (10, 3), (8, 1)])
+def test_ring_plan_gives_each_row_to_one_block(chunk, blocks):
+    # the kernel's split: block b owns rows [b * chunk // blocks, (b + 1) * chunk // blocks)
+    got, rows, _ = dg.ring_plan(chunk, 1, 4, blocks=blocks)
+    bounds = [b * chunk // got for b in range(got + 1)]
+    assert got == blocks and bounds[0] == 0 and bounds[-1] == chunk
+    sizes = np.diff(bounds)
+    assert sizes.min() >= 1 and sizes.max() == rows and sizes.max() - sizes.min() <= 1
+
+
+@pytest.mark.parametrize("depth,issuers,items,want", [
+    (64, None, None, dg.ISSUERS), (1, None, None, 1), (2, None, None, min(2, dg.ISSUERS)),
+    (64, 8, None, 8), (4, 8, None, 4), (64, 1, None, 1),
+    # no more issuers than a block's rows times passes
+    (64, None, 4, 4), (64, None, 32 * 50, dg.ISSUERS), (64, 16, 3, 3), (4, None, 1, 1),
+])
+def test_ring_issuers(depth, issuers, items, want):
+    assert dg.ring_issuers(depth, issuers, items) == want
 
 
 @pytest.mark.parametrize("depth", [1, 64])
-@pytest.mark.parametrize("many", [False, True])
-def test_ring_gather_plain_version_takes_either_form(many, depth):
+@pytest.mark.parametrize("form", [{}, {"many_blocks": True}, {"blocks": 1}, {"issuers": 1}])
+def test_ring_gather_plain_version_takes_either_form(form, depth):
     rng = np.random.default_rng(11)
     h = torch.from_numpy(rng.normal(size=(512, 16)).astype(np.float32))
     idx = torch.from_numpy(dg.idx_variants(rng, 512, 64)["uniform"])
-    assert torch.equal(dg.ring_gather(h, idx, 2, depth, many), h[idx.long()])
+    assert torch.equal(dg.ring_gather(h, idx, 2, depth, **form), h[idx.long()])
 
 
 @pytest.mark.parametrize("bad,match", [
@@ -120,6 +154,9 @@ def test_ring_gather_plain_version_takes_either_form(many, depth):
     (dict(depth=0), "at least 1"),
     (dict(iters=0), "at least 1"),
     (dict(depth=-1), "at least 1"),
+    (dict(blocks=0), "blocks"),
+    (dict(issuers=0), "issuers"),
+    (dict(issuers=33), "issuers"),
     (dict(h=torch.zeros(8, 8, device="meta"), idx=torch.zeros(4, dtype=torch.int32,
                                                                 device="meta")), "no ring_gather"),
 ])
@@ -141,14 +178,21 @@ def test_main_prints_the_probe_on_the_cpu(capsys):
         assert [x.split()[0] for x in mine] == ["library"] * 3 + ["ring"] * 10
         assert all(x.endswith("correct=True") for x in mine if x.startswith("ring"))
     assert "[4096,8] of [233472]" in lines[0]
-    assert all(" blocks=   1 in_flight=" in x for x in lines if x.startswith("ring"))
+    # one block an SM, and the CPU counts one SM
+    ring = [x for x in lines if x.startswith("ring")]
+    assert [x.split("depth=")[1].split()[0] for x in ring] == [str(d) for d in dg.DEPTHS] * 4
+    for x in ring:
+        depth = int(x.split("depth=")[1].split()[0])
+        assert f" blocks=   1 issuers={dg.ring_issuers(depth):2d} in_flight=" in x
 
 
 def test_main_runs_the_many_block_form(capsys):
     dg.main(["--device", "cpu", "--f", "8", "--iters", "1", "--many_blocks"])
     ring = [x for x in capsys.readouterr().out.splitlines() if x.startswith("ring")]
     assert len(ring) == 2 * len(dg.DEPTHS)
-    assert all(" blocks=1024 in_flight=" in x and x.endswith("correct=True") for x in ring)
+    # 4 rows a block, one pass: at most 4 issuers
+    assert all(" blocks=1024 issuers= " in x and x.endswith("correct=True") for x in ring)
+    assert [x.split("issuers=")[1].split()[0] for x in ring] == ["4"] * len(ring)
 
 
 def test_main_needs_a_card_unless_cpu_is_asked():

@@ -309,19 +309,42 @@ def test_cuda_ring_gather_matches_plain(cuda_device, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("chunk", [8, dg.CHUNK])
-def test_cuda_ring_gather_one_block_at_depth_64(cuda_device, chunk):
-    # the reference's form: one block keeps 64 copies in flight over the stream
+@pytest.mark.parametrize("chunk", [8, 131, dg.CHUNK])
+@pytest.mark.parametrize("blocks", [None, 1])
+def test_cuda_ring_gather_persistent_form(cuda_device, blocks, chunk):
+    # the reference's form (blocks None): one block an SM with `depth`
+    # copies in flight over its share of the stream (8 and 131 rows: fewer
+    # than SMs, a block a row; 4,096: a remainder over 132 SMs); and a grid
+    # of one block, the ring on one SM
     rng = np.random.default_rng(chunk)
     h = torch.from_numpy(rng.normal(size=(dg.N, 256)).astype(np.float32)).to(
         cuda_device, torch.bfloat16)
-    assert dg.ring_plan(chunk, 2, 64)[::2] == (1, min(64, 2 * chunk))
+    sms = dg.sm_count(h.device)
+    grid = dg.ring_plan(chunk, 2, 64, sms=sms, blocks=blocks)[0]
+    assert grid == (1 if blocks else min(sms, chunk))
     for vname, vi in dg.idx_variants(rng, dg.N, chunk).items():
         i = torch.from_numpy(vi).to(cuda_device)
-        before = dg.ring_gather.launches
-        got = dg.ring_gather(h, i, 2, 64)
-        assert dg.ring_gather.launches == before + 1
-        assert torch.equal(got, dg._ring_gather_torch(h, i)), vname
+        want = dg._ring_gather_torch(h, i)
+        for depth in (1, 4, 64):
+            for iters in (1, 3):
+                before = dg.ring_gather.launches
+                got = dg.ring_gather(h, i, iters, depth, blocks=blocks)
+                assert dg.ring_gather.launches == before + 1
+                assert torch.equal(got, want), (vname, depth, iters)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("issuers", [1, 2, 3, 8, 32])
+def test_cuda_ring_gather_any_issuers(cuda_device, issuers):
+    # the ring's slots split over 1 to 32 issuing warps, each with a share
+    # that may be uneven (3 of 64 slots), at f32 rows of 640 columns
+    rng = np.random.default_rng(issuers)
+    h = torch.from_numpy(rng.normal(size=(dg.N, 640)).astype(np.float32)).to(cuda_device)
+    for chunk in (8, dg.CHUNK):
+        i = torch.from_numpy(dg.idx_variants(rng, dg.N, chunk)["uniform"]).to(cuda_device)
+        for depth, blocks in ((64, None), (16, None), (64, 1), (5, 3)):
+            got = dg.ring_gather(h, i, 2, depth, blocks=blocks, issuers=issuers)
+            assert torch.equal(got, dg._ring_gather_torch(h, i)), (chunk, depth, blocks)
 
 
 @pytest.mark.gpu
@@ -339,6 +362,36 @@ def test_cuda_window_gather_matches_plain(cuda_device, axis, dtype):
             got = gb.window_gather(x, idx, iters, axis)
             assert gb.window_gather.launches == before + 1
             assert torch.equal(got, gb._window_gather_torch(x, idx, iters, axis))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,axis", [((1000, 257), 0), ((257, 1000), 1), ((300, 641), 0),
+                                        ((641, 300), 1)])
+def test_cuda_window_gather_uneven_shapes(cuda_device, shape, axis, dtype):
+    # a gather axis of 300 or 1,000 positions (no multiple of 256 threads)
+    # and 257 or 641 lines, which the plan's lines a block (a cluster) do
+    # not divide; then lines of 1, 3 and 7 a block (narrower loads, other
+    # remainders) and, along axis 0, clusters of 2 and 8 blocks
+    length, lines = shape[axis], shape[1 - axis]
+    plan = gb.window_plan(*shape, axis, 2 if dtype == torch.bfloat16 else 4)
+    assert lines % plan.lines and length % 256
+    g = torch.Generator(device=cuda_device).manual_seed(lines + axis)
+    x = torch.randn(shape, generator=g, device=cuda_device).to(dtype)
+    full = torch.randint(0, length, shape, generator=g, device=cuda_device, dtype=torch.int32)
+    col = torch.randint(0, length, (1, length), generator=g, device=cuda_device,
+                        dtype=torch.int32)
+    plans = [(None, None), (1, None), (3, None), (7, None)]
+    if axis == 0:
+        plans += [(None, 2), (None, 8), (3, 2)]
+    for idx in (full, col):
+        for per_block, cluster in plans:
+            for iters in (1, 3):
+                before = gb.window_gather.launches
+                got = gb.window_gather(x, idx, iters, axis, per_block, cluster)
+                assert gb.window_gather.launches == before + 1
+                assert torch.equal(got, gb._window_gather_torch(x, idx, iters, axis)), (
+                    idx.shape, per_block, cluster, iters)
 
 
 @pytest.mark.gpu
