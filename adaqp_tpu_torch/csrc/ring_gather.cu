@@ -31,14 +31,13 @@
 // the store and commits it, then refills the slot of its previous item
 // once cp.async.bulk.wait_group.read 1 says that item's store has read it
 // (with one slot, its only item's store: wait_group.read 0). A row costs
-// its thread a handful of instructions, but an issuing thread moves about
-// one row each 700-770 cycles, whatever its slots: refilling a slot half a
-// ring after its store, or not fencing the proxies before a store, changed
-// nothing (0.70-0.75 ns a row warm at 4 issuers; NVIDIA H100 80GB HBM3 at
-// 700 W, chip_smoke.py's timing of the issuers). The issuers set an SM's
-// pace: 8 issuers 0.38-0.40 ns a row, 16 0.23-0.24, 32 0.20-0.21, where
-// the L2 that holds a warm pass's rows takes over; hence up to 32 warps a
-// block, one a slot.
+// its thread a handful of instructions, yet an issuing thread moves about
+// one row each 250 ns, however many slots it has: refilling a slot
+// half a ring after its store, or leaving out the proxy fence before a
+// store, changed nothing measurable. So the issuers set an SM's pace: warm
+// at depth 64, 1 issuer 1.92 ns a row, 4 0.50, 8 0.28, 16 0.19 (NVIDIA
+// H100 80GB HBM3 at 700 W, chip_smoke.py's gather timing), where the L2
+// that holds a warm pass's rows takes over; hence up to 32 warps a block.
 //
 // What bounds it: bytes. Each row is read once and written once, with a
 // 4-byte index: chunk * (2 * row_bytes + 4) bytes a pass, 0.31 ns a row for

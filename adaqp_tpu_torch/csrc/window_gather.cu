@@ -28,22 +28,27 @@
 // t + kThreads, ... -- for axis 0 each position's segment of `lines`
 // columns by `unit`-byte loads into a slab [L][stride] whose positions lie
 // an odd number of words apart (a warp's random rows of one line then
-// spread over all 32 banks), for axis 1 each line by `unit`-byte vectors
-// into a slab [lines][stride]. Then each thread takes kPer outputs at a
-// time: their slab offsets (and the full index's values) are worked out
-// once, and every iteration gathers each output's value from the slab
-// through a volatile shared-memory load, so that the compiler cannot
-// hoist the gather out of the iteration loop (the per-iteration slope of
-// the time measures the gather), and adds it into the thread's
-// accumulator.
+// spread over all 32 banks), for axis 1 each line by `unit`-byte
+// cp.async copies into a slab [lines][stride]. A full index is staged
+// after the slab the same way, by cp.async, before x's loads, so that both
+// are in flight together (a 1-D index: its entries). Then each thread
+// takes kPer outputs at a time: their slab offsets are worked out once,
+// and every iteration gathers each output's value from the slab through a
+// volatile shared-memory load, so that the compiler cannot hoist the
+// gather out of the iteration loop (the per-iteration slope of the time
+// measures the gather), and adds it into the thread's accumulator.
 //
 // What bounds it: bytes for one iteration (x read once, the index read
 // once, the output written once), the f32 adds for many: iters * R * C
 // adds at the card's f32 rate; each iteration costs one shared-memory
-// gather an output.
+// gather an output. What holds it back along axis 0: a block owning two of
+// 256 columns reads and writes an 8-byte piece of every row, a memory
+// request a piece, where torch.gather reads whole rows; wider blocks leave
+// SMs idle and double the per-iteration slope, and clusters of 2-8 blocks
+// that shared a sector-wide slab through distributed shared memory were
+// slower still (chip_smoke.py, NVIDIA H100 80GB HBM3 at 700 W).
 //
 // The indices must lie in [0, x.shape[axis]); the kernel trusts them.
-#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -52,13 +57,10 @@
 
 namespace {
 
-namespace cg = cooperative_groups;
-
 constexpr int kThreads = 512;
 constexpr int kPer = 8;               // outputs a thread at a time
 constexpr int kStage = 8;             // staging loads a thread in flight
 constexpr int kMaxSmem = 227 * 1024;  // a block's limit on Hopper
-constexpr int kMaxCluster = 8;        // blocks a cluster at most (the portable size)
 
 // Elements travel as their bits (S): volatile loads of a bf16 struct do
 // not compile, and bits convert to f32 exactly.
@@ -143,30 +145,23 @@ __host__ __device__ inline size_t slab_bytes(int axis, int L, int lines, int str
   return round16(static_cast<size_t>(axis == 0 ? L : lines) * stride * esize);
 }
 
-// The staged index after it, for the block's own positions (a cluster's
-// block: L / cluster of them, rounded up): a full one axis 0
-// [positions][lines], axis 1 [lines][L rounded up to 4]; a 1-D one
-// [positions rounded up to 4].
+// The staged index after it: a full one axis 0 [L][lines], axis 1
+// [lines][L rounded up to 4]; a 1-D one [L rounded up to 4].
 __host__ __device__ inline int index_stride(int L) { return (L + 3) / 4 * 4; }
-__host__ __device__ inline size_t index_bytes(int axis, int full, int L, int lines,
-                                              int cluster) {
-  const int own = (L + cluster - 1) / cluster;
-  if (!full) return static_cast<size_t>(index_stride(own)) * 4;
-  return static_cast<size_t>(axis == 0 ? own : index_stride(L)) * lines * 4;
+__host__ __device__ inline size_t index_bytes(int axis, int full, int L, int lines) {
+  if (!full) return static_cast<size_t>(index_stride(L)) * 4;
+  return static_cast<size_t>(axis == 0 ? L : index_stride(L)) * lines * 4;
 }
 
 // x [rows, cols] row-major. The gather axis has length L (rows for axis 0,
 // cols for axis 1); block b owns lines [b * lines, b * lines + lines) of
 // the other axis, M of them in all, at every position of the gather axis.
-// Axis 0 in clusters of `cluster` blocks: cluster k owns lines [k * lines,
-// k * lines + lines), and its block of rank q stages and computes the
-// positions [q * L / cluster, (q + 1) * L / cluster), then copies the
-// others' staged positions from their shared memory. kUnit is the staging
-// loads' width for x; the full index's is kIUnit, as many positions wide.
+// kUnit is the staging loads' width for x; the full index's is kIUnit, as
+// many positions wide.
 template <int kAxis, bool kFull, bool kBf16, int kUnit>
 __global__ void __launch_bounds__(kThreads)
 window_gather_kernel(const void* __restrict__ x_, const int32_t* __restrict__ idx, void* out_,
-                     int rows, int cols, int lines, int stride, int cluster, int iters) {
+                     int rows, int cols, int lines, int stride, int iters) {
   using E = Elem<kBf16>;
   using S = typename E::S;
   constexpr int kIUnit = kUnit * 4 / static_cast<int>(sizeof(S)) > 16
@@ -177,26 +172,22 @@ window_gather_kernel(const void* __restrict__ x_, const int32_t* __restrict__ id
   S* out = static_cast<S*>(out_);
   const int L = kAxis == 0 ? rows : cols;
   const int M = kAxis == 0 ? cols : rows;
-  const int q = kAxis == 0 ? blockIdx.x % cluster : 0;  // rank in the cluster
-  const int m0 = (kAxis == 0 ? blockIdx.x / cluster : blockIdx.x) * lines;
+  const int m0 = blockIdx.x * lines;
   const int sm = min(lines, M - m0);
-  // this block's positions along the gather axis
-  const int p0 = kAxis == 0 ? static_cast<int>(static_cast<long long>(q) * L / cluster) : 0;
-  const int p1 = kAxis == 0 ? static_cast<int>(static_cast<long long>(q + 1) * L / cluster) : L;
   const int li = index_stride(L);
   int32_t* islab = reinterpret_cast<int32_t*>(
       smem + slab_bytes(kAxis, L, lines, stride, static_cast<int>(sizeof(S))));
   // the index first, by asynchronous copies, so that its loads and x's are
   // in flight together
   if (!kFull) {
-    for (int l = p0 + threadIdx.x; l < p1; l += kThreads) copy_async<4>(islab + l - p0, idx + l);
+    for (int l = threadIdx.x; l < L; l += kThreads) copy_async<4>(islab + l, idx + l);
   } else if (kAxis == 0) {
-    // position p's segment: sm entries of row p, to islab[(p - p0) * lines + i]
+    // position p's segment: sm entries of row p, to islab[p * lines + i]
     const int seg = sm * 4;
-    for (int p = p0 + threadIdx.x; p < p1; p += kThreads) {
+    for (int p = threadIdx.x; p < L; p += kThreads) {
       const uint8_t* src =
           reinterpret_cast<const uint8_t*>(idx + static_cast<size_t>(p) * cols + m0);
-      uint8_t* dst = reinterpret_cast<uint8_t*>(islab + static_cast<size_t>(p - p0) * lines);
+      uint8_t* dst = reinterpret_cast<uint8_t*>(islab + static_cast<size_t>(p) * lines);
       for (int b = 0; b < seg; b += kIUnit) copy_async<kIUnit>(dst + b, src + b);
     }
   } else {
@@ -222,17 +213,17 @@ window_gather_kernel(const void* __restrict__ x_, const int32_t* __restrict__ id
     uint8_t* dst = reinterpret_cast<uint8_t*>(slab);
     const size_t src_row = static_cast<size_t>(cols) * sizeof(S);
     const size_t dst_row = static_cast<size_t>(stride) * sizeof(S);
-    for (int pp = p0 + threadIdx.x; pp < p1; pp += kThreads * kStage) {
+    for (int p0 = threadIdx.x; p0 < L; p0 += kThreads * kStage) {
       for (int b = 0; b < seg; b += kUnit) {
 #pragma unroll
         for (int j = 0; j < kStage; ++j) {
-          const int p = pp + j * kThreads;
-          if (p < p1) v[j] = load_unit<kUnit>(src + p * src_row + b);
+          const int p = p0 + j * kThreads;
+          if (p < L) v[j] = load_unit<kUnit>(src + p * src_row + b);
         }
 #pragma unroll
         for (int j = 0; j < kStage; ++j) {
-          const int p = pp + j * kThreads;
-          if (p < p1) store_unit<kUnit, false>(dst + p * dst_row + b, v[j]);
+          const int p = p0 + j * kThreads;
+          if (p < L) store_unit<kUnit, false>(dst + p * dst_row + b, v[j]);
         }
       }
     }
@@ -254,37 +245,10 @@ window_gather_kernel(const void* __restrict__ x_, const int32_t* __restrict__ id
     }
   }
   asm volatile("cp.async.wait_all;" ::: "memory");
-  if (kAxis == 0 && cluster > 1) {
-    // the other blocks' positions, word by word from their shared memory;
-    // the second sync keeps every block's slab until its peers have read it
-    cg::cluster_group cl = cg::this_cluster();
-    cl.sync();
-    const int row_w = stride * static_cast<int>(sizeof(S)) / 4;  // words a position
-    uint32_t* mine = reinterpret_cast<uint32_t*>(smem);
-    for (int r = 1; r < cluster; ++r) {
-      const int peer = (q + r) % cluster;  // each block starts at another peer
-      const uint32_t* theirs = cl.map_shared_rank(mine, peer);
-      const int w0 = static_cast<int>(static_cast<long long>(peer) * L / cluster) * row_w;
-      const int w1 = static_cast<int>(static_cast<long long>(peer + 1) * L / cluster) * row_w;
-      uint32_t w[kStage];
-      for (int ww = w0 + threadIdx.x; ww < w1; ww += kThreads * kStage) {
-#pragma unroll
-        for (int j = 0; j < kStage; ++j) {
-          if (ww + j * kThreads < w1) w[j] = theirs[ww + j * kThreads];
-        }
-#pragma unroll
-        for (int j = 0; j < kStage; ++j) {
-          if (ww + j * kThreads < w1) mine[ww + j * kThreads] = w[j];
-        }
-      }
-    }
-    cl.sync();
-  } else {
-    __syncthreads();
-  }
-  // the block's outputs e = 0 .. total - 1: axis 0 position-major (e =
-  // (p - p0) * sm + i, x's order), axis 1 line-major (e = i * L + p)
-  const int total = sm * (p1 - p0);
+  __syncthreads();
+  // outputs e = 0 .. sm * L - 1 of the block: axis 0 position-major (e = p
+  // * sm + i, x's order), axis 1 line-major (e = i * L + p)
+  const int total = sm * L;
   const volatile S* win = slab;
   for (int e0 = threadIdx.x; e0 < total; e0 += kThreads * kPer) {
     int off[kPer];     // each output's gather address in the slab
@@ -299,7 +263,6 @@ window_gather_kernel(const void* __restrict__ x_, const int32_t* __restrict__ id
       if (kAxis == 0) {
         p = ee / sm;
         i = ee - p * sm;
-        p += p0;
       } else {
         i = ee / L;
         p = ee - i * L;
@@ -307,8 +270,7 @@ window_gather_kernel(const void* __restrict__ x_, const int32_t* __restrict__ id
       const int r = kAxis == 0 ? p : m0 + i;
       const int c = kAxis == 0 ? m0 + i : p;
       dst[j] = static_cast<size_t>(r) * cols + c;
-      const int g = !kFull ? islab[p - p0]
-                           : islab[kAxis == 0 ? (p - p0) * lines + i : i * li + p];
+      const int g = !kFull ? islab[p] : islab[kAxis == 0 ? p * lines + i : i * li + p];
       off[j] = kAxis == 0 ? g * stride + i : i * stride + g;
     }
     float acc[kPer];
@@ -318,7 +280,8 @@ window_gather_kernel(const void* __restrict__ x_, const int32_t* __restrict__ id
     for (int k = 0; k < iters; ++k) {
 #pragma unroll
       for (int j = 0; j < kPer; ++j) {
-        acc[j] = E::add(acc[j], E::to_float(win[off[j]]));
+        // a chunk's dead outputs (past the block's last) gather nothing
+        if (live[j]) acc[j] = E::add(acc[j], E::to_float(win[off[j]]));
       }
     }
 #pragma unroll
@@ -330,47 +293,34 @@ window_gather_kernel(const void* __restrict__ x_, const int32_t* __restrict__ id
 
 template <int kAxis, bool kFull, bool kBf16, int kUnit>
 int launch(const void* x, const void* idx, void* out, int rows, int cols, int lines, int stride,
-           int cluster, int iters, size_t smem, cudaStream_t s) {
+           int iters, size_t smem, cudaStream_t s) {
   auto kernel = window_gather_kernel<kAxis, kFull, kBf16, kUnit>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int M = kAxis == 0 ? cols : rows;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((M + lines - 1) / lines * cluster);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = s;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = cluster > 1 ? 1 : 0;
-  err = cudaLaunchKernelEx(&cfg, kernel, x, static_cast<const int32_t*>(idx), out, rows, cols,
-                           lines, stride, cluster, iters);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<(M + lines - 1) / lines, kThreads, smem, s>>>(
+      x, static_cast<const int32_t*>(idx), out, rows, cols, lines, stride, iters);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int kAxis, bool kFull, bool kBf16>
 int launch_unit(int unit, const void* x, const void* idx, void* out, int rows, int cols,
-                int lines, int stride, int cluster, int iters, size_t smem, cudaStream_t s) {
+                int lines, int stride, int iters, size_t smem, cudaStream_t s) {
   switch (unit) {
     case 16:
-      return launch<kAxis, kFull, kBf16, 16>(x, idx, out, rows, cols, lines, stride, cluster,
-                                             iters, smem, s);
+      return launch<kAxis, kFull, kBf16, 16>(x, idx, out, rows, cols, lines, stride, iters,
+                                             smem, s);
     case 8:
-      return launch<kAxis, kFull, kBf16, 8>(x, idx, out, rows, cols, lines, stride, cluster,
-                                            iters, smem, s);
+      return launch<kAxis, kFull, kBf16, 8>(x, idx, out, rows, cols, lines, stride, iters,
+                                            smem, s);
     case 4:
-      return launch<kAxis, kFull, kBf16, 4>(x, idx, out, rows, cols, lines, stride, cluster,
-                                            iters, smem, s);
+      return launch<kAxis, kFull, kBf16, 4>(x, idx, out, rows, cols, lines, stride, iters,
+                                            smem, s);
     default:
       if constexpr (kBf16) {
-        return launch<kAxis, kFull, kBf16, 2>(x, idx, out, rows, cols, lines, stride, cluster,
-                                              iters, smem, s);
+        return launch<kAxis, kFull, kBf16, 2>(x, idx, out, rows, cols, lines, stride, iters,
+                                              smem, s);
       }
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -378,29 +328,25 @@ int launch_unit(int unit, const void* x, const void* idx, void* out, int rows, i
 
 template <int kAxis, bool kFull>
 int launch_dtype(int is_bf16, int unit, const void* x, const void* idx, void* out, int rows,
-                 int cols, int lines, int stride, int cluster, int iters, size_t smem,
-                 cudaStream_t s) {
+                 int cols, int lines, int stride, int iters, size_t smem, cudaStream_t s) {
   return is_bf16 ? launch_unit<kAxis, kFull, true>(unit, x, idx, out, rows, cols, lines, stride,
-                                                   cluster, iters, smem, s)
+                                                   iters, smem, s)
                  : launch_unit<kAxis, kFull, false>(unit, x, idx, out, rows, cols, lines, stride,
-                                                    cluster, iters, smem, s);
+                                                    iters, smem, s);
 }
-
-}  // namespace
 
 // Shared memory a launch takes (the slab and the staged index), or 0 for
 // a plan the kernel cannot run: `lines` >= 1; axis 0: stride >= lines,
-// positions a whole number of words apart, clusters of 1 to 8 blocks;
-// axis 1: stride >= L, lines 16-byte aligned, no clusters; `unit` (2, 4, 8
-// or 16 bytes, at least an element) divides the row stride, the staged
-// segments and their starts.
-extern "C" size_t adaqp_window_gather_smem(int rows, int cols, int axis, int full, int is_bf16,
-                                           int lines, int stride, int unit, int cluster) {
+// positions a whole number of words apart; axis 1: stride >= L, lines
+// 16-byte aligned; `unit` (2, 4, 8 or 16 bytes, at least an element)
+// divides the row stride, the staged segments and their starts.
+size_t plan_smem(int rows, int cols, int axis, int full, int is_bf16, int lines, int stride,
+                 int unit) {
   const int esize = is_bf16 ? 2 : 4;
   const int L = axis == 0 ? rows : cols;
   const int M = axis == 0 ? cols : rows;
   if (lines < 1 || (unit != 2 && unit != 4 && unit != 8 && unit != 16) || unit < esize ||
-      (cols * esize) % unit || cluster < 1 || cluster > kMaxCluster) {
+      (cols * esize) % unit) {
     return 0;
   }
   if (axis == 0) {
@@ -408,29 +354,30 @@ extern "C" size_t adaqp_window_gather_smem(int rows, int cols, int axis, int ful
         ((M % lines) * esize) % unit) {
       return 0;
     }
-  } else if (stride < L || (stride * esize) % 16 || cluster != 1) {
+  } else if (stride < L || (stride * esize) % 16) {
     return 0;
   }
-  return slab_bytes(axis, L, lines, stride, esize) + index_bytes(axis, full, L, lines, cluster);
+  return slab_bytes(axis, L, lines, stride, esize) + index_bytes(axis, full, L, lines);
 }
+
+}  // namespace
 
 // x [rows, cols] f32 (is_bf16 = 0) or bf16, row-major, `unit`-byte
 // aligned; idx int32 [rows, cols] (full = 1), aligned to `unit` bytes of x's
 // elements as many of its own (at most 16), or [x.shape[axis]] (full = 0);
-// out like x, written in full; iters >= 1; the plan's `lines`, `stride`,
-// `unit` and `cluster` (adaqp_window_gather_smem). Launches on `stream` of
-// CUDA device `device` and returns the launch's error (0 on success), or
+// out like x, written in full; iters >= 1; the plan's `lines`, `stride`
+// and `unit` (window_plan in scripts/microbench_gather.py). Launches on
+// `stream` of CUDA device `device` and returns cudaGetLastError() (0 on
+// success), or
 // cudaErrorInvalidValue for a plan the kernel cannot run or whose slab
 // exceeds a block's shared memory; it does not synchronise.
 extern "C" int adaqp_window_gather(const void* x, const void* idx, void* out, int rows,
                                    int cols, int axis, int full, int is_bf16, int iters,
-                                   int lines, int stride, int unit, int cluster, int device,
-                                   void* stream) {
+                                   int lines, int stride, int unit, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (rows <= 0 || cols <= 0) return 0;
-  const size_t smem =
-      adaqp_window_gather_smem(rows, cols, axis, full, is_bf16, lines, stride, unit, cluster);
+  const size_t smem = plan_smem(rows, cols, axis, full, is_bf16, lines, stride, unit);
   const int iunit = std::min(16, unit * 4 / (is_bf16 ? 2 : 4));
   if (smem == 0 || smem > static_cast<size_t>(kMaxSmem) || iters < 1 ||
       reinterpret_cast<uintptr_t>(x) % unit ||
@@ -440,14 +387,14 @@ extern "C" int adaqp_window_gather(const void* x, const void* idx, void* out, in
   auto s = static_cast<cudaStream_t>(stream);
   if (axis == 0) {
     return full ? launch_dtype<0, true>(is_bf16, unit, x, idx, out, rows, cols, lines, stride,
-                                        cluster, iters, smem, s)
+                                        iters, smem, s)
                 : launch_dtype<0, false>(is_bf16, unit, x, idx, out, rows, cols, lines, stride,
-                                         cluster, iters, smem, s);
+                                         iters, smem, s);
   }
   return full ? launch_dtype<1, true>(is_bf16, unit, x, idx, out, rows, cols, lines, stride,
-                                      cluster, iters, smem, s)
+                                      iters, smem, s)
               : launch_dtype<1, false>(is_bf16, unit, x, idx, out, rows, cols, lines, stride,
-                                       cluster, iters, smem, s);
+                                       iters, smem, s);
 }
 
 extern "C" const char* adaqp_window_gather_error_string(int code) {

@@ -48,8 +48,8 @@ DEPTHS = (4, 8, 16, 32, 64)
 MAX_SMEM = 227 * 1024  # shared memory a block can use on Hopper
 ROWS_A_BLOCK = 4  # rows a block owns in the many-block form
 # warps a block that issue the ring's copies, each with its share of the
-# slots (at most depth of them): an issuing thread moves a row each 700 or
-# so cycles, so the SM's pace grows with them (csrc/ring_gather.cu)
+# slots (at most depth of them): an issuing thread moves a row each 250 ns
+# or so, so the SM's pace grows with them (csrc/ring_gather.cu)
 ISSUERS = 32
 
 
@@ -82,7 +82,8 @@ def ring_plan(chunk: int, iters: int, depth: int, many_blocks: bool = False,
     if blocks is None and many_blocks:
         blocks = -(-chunk // ROWS_A_BLOCK)
         if blocks < sms:
-            blocks = -(-chunk // -(-chunk // min(sms, chunk)))
+            rows = -(-chunk // min(sms, chunk))
+            blocks = -(-chunk // rows)
     elif blocks is None:
         blocks = sms
     blocks = max(1, min(blocks, chunk))
@@ -156,8 +157,9 @@ def ring_gather(h: torch.Tensor, idx: torch.Tensor, iters: int, depth: int,
     ``depth`` row copies in flight per thread block, on the grid of
     :func:`ring_plan` (one block an SM, the reference's form;
     ``many_blocks``: 4 rows a block; ``blocks``: that many), the copies
-    issued by :func:`ring_issuers` warps a block (``issuers`` caps them). Rows must be a multiple
-    of 16 bytes (the bulk copy's unit). An empty ``idx`` launches nothing.
+    issued by :func:`ring_issuers` warps a block (``issuers`` caps them).
+    Rows must be a multiple of 16 bytes (the bulk copy's unit). An empty
+    ``idx`` launches nothing.
 
     CUDA ``h``: the kernel (one more ``ring_gather.launches`` per launch);
     the indices are trusted, as by the library's gather on the card. CPU
@@ -232,8 +234,9 @@ def main(argv=None) -> dict:
                 t = time_call(lambda: ring_gather(h, i, iters, depth, args.many_blocks), dev)
                 grid, rows, flight = ring_plan(CHUNK, iters, depth, args.many_blocks,
                                                sm_count(dev))
+                issuers = ring_issuers(depth, None, rows * iters)
                 print(f"ring gather {name} {vname:8s} depth={depth:3d} blocks={grid:4d} "
-                      f"issuers={ring_issuers(depth, None, rows * iters):2d} in_flight={flight:5d}: "
+                      f"issuers={issuers:2d} in_flight={flight:5d}: "
                       f"{t / (iters * CHUNK) * 1e9:7.1f} ns/row  correct={ok}", flush=True)
         if not args.f32:
             break

@@ -84,21 +84,12 @@ def full_index(x: torch.Tensor, idx: torch.Tensor, axis: int) -> torch.Tensor:
 class WindowPlan(NamedTuple):
     """One launch of ``window_gather``: block b stages lines ``[b * lines,
     (b + 1) * lines)`` of the non-gather axis (x's columns for axis 0, its
-    rows for axis 1) at every position of the gather axis; or, axis 0 in
-    clusters of ``cluster`` blocks, cluster k owns lines ``[k * lines, (k +
-    1) * lines)`` and its block of rank q stages positions ``[q * L //
-    cluster, (q + 1) * L // cluster)`` and reads the rest from the others."""
-    lines: int    # lines a block (a cluster)
-    blocks: int   # blocks of the grid
-    stride: int   # slab elements between positions (axis 0) or lines (axis 1)
-    unit: int     # bytes of each staging load
-    smem: int     # shared bytes a block: the slab and the staged index
-    cluster: int  # blocks a cluster
-
-
-SECTOR = 32         # bytes of a memory sector: the widest line segment worth a block
-MAX_CLUSTER = 8     # blocks a cluster at most (the portable size)
-SM_SMEM = 228 * 1024  # shared memory of an SM, 1 KB of it reserved a block
+    rows for axis 1) at every position of the gather axis."""
+    lines: int   # lines a block
+    blocks: int  # blocks of the grid
+    stride: int  # slab elements between positions (axis 0) or lines (axis 1)
+    unit: int    # bytes of each staging load
+    smem: int    # shared bytes a block: the slab and the staged index
 
 
 def _unit(*nbytes: int) -> int:
@@ -108,69 +99,50 @@ def _unit(*nbytes: int) -> int:
 
 @functools.lru_cache(maxsize=256)
 def window_plan(rows: int, cols: int, axis: int, esize: int, full: bool = True,
-                sms: int = SMS, lines: int | None = None, align: int = 16,
-                cluster: int | None = None) -> WindowPlan:
+                sms: int = SMS, lines: int | None = None, align: int = 16) -> WindowPlan:
     """The launch plan of ``window_gather`` for x ``[rows, cols]`` of
     ``esize``-byte elements and a full (``full``) or 1-D int32 index, both
     at addresses aligned to ``align`` bytes of x (the index: as many of its
     own elements).
 
-    The gather axis has length L, the other M lines. Axis 0 by default: a
-    cluster owns a sector's worth of lines (32 bytes of each row of x),
-    its blocks split the positions, and the cluster size (1 to 8) is the
-    largest that keeps the grid to the fewest waves of one or two blocks an
-    SM; when no cluster fits a block's 227 KB, or ``lines`` is given (with
-    ``cluster`` 1 unless given), one block owns its lines. Then by default
-    ``lines`` makes about one wave of one or two blocks an SM: of ``ceil(M
-    / (2 sms))`` to ``ceil(M / sms)`` lines, the count whose staged
-    segments take the widest loads, then the largest; fewer when the block
-    would exceed 227 KB. Axis 0's slab is ``[L][stride]`` with each
-    position's lines an odd number of words apart (a warp's random rows
-    spread over the banks); axis 1's ``[lines][stride]`` with each line
-    padded to 16 bytes. The staged index follows it, for the block's own
-    positions: a full one ``[positions][lines]`` (axis 0) or ``[lines][L]``
-    (axis 1, L rounded up to 4), a 1-D one ``[positions]``. Raises when one
-    line cannot fit. Cached: the wrapper asks for it at every call."""
+    The gather axis has length L, the other M lines. By default ``lines``
+    makes about one wave of one or two blocks an SM: of ``ceil(M / (2
+    sms))`` to ``ceil(M / sms)`` lines, the count that gives the busiest
+    SM the fewest lines (every iteration waits for it), then whose staged
+    segments take the widest loads, then the largest; fewer when the
+    block's shared memory would exceed 227 KB. Axis 0's slab is
+    ``[L][stride]`` with each position's lines an odd number of words apart
+    (a warp's random rows spread over the banks); axis 1's
+    ``[lines][stride]`` with each line padded to 16 bytes. The staged index follows it: a full one ``[L]
+    [lines]`` (axis 0) or ``[lines][L]`` (axis 1, L rounded up to 4), a 1-D
+    one ``[L]``. Raises when one line cannot fit. Cached: the wrapper asks
+    for it at every call."""
     L, M = (rows, cols) if axis == 0 else (cols, rows)
-    if axis == 1 and cluster not in (None, 1):
-        raise ValueError("window_gather takes clusters along axis 0 only")
+    ls = -(-L // 4) * 4
 
-    def plan(s, c=1):
-        own = -(-L // c)
+    def plan(s):
         if axis == 0:
             words = -(-s * esize // 4)
             stride = (words | 1) * 4 // esize
             unit = _unit(s * esize, M % s * esize, cols * esize, align, 16)
             slab = L * stride * esize
-            index = own * s * 4 if full else -(-own // 4) * 16
         else:
             stride = -(-L * esize // 16) * 16 // esize
             unit = _unit(L * esize, align, 16)
             slab = s * stride * esize
-            index = -(-L // 4) * 16 * (s if full else 1)
-        return WindowPlan(s, -(-M // s) * c, stride, unit, -(-slab // 16) * 16 + index, c)
+        index = (L if axis == 0 else ls) * s * 4 if full else ls * 4
+        return WindowPlan(s, -(-M // s), stride, unit, -(-slab // 16) * 16 + index)
 
-    def waves(p):
-        per_sm = max(1, min(2, SM_SMEM // (p.smem + 1024)))
-        return -(-p.blocks // (per_sm * sms))
+    if lines is None:
+        lo, hi = -(-M // (2 * sms)), -(-M // sms)
 
-    got = None
-    if axis == 0 and lines is None:
-        sizes = (cluster,) if cluster else (1, 2, 4, 8)
-        fits = [plan(min(M, SECTOR // esize), c) for c in sizes if c <= max(1, L)]
-        fits = [p for p in fits if p.smem <= MAX_SMEM]
-        if fits:
-            got = min(fits, key=lambda p: (waves(p), -p.cluster))
-    if got is None:
-        if lines is None:
-            lo, hi = -(-M // (2 * sms)), -(-M // sms)
-            lines = max(range(lo, hi + 1), key=lambda s: (plan(s).unit, s))
-            while lines > 1 and plan(lines).smem > MAX_SMEM:
-                lines -= 1
-        got = plan(max(1, min(lines, M)), cluster or 1)
-    if not 1 <= got.cluster <= MAX_CLUSTER:
-        raise ValueError(f"window_gather: clusters of 1 to {MAX_CLUSTER} blocks, not "
-                         f"{got.cluster}")
+        def busiest(s):  # lines on the SM with the most blocks
+            return -(-plan(s).blocks // sms) * s
+
+        lines = max(range(lo, hi + 1), key=lambda s: (-busiest(s), plan(s).unit, s))
+        while lines > 1 and plan(lines).smem > MAX_SMEM:
+            lines -= 1
+    got = plan(max(1, min(lines, M)))
     if got.smem > MAX_SMEM:
         raise ValueError(f"window_gather: {got.lines} line(s) of {L} x {esize} bytes need "
                          f"{got.smem} bytes of shared memory, more than a block's {MAX_SMEM}")
@@ -197,14 +169,14 @@ def _window_lib() -> ctypes.CDLL:
     lib = load_library("window_gather")
     if lib.adaqp_window_gather.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.adaqp_window_gather.argtypes = [vp, vp, vp] + [ci] * 11 + [vp]
+        lib.adaqp_window_gather.argtypes = [vp, vp, vp] + [ci] * 10 + [vp]
         lib.adaqp_window_gather.restype = ci
         lib.adaqp_window_gather_error_string.argtypes = [ci]
         lib.adaqp_window_gather_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _window_gather_cuda(x, idx, iters, axis, full, lines, cluster):
+def _window_gather_cuda(x, idx, iters, axis, full, lines):
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
@@ -213,12 +185,12 @@ def _window_gather_cuda(x, idx, iters, axis, full, lines, cluster):
         align = min(align, _align(idx) * x.element_size() // 4)
     plan = window_plan(x.shape[0], x.shape[1], axis, x.element_size(), full,
                        torch.cuda.get_device_properties(x.device).multi_processor_count, lines,
-                       align, cluster)
+                       align)
     lib = _window_lib()
     rc = lib.adaqp_window_gather(
         x.data_ptr(), idx.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1], axis,
         int(full), int(x.dtype == torch.bfloat16), iters, plan.lines, plan.stride, plan.unit,
-        plan.cluster, x.device.index, torch.cuda.current_stream(x.device).cuda_stream,
+        x.device.index, torch.cuda.current_stream(x.device).cuda_stream,
     )
     raise_on(lib.adaqp_window_gather_error_string, rc, "window_gather")
     window_gather.launches += 1
@@ -226,7 +198,7 @@ def _window_gather_cuda(x, idx, iters, axis, full, lines, cluster):
 
 
 def window_gather(x: torch.Tensor, idx: torch.Tensor, iters: int, axis: int,
-                  lines: int | None = None, cluster: int | None = None) -> torch.Tensor:
+                  lines: int | None = None) -> torch.Tensor:
     """``sum_{k < iters} take_along_axis(x, idx, axis)`` summed in x's
     dtype (one rounding an iteration), for contiguous f32 or bf16 ``x``
     [R, C] and int32 ``idx`` of x's shape (a full index) or of shape ``[1,
@@ -234,8 +206,8 @@ def window_gather(x: torch.Tensor, idx: torch.Tensor, iters: int, axis: int,
     ``idx[0, p]``), values in ``[0, x.shape[axis])``.
 
     CUDA ``x``: the kernel on the grid of :func:`window_plan` (``lines``
-    and ``cluster`` set its lines a block and blocks a cluster), one more
-    ``window_gather.launches`` per launch; a line of the gather axis must fit a block's shared memory
+    sets its lines a block), one more ``window_gather.launches`` per
+    launch; a line of the gather axis must fit a block's shared memory
     (227 KB) and the indices are trusted. CPU ``x``: the plain version.
     Any other device raises."""
     if x.dim() != 2 or x.dtype not in (torch.float32, torch.bfloat16) or not x.is_contiguous():
@@ -245,11 +217,11 @@ def window_gather(x: torch.Tensor, idx: torch.Tensor, iters: int, axis: int,
         raise ValueError(f"axis must be 0 or 1 and iters at least 1, got {axis}, {iters}")
     if idx.dtype != torch.int32 or idx.device != x.device:
         raise ValueError(f"idx must be int32 on {x.device}, got {idx.dtype} on {idx.device}")
-    if (lines is not None and lines < 1) or (cluster is not None and cluster < 1):
-        raise ValueError(f"lines and cluster must be at least 1, got {lines}, {cluster}")
+    if lines is not None and lines < 1:
+        raise ValueError(f"lines must be at least 1, got {lines}")
     full = _is_full(x, idx, axis)
     if x.device.type == "cuda":
-        return _window_gather_cuda(x, idx.contiguous(), iters, axis, full, lines, cluster)
+        return _window_gather_cuda(x, idx.contiguous(), iters, axis, full, lines)
     if x.device.type == "cpu":
         return _window_gather_torch(x, idx, iters, axis)
     raise ValueError(f"no window_gather for device {x.device}")

@@ -2347,8 +2347,7 @@ def phase_time_gather(torch, card, seed, parent_csrc=None):
     beside the copies in flight for the stream; then, uniform idx alone,
     one block over the stream at depth 64 (the grid before) and the
     issuing warps a block at depths 16 and 64. window_gather at the
-    script's windows, and at 11a and 11b in other clusters and with 1 to 8
-    lines a block alone.
+    script's windows, and at 11a and 11b with 1 to 8 lines a block.
     ``parent_csrc``: an older tree's ``csrc`` directory, whose kernels
     (:func:`_parent_gather`) are timed beside these on the same inputs."""
     import numpy as np
@@ -2441,18 +2440,18 @@ def phase_time_gather(torch, card, seed, parent_csrc=None):
     rows["ring_gather"] = dict(ms=cold[("uniform", "persistent", 64)], plain_ms=lib,
                                bound_ms=bound_ms, bound_by=bound_by, library_ms=lib)
 
-    def window_case(tag, x, ii, axis, iters_i=200, lines=None, cluster=None):
+    def window_case(tag, x, ii, axis, iters_i=200, lines=None):
         """Times one window_gather case (and, with ``parent``, the older
         tree's kernel on it); returns its row at one iteration. One
         iteration is timed on the card's clock, calls queued behind a spin
         (a call is shorter than its host time), and paced by the host, as
-        PRs 5-10 timed it."""
+        the older kernels were timed."""
         full = gb.full_index(x, ii, axis)
         plan = gb.window_plan(*x.shape, axis, x.element_size(),
-                              tuple(ii.shape) == tuple(x.shape), sms, lines, 16, cluster)
+                              tuple(ii.shape) == tuple(x.shape), sms, lines)
 
         def kernel(iters):
-            return gb.window_gather(x, ii, iters, axis, lines, cluster)
+            return gb.window_gather(x, ii, iters, axis, lines)
 
         t1 = cuda_ms(torch, lambda: kernel(1), reps=20, backlog=True)
         paced = cuda_ms(torch, lambda: kernel(1), reps=20)
@@ -2470,13 +2469,12 @@ def phase_time_gather(torch, card, seed, parent_csrc=None):
         nbytes = x.numel() * x.element_size() * 2 + ii.numel() * 4
         b1, by1 = _bound(nbytes, x.numel(), PEAK_F32_FLOP_S)
         bi, byi = _bound(nbytes, x.numel() * iters_i, PEAK_F32_FLOP_S)
-        tag += (f" ({plan.lines} lines a {'cluster' if plan.cluster > 1 else 'block'}, "
-                f"{plan.blocks} blocks, {plan.cluster} a cluster, {plan.unit}-byte loads)")
+        tag += f" ({plan.lines} lines a block, {plan.blocks} blocks, {plan.unit}-byte loads)"
         say(f"[time] {card} | window_gather {tag}: 1 iteration {t1:.5f} ms (paced {paced:.5f}; "
             f"bound {b1:.5f} by {by1}; plain {plain:.5f}; torch.gather {lib:.5f}, paced "
             f"{lib_paced:.5f}); {iters_i} iterations {ti:.4f} ms (bound {bi:.5f} by {byi}; plain "
             f"{plain_i:.3f}), {2 * iters_i} {t2:.4f} ms, slope {slope * 1e3:.4f} us an iteration")
-        if parent and lines is None and cluster is None:
+        if parent and lines is None:
             want = gb._window_gather_torch(x, ii, 3, axis)
             check(torch.equal(parent[1](x, ii, 3, axis), want),
                   f"the older window_gather {tag} differs from its plain version")
@@ -2495,10 +2493,8 @@ def phase_time_gather(torch, card, seed, parent_csrc=None):
     x = torch.randn(4096, 256, generator=gen, device="cuda")
     ii = idx_rows[:, None].expand(4096, 256).contiguous()
     rows["window_gather"] = window_case("[4096, 256] f32 full idx axis 0", x, ii, 0)
-    # the plan takes clusters of 4 blocks; then other clusters, and a block
-    # owning its lines alone (8 f32 lines and their index exceed 227 KB)
-    for lines, cluster in ((None, 2), (None, 8), (1, None), (2, None), (4, None)):
-        window_case("[4096, 256] f32 full idx axis 0", x, ii, 0, lines=lines, cluster=cluster)
+    for lines in (1, 4):  # the plan takes 2; 8 lines and their index exceed 227 KB
+        window_case("[4096, 256] f32 full idx axis 0", x, ii, 0, lines=lines)
     window_case("[4096, 256] bf16 full idx axis 0", x.to(torch.bfloat16), ii, 0)
     for ff in (256, 640):
         for axis in (0, 1):
@@ -2511,11 +2507,9 @@ def phase_time_gather(torch, card, seed, parent_csrc=None):
                 row = window_case(f"{list(shape)} bf16 {form} idx axis {axis}", x, ii, axis)
                 if (ff, axis, form) == (256, 0, "1-D"):
                     rows["window_gather_square"] = row
-                    # the plan takes clusters of 8; then smaller ones and a block alone
-                    for lines, cluster in ((None, 2), (None, 4), (1, None), (2, None),
-                                           (4, None), (8, None)):
+                    for lines in (1, 4, 8):  # the plan takes 2
                         window_case(f"{list(shape)} bf16 {form} idx axis {axis}", x, ii, axis,
-                                    lines=lines, cluster=cluster)
+                                    lines=lines)
 
     # compact_item at fc 256 and 384, kinds 0 and 1
     for fc in (256, 384):

@@ -81,39 +81,45 @@ def test_ring_gather_takes_the_edges_and_no_rows():
     assert empty.shape == (0, 8)
 
 
-@pytest.mark.parametrize("chunk,iters,depth,many,sms,blocks,want", [
+@pytest.mark.parametrize("chunk,iters,depth,many,sms,want", [
     # the reference's form: one block an SM keeps `depth` copies in flight
     # over its share of the stream, the chunk split evenly (4 blocks of 32
-    # rows, 128 of 31)
-    (4096, 1, 4, False, 132, None, (132, 32, 528)),
-    (4096, 1, 64, False, 132, None, (132, 32, 4096)),
-    (4097, 1, 64, False, 132, None, (132, 32, 4097)),
-    (4096, 50, 16, False, 132, None, (132, 32, 2112)),
-    # fewer rows than SMs: a block a row
-    (8, 1, 64, False, 132, None, (8, 1, 8)),
-    (8, 3, 64, False, 132, None, (8, 1, 24)),
-    (131, 2, 4, False, 132, None, (131, 1, 262)),
-    # one SM, as the CPU counts them
-    (4096, 1, 64, False, 1, None, (1, 4096, 64)),
-    # a grid of one block: the ring on one SM
-    (4096, 1, 64, False, 132, 1, (1, 4096, 64)),
-    (8, 3, 64, False, 132, 1, (1, 8, 24)),
-    (4096, 1, 64, True, 132, 1, (1, 4096, 64)),
-    # a grid given outright, never more blocks than rows
-    (10, 1, 4, False, 132, 3, (3, 4, 10)),
-    (4, 1, 4, False, 132, 9, (4, 1, 4)),
+    # rows, 128 of 31); fewer rows than SMs: a block a row
+    (4096, 1, 4, False, 132, (132, 32, 528)),
+    (4096, 1, 64, False, 132, (132, 32, 4096)),
+    (4097, 1, 64, False, 132, (132, 32, 4097)),
+    (8, 1, 64, False, 132, (8, 1, 8)),
+    (8, 3, 64, False, 132, (8, 1, 24)),
     # the many-block form: 4 rows a block, at least a block an SM
-    (4096, 1, 4, True, 132, None, (1024, 4, 4096)),
-    (4096, 1, 64, True, 132, None, (1024, 4, 4096)),
-    (4096, 50, 64, True, 132, None, (1024, 4, 65536)),
-    (4096, 1, 1, True, 132, None, (1024, 4, 1024)),
-    (300, 1, 8, True, 132, None, (100, 3, 300)),
-    (8, 1, 4, True, 132, None, (8, 1, 8)),
-    (10, 2, 64, True, 132, None, (10, 1, 20)),
-    (0, 1, 4, False, 132, None, (0, 0, 0)),
+    (4096, 1, 4, True, 132, (1024, 4, 4096)),
+    (4096, 1, 64, True, 132, (1024, 4, 4096)),
+    (4096, 50, 64, True, 132, (1024, 4, 65536)),
+    (4096, 1, 1, True, 132, (1024, 4, 1024)),
+    (300, 1, 8, True, 132, (100, 3, 300)),
+    (8, 1, 4, True, 132, (8, 1, 8)),
+    (10, 2, 64, True, 132, (10, 1, 20)),
+    (0, 1, 4, False, 132, (0, 0, 0)),
+    # the reference's form at more passes, at 131 rows, and on one SM (the
+    # CPU's count)
+    (4096, 50, 16, False, 132, (132, 32, 2112)),
+    (131, 2, 4, False, 132, (131, 1, 262)),
+    (4096, 1, 64, False, 1, (1, 4096, 64)),
 ])
-def test_ring_plan(chunk, iters, depth, many, sms, blocks, want):
-    assert dg.ring_plan(chunk, iters, depth, many, sms, blocks) == want
+def test_ring_plan(chunk, iters, depth, many, sms, want):
+    assert dg.ring_plan(chunk, iters, depth, many, sms) == want
+
+
+@pytest.mark.parametrize("chunk,iters,depth,many,blocks,want", [
+    # a grid of one block: the ring on one SM, whatever the form
+    (4096, 1, 64, False, 1, (1, 4096, 64)),
+    (8, 3, 64, False, 1, (1, 8, 24)),
+    (4096, 1, 64, True, 1, (1, 4096, 64)),
+    # a grid given outright, never more blocks than rows
+    (10, 1, 4, False, 3, (3, 4, 10)),
+    (4, 1, 4, False, 9, (4, 1, 4)),
+])
+def test_ring_plan_takes_a_grid(chunk, iters, depth, many, blocks, want):
+    assert dg.ring_plan(chunk, iters, depth, many, 132, blocks) == want
 
 
 @pytest.mark.parametrize("chunk,blocks", [(4096, 132), (4097, 132), (131, 131), (10, 3), (8, 1)])
@@ -137,9 +143,18 @@ def test_ring_issuers(depth, issuers, items, want):
 
 
 @pytest.mark.parametrize("depth", [1, 64])
-@pytest.mark.parametrize("form", [{}, {"many_blocks": True}, {"blocks": 1}, {"issuers": 1}])
-def test_ring_gather_plain_version_takes_either_form(form, depth):
+@pytest.mark.parametrize("many", [False, True])
+def test_ring_gather_plain_version_takes_either_form(many, depth):
     rng = np.random.default_rng(11)
+    h = torch.from_numpy(rng.normal(size=(512, 16)).astype(np.float32))
+    idx = torch.from_numpy(dg.idx_variants(rng, 512, 64)["uniform"])
+    assert torch.equal(dg.ring_gather(h, idx, 2, depth, many), h[idx.long()])
+
+
+@pytest.mark.parametrize("depth", [1, 64])
+@pytest.mark.parametrize("form", [{"blocks": 1}, {"issuers": 1}, {"blocks": 3, "issuers": 8}])
+def test_ring_gather_plain_version_takes_a_grid_and_issuers(form, depth):
+    rng = np.random.default_rng(12)
     h = torch.from_numpy(rng.normal(size=(512, 16)).astype(np.float32))
     idx = torch.from_numpy(dg.idx_variants(rng, 512, 64)["uniform"])
     assert torch.equal(dg.ring_gather(h, idx, 2, depth, **form), h[idx.long()])
@@ -154,11 +169,11 @@ def test_ring_gather_plain_version_takes_either_form(form, depth):
     (dict(depth=0), "at least 1"),
     (dict(iters=0), "at least 1"),
     (dict(depth=-1), "at least 1"),
+    (dict(h=torch.zeros(8, 8, device="meta"), idx=torch.zeros(4, dtype=torch.int32,
+                                                                device="meta")), "no ring_gather"),
     (dict(blocks=0), "blocks"),
     (dict(issuers=0), "issuers"),
     (dict(issuers=33), "issuers"),
-    (dict(h=torch.zeros(8, 8, device="meta"), idx=torch.zeros(4, dtype=torch.int32,
-                                                                device="meta")), "no ring_gather"),
 ])
 def test_ring_gather_refuses(bad, match):
     args = dict(h=torch.zeros(8, 8), idx=torch.zeros(4, dtype=torch.int32), iters=1, depth=4,

@@ -370,9 +370,8 @@ def test_cuda_window_gather_matches_plain(cuda_device, axis, dtype):
                                         ((641, 300), 1)])
 def test_cuda_window_gather_uneven_shapes(cuda_device, shape, axis, dtype):
     # a gather axis of 300 or 1,000 positions (no multiple of 256 threads)
-    # and 257 or 641 lines, which the plan's lines a block (a cluster) do
-    # not divide; then lines of 1, 3 and 7 a block (narrower loads, other
-    # remainders) and, along axis 0, clusters of 2 and 8 blocks
+    # and 257 or 641 lines, which the plan's lines a block do not divide;
+    # then lines of 1, 3 and 7 a block (narrower loads, other remainders)
     length, lines = shape[axis], shape[1 - axis]
     plan = gb.window_plan(*shape, axis, 2 if dtype == torch.bfloat16 else 4)
     assert lines % plan.lines and length % 256
@@ -381,17 +380,14 @@ def test_cuda_window_gather_uneven_shapes(cuda_device, shape, axis, dtype):
     full = torch.randint(0, length, shape, generator=g, device=cuda_device, dtype=torch.int32)
     col = torch.randint(0, length, (1, length), generator=g, device=cuda_device,
                         dtype=torch.int32)
-    plans = [(None, None), (1, None), (3, None), (7, None)]
-    if axis == 0:
-        plans += [(None, 2), (None, 8), (3, 2)]
     for idx in (full, col):
-        for per_block, cluster in plans:
+        for per_block in (None, 1, 3, 7):
             for iters in (1, 3):
                 before = gb.window_gather.launches
-                got = gb.window_gather(x, idx, iters, axis, per_block, cluster)
+                got = gb.window_gather(x, idx, iters, axis, per_block)
                 assert gb.window_gather.launches == before + 1
                 assert torch.equal(got, gb._window_gather_torch(x, idx, iters, axis)), (
-                    idx.shape, per_block, cluster, iters)
+                    idx.shape, per_block, iters)
 
 
 @pytest.mark.gpu

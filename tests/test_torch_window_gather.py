@@ -151,33 +151,23 @@ PLANS = [(4096, 256, 0, 4), (2048, 640, 0, 2), (640, 2048, 1, 2), (2048, 257, 0,
 def test_window_plan_stages_each_element_once(rows, cols, axis, esize, full):
     plan = gb.window_plan(rows, cols, axis, esize, full)
     length, lines = (rows, cols) if axis == 0 else (cols, rows)
-    c = plan.cluster
-    assert plan.blocks % c == 0 and (c == 1 or axis == 0)
-    # cluster k (a block when c is 1) owns lines [k * plan.lines, (k + 1) *
-    # plan.lines): each line once
+    # block b owns lines [b * plan.lines, (b + 1) * plan.lines): each line once
     owners = np.zeros(lines, np.int64)
-    for k in range(plan.blocks // c):
-        owners[k * plan.lines:(k + 1) * plan.lines] += 1
+    for b in range(plan.blocks):
+        owners[b * plan.lines:(b + 1) * plan.lines] += 1
     assert (owners == 1).all()
-    # its block of rank q stages positions [q * length // c, (q + 1) *
-    # length // c) of those lines: each position of a cluster once, so x and
-    # a full index are read once in all
-    bounds = [q * length // c for q in range(c + 1)]
-    assert bounds[0] == 0 and bounds[-1] == length and np.all(np.diff(bounds) >= 0)
-    staged = sum(min(plan.lines, lines - k * plan.lines) * (bounds[q + 1] - bounds[q])
-                 for k in range(plan.blocks // c) for q in range(c))
-    assert staged == rows * cols
-    # every block holds the whole gather axis of its lines (a cluster's
-    # block, what the others staged too), and after it the index of its
-    # own positions (a full index's lines, or the 1-D index)
-    own = -(-length // c)
-    index = own * (plan.lines if full else 1) * 4
+    # and one position range, the whole gather axis: its slab holds every
+    # position of its lines, and after it their index (a full one) or the
+    # 1-D index, so x and a full index are read once in all
+    index = length * (plan.lines if full else 1) * 4
     if axis == 0:
         assert plan.stride >= plan.lines
         assert plan.smem >= length * plan.stride * esize + index
     else:
         assert plan.stride >= length
         assert plan.smem >= plan.lines * plan.stride * esize + index
+    staged = sum(min(plan.lines, lines - b * plan.lines) for b in range(plan.blocks)) * length
+    assert staged == rows * cols
     assert plan.smem <= gb.MAX_SMEM
     # about one wave of one or two blocks an SM
     assert gb.SMS // 2 <= plan.blocks <= 2 * gb.SMS or plan.lines == 1
@@ -200,37 +190,27 @@ def test_window_plan_loads_and_slab(rows, cols, axis, esize):
 
 
 @pytest.mark.parametrize("rows,cols,axis,esize,want", [
-    # ROADMAP's 11a: clusters of 4 own 8 f32 columns (a 32-byte sector a row)
-    (4096, 256, 0, 4, (8, 128, 16, 4)),
-    (2048, 256, 0, 2, (16, 128, 16, 8)),   # 11b: clusters of 8 own 16 bf16 columns
-    (2048, 640, 0, 2, (16, 160, 16, 4)),   # two blocks an SM
-    (4096, 640, 0, 4, (8, 160, 16, 2)),    # the fewest waves at one block an SM
-    (2048, 257, 0, 4, (8, 264, 4, 8)),     # a last cluster of one column: 4-byte loads
-    # a slab of 8,192 f32 positions does not fit: a block owns 2 lines
-    (8192, 256, 0, 4, (2, 128, 8, 1)),
-    (256, 2048, 1, 2, (2, 128, 16, 1)),    # axis 1: a block owns rows, no clusters
-    (640, 2048, 1, 2, (5, 128, 16, 1)),
-    (4096, 8, 1, 4, (32, 128, 16, 1)),     # many short lines: 32 a block
+    (4096, 256, 0, 4, (2, 128, 8)),    # ROADMAP's 11a: 2 f32 columns, 8-byte loads
+    (2048, 256, 0, 2, (2, 128, 4)),    # 11b: 2 bf16 columns
+    (256, 2048, 1, 2, (2, 128, 16)),
+    # 5 columns a block, one block an SM: 4 would put 8 on some SMs (160 blocks)
+    (2048, 640, 0, 2, (5, 128, 2)),
+    (640, 2048, 1, 2, (5, 128, 16)),
+    (4096, 8, 0, 4, (1, 8, 4)),        # fewer lines than SMs: a block a line
+    (4096, 8, 1, 4, (32, 128, 16)),    # many short lines: 32 a block
 ])
 def test_window_plan_picks(rows, cols, axis, esize, want):
     plan = gb.window_plan(rows, cols, axis, esize)
-    assert (plan.lines, plan.blocks, plan.unit, plan.cluster) == want
+    assert (plan.lines, plan.blocks, plan.unit) == want
 
 
 def test_window_plan_takes_lines_and_refuses_a_line_too_long():
     # the slab, then the staged index: [4096][1] f32 and [4096][1] int32
-    assert gb.window_plan(4096, 256, 0, 4, lines=1) == (1, 256, 1, 4, 2 * 16384, 1)
-    # a cluster size given: 8 lines, 9 words apart, the index of a block's 2,048 positions
-    assert gb.window_plan(4096, 256, 0, 4, cluster=2) == (8, 64, 9, 16, 4096 * 36 + 2048 * 32, 2)
-    assert gb.window_plan(4096, 256, 0, 4, lines=3, cluster=2).blocks == 86 * 2
-    with pytest.raises(ValueError, match="axis 0"):
-        gb.window_plan(256, 4096, 1, 4, cluster=2)
-    with pytest.raises(ValueError, match="clusters of 1 to 8"):
-        gb.window_plan(4096, 256, 0, 4, cluster=16)
+    assert gb.window_plan(4096, 256, 0, 4, lines=1) == (1, 256, 1, 4, 2 * 16384)
     # 4 lines 5 words apart, and their index
     assert gb.window_plan(4096, 256, 0, 4, lines=4).smem == 4096 * 5 * 4 + 4096 * 4 * 4
     # 2 bf16 lines a word, and a 1-D index: its 2,048 entries
-    assert gb.window_plan(2048, 256, 0, 2, False, lines=2).smem == 2048 * 2 * 2 + 2048 * 4
+    assert gb.window_plan(2048, 256, 0, 2, False).smem == 2048 * 2 * 2 + 2048 * 4
     assert gb.window_plan(4096, 256, 0, 4, align=4).unit == 4
     # 2 f32 lines of 16,384 positions and their index exceed 227 KB: the plan takes one
     assert gb.window_plan(16384, 256, 0, 4).lines == 1
@@ -291,7 +271,6 @@ def test_compact_item_expands_the_mask_as_the_tile_layouts_do():
     (dict(axis=2), "axis"),
     (dict(iters=0), "iters"),
     (dict(lines=0), "lines"),
-    (dict(cluster=0), "cluster"),
 ])
 def test_window_gather_refuses(bad, match):
     args = dict(x=torch.zeros(4, 8), idx=torch.zeros(4, 8, dtype=torch.int32), iters=1, axis=0)
