@@ -35,9 +35,10 @@
 // one row each 250 ns, however many slots it has: refilling a slot
 // half a ring after its store, or leaving out the proxy fence before a
 // store, changed nothing measurable. So the issuers set an SM's pace: warm
-// at depth 64, 1 issuer 1.92 ns a row, 4 0.50, 8 0.28, 16 0.19 (NVIDIA
-// H100 80GB HBM3 at 700 W, chip_smoke.py's gather timing), where the L2
-// that holds a warm pass's rows takes over; hence up to 32 warps a block.
+// at depth 64, 1 issuer 1.92 ns a row, 4 0.50, 8 0.28, 16 0.18-0.19
+// (NVIDIA H100 80GB HBM3 at 700 W, chip_smoke.py's gather timing), where
+// the L2 that holds a warm pass's rows takes over: 32 were slower
+// (0.198-0.209), hence up to 16 warps a block.
 //
 // What bounds it: bytes. Each row is read once and written once, with a
 // 4-byte index: chunk * (2 * row_bytes + 4) bytes a pass, 0.31 ns a row for
@@ -56,7 +57,7 @@
 
 namespace {
 
-constexpr int kMaxIssuers = 32;  // warps a block at most
+constexpr int kMaxIssuers = 16;  // warps a block at most
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -188,7 +189,7 @@ extern "C" size_t adaqp_ring_gather_smem(int depth, int row_bytes, int max_rows)
 // h 16-byte aligned); idx int32 [chunk] in [0, n_rows); out [chunk,
 // row_bytes], 16-byte aligned; iters >= 1 passes, depth >= 1 copies in
 // flight a block; `blocks` blocks, block b owning rows [b * chunk / blocks,
-// (b + 1) * chunk / blocks), none more than max_rows; `issuers` (1 to 32,
+// (b + 1) * chunk / blocks), none more than max_rows; `issuers` (1 to 16,
 // at most depth) warps a block issue the copies. Launches on `stream` of
 // CUDA device `device` and returns cudaGetLastError() (0 on success), or
 // cudaErrorInvalidValue for a grid that does not fit the chunk; it does

@@ -15,6 +15,7 @@ where the script they replace printed ``FAILED`` and went on.
 """
 from __future__ import annotations
 
+import functools
 import time
 
 import torch
@@ -35,3 +36,16 @@ def time_call(fn, device: torch.device) -> float:
     t0 = time.perf_counter()
     fn()
     return time.perf_counter() - t0
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device (1 for the CPU), asked of
+    the driver once a device: the wrappers plan every launch with it."""
+    if device.type != "cuda":
+        return 1
+    return _sms(torch.cuda.current_device() if device.index is None else device.index)

@@ -40,7 +40,7 @@ import torch
 
 from ..common.backend import resolve_device
 from ..utils.cuda_build import raise_on
-from . import time_call
+from . import sm_count, time_call
 
 N = 233_472        # source rows (Reddit scale)
 CHUNK = 4096       # gathered rows a pass
@@ -49,8 +49,10 @@ MAX_SMEM = 227 * 1024  # shared memory a block can use on Hopper
 ROWS_A_BLOCK = 4  # rows a block owns in the many-block form
 # warps a block that issue the ring's copies, each with its share of the
 # slots (at most depth of them): an issuing thread moves a row each 250 ns
-# or so, so the SM's pace grows with them (csrc/ring_gather.cu)
-ISSUERS = 32
+# or so, so the SM's pace grows with them up to 16 (csrc/ring_gather.cu;
+# on the H100, warm at depth 64: 16 warps 0.178-0.193 ns a row, 32 warps
+# 0.198-0.209, 8 warps 0.276-0.277)
+ISSUERS = 16
 
 
 def idx_variants(rng: np.random.Generator, n: int = N, chunk: int = CHUNK) -> dict:
@@ -92,12 +94,10 @@ def ring_plan(chunk: int, iters: int, depth: int, many_blocks: bool = False,
     return blocks, q + (r > 0), in_flight
 
 
-def ring_issuers(depth: int, issuers: int | None = None, items: int | None = None) -> int:
-    """Warps of a block that issue copies: ``issuers`` (default
-    ``ISSUERS``), at most ``depth`` and at most the block's ``items`` (its
-    rows times the passes)."""
-    cap = min(depth, depth if items is None else items)
-    return max(1, min(ISSUERS if issuers is None else issuers, cap))
+def ring_issuers(depth: int, items: int | None = None) -> int:
+    """Warps of a block that issue copies: ``ISSUERS``, at most ``depth``
+    and at most the block's ``items`` (its rows times the passes)."""
+    return max(1, min(ISSUERS, depth, depth if items is None else items))
 
 
 def _ring_gather_torch(h: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -119,14 +119,7 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def sm_count(device: torch.device) -> int:
-    """Streaming multiprocessors of a CUDA device (1 for the CPU)."""
-    if device.type != "cuda":
-        return 1
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
-def _ring_gather_cuda(h, idx, iters, depth, many_blocks, blocks, issuers):
+def _ring_gather_cuda(h, idx, iters, depth, many_blocks, blocks):
     chunk, row_bytes = idx.numel(), h.shape[1] * h.element_size()
     out = torch.empty((chunk, h.shape[1]), dtype=h.dtype, device=h.device)
     if chunk == 0:
@@ -141,7 +134,7 @@ def _ring_gather_cuda(h, idx, iters, depth, many_blocks, blocks, issuers):
                          f"{smem} bytes of shared memory, more than a block's {MAX_SMEM}")
     rc = lib.adaqp_ring_gather(
         h.data_ptr(), idx.data_ptr(), out.data_ptr(), chunk, iters, depth, row_bytes, grid,
-        rows, ring_issuers(depth, issuers, rows * iters), h.device.index,
+        rows, ring_issuers(depth, rows * iters), h.device.index,
         torch.cuda.current_stream(h.device).cuda_stream,
     )
     raise_on(lib.adaqp_ring_gather_error_string, rc, "ring_gather")
@@ -150,14 +143,13 @@ def _ring_gather_cuda(h, idx, iters, depth, many_blocks, blocks, issuers):
 
 
 def ring_gather(h: torch.Tensor, idx: torch.Tensor, iters: int, depth: int,
-                many_blocks: bool = False, blocks: int | None = None,
-                issuers: int | None = None) -> torch.Tensor:
+                many_blocks: bool = False, blocks: int | None = None) -> torch.Tensor:
     """``h[idx]`` for contiguous 2-D ``h`` and int32 ``idx`` [chunk] in
     ``[0, h.shape[0])``, computed ``iters`` times over in one launch with
     ``depth`` row copies in flight per thread block, on the grid of
     :func:`ring_plan` (one block an SM, the reference's form;
     ``many_blocks``: 4 rows a block; ``blocks``: that many), the copies
-    issued by :func:`ring_issuers` warps a block (``issuers`` caps them).
+    issued by :func:`ring_issuers` warps a block.
     Rows must be a multiple of 16 bytes (the bulk copy's unit). An empty
     ``idx`` launches nothing.
 
@@ -174,11 +166,10 @@ def ring_gather(h: torch.Tensor, idx: torch.Tensor, iters: int, depth: int,
                          "of the bulk copy's 16 bytes")
     if iters < 1 or depth < 1:
         raise ValueError(f"iters ({iters}) and depth ({depth}) must be at least 1")
-    if (blocks is not None and blocks < 1) or (issuers is not None and not 1 <= issuers <= 32):
-        raise ValueError(f"blocks ({blocks}) must be at least 1 and issuers ({issuers}) 1 to 32")
+    if blocks is not None and blocks < 1:
+        raise ValueError(f"blocks ({blocks}) must be at least 1")
     if h.device.type == "cuda":
-        return _ring_gather_cuda(h, idx.contiguous(), iters, depth, many_blocks, blocks,
-                                 issuers)
+        return _ring_gather_cuda(h, idx.contiguous(), iters, depth, many_blocks, blocks)
     if h.device.type == "cpu":
         return _ring_gather_torch(h, idx)
     raise ValueError(f"no ring_gather for device {h.device}")
@@ -234,7 +225,7 @@ def main(argv=None) -> dict:
                 t = time_call(lambda: ring_gather(h, i, iters, depth, args.many_blocks), dev)
                 grid, rows, flight = ring_plan(CHUNK, iters, depth, args.many_blocks,
                                                sm_count(dev))
-                issuers = ring_issuers(depth, None, rows * iters)
+                issuers = ring_issuers(depth, rows * iters)
                 print(f"ring gather {name} {vname:8s} depth={depth:3d} blocks={grid:4d} "
                       f"issuers={issuers:2d} in_flight={flight:5d}: "
                       f"{t / (iters * CHUNK) * 1e9:7.1f} ns/row  correct={ok}", flush=True)

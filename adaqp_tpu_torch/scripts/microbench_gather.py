@@ -43,7 +43,7 @@ from ..common.backend import resolve_device
 from ..ops.spmm_block import expand_masks
 from ..ops.spmm_compact import BD, BS, CSUB, GROUP, WORDS
 from ..utils.cuda_build import raise_on
-from . import time_call
+from . import sm_count, time_call
 
 R, F = 4096, 256
 D = 2048           # the square window's depth
@@ -113,10 +113,10 @@ def window_plan(rows: int, cols: int, axis: int, esize: int, full: bool = True,
     block's shared memory would exceed 227 KB. Axis 0's slab is
     ``[L][stride]`` with each position's lines an odd number of words apart
     (a warp's random rows spread over the banks); axis 1's
-    ``[lines][stride]`` with each line padded to 16 bytes. The staged index follows it: a full one ``[L]
-    [lines]`` (axis 0) or ``[lines][L]`` (axis 1, L rounded up to 4), a 1-D
-    one ``[L]``. Raises when one line cannot fit. Cached: the wrapper asks
-    for it at every call."""
+    ``[lines][stride]`` with each line padded to 16 bytes. The staged index
+    follows it: a full one ``[L][lines]`` (axis 0) or ``[lines][L]`` (axis
+    1, L rounded up to 4), a 1-D one ``[L]``. Raises when one line cannot
+    fit."""
     L, M = (rows, cols) if axis == 0 else (cols, rows)
     ls = -(-L // 4) * 4
 
@@ -149,9 +149,26 @@ def window_plan(rows: int, cols: int, axis: int, esize: int, full: bool = True,
     return got
 
 
-def _align(t: torch.Tensor) -> int:
-    """The largest power of two that divides ``t``'s address."""
-    return t.data_ptr() & -t.data_ptr()
+def _align(mod: int, cap: int) -> int:
+    """The largest power of two up to ``cap`` that divides an address whose
+    remainder modulo ``cap`` is ``mod``."""
+    return mod & -mod if mod else cap
+
+
+def _window_args(x: torch.Tensor, idx: torch.Tensor, iters: int, axis: int,
+                 lines: int | None = None) -> bool:
+    """Raises on arguments :func:`window_gather` does not take; returns
+    whether ``idx`` is a full index."""
+    if x.dim() != 2 or x.dtype not in (torch.float32, torch.bfloat16) or not x.is_contiguous():
+        raise ValueError(f"x must be a contiguous 2-D f32 or bf16 tensor, got {x.dtype} "
+                         f"{tuple(x.shape)}")
+    if axis not in (0, 1) or iters < 1:
+        raise ValueError(f"axis must be 0 or 1 and iters at least 1, got {axis}, {iters}")
+    if idx.dtype != torch.int32 or idx.device != x.device:
+        raise ValueError(f"idx must be int32 on {x.device}, got {idx.dtype} on {idx.device}")
+    if lines is not None and lines < 1:
+        raise ValueError(f"lines must be at least 1, got {lines}")
+    return _is_full(x, idx, axis)
 
 
 def _window_gather_torch(x: torch.Tensor, idx: torch.Tensor, iters: int, axis: int
@@ -163,6 +180,7 @@ def _window_gather_torch(x: torch.Tensor, idx: torch.Tensor, iters: int, axis: i
     return acc
 
 
+@functools.lru_cache(maxsize=None)
 def _window_lib() -> ctypes.CDLL:
     from ..utils.cuda_build import load_library
 
@@ -176,22 +194,36 @@ def _window_lib() -> ctypes.CDLL:
     return lib
 
 
+# (x's shape and dtype, axis, full, lines, x's address mod 16 and idx's mod
+# 32, device) -> the launch's arguments before and after iters: a call looks
+# its plan up once, in one dict. The plan reads alignments up to 16 bytes of
+# x, and as many of a full index's elements (32 bytes of a bf16 x's index).
+_LAUNCHES: dict = {}
+
+
+def _launch_args(x, axis, full, lines, x_mod, idx_mod, index):
+    esize = x.element_size()
+    align = _align(x_mod, 16)
+    if full:
+        align = min(align, _align(idx_mod, 32) * esize // 4)
+    plan = window_plan(x.shape[0], x.shape[1], axis, esize, full,
+                       sm_count(torch.device("cuda", index)), lines, align)
+    return ((x.shape[0], x.shape[1], axis, int(full), int(x.dtype == torch.bfloat16)),
+            (plan.lines, plan.stride, plan.unit, index))
+
+
 def _window_gather_cuda(x, idx, iters, axis, full, lines):
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
-    align = _align(x)
-    if full:
-        align = min(align, _align(idx) * x.element_size() // 4)
-    plan = window_plan(x.shape[0], x.shape[1], axis, x.element_size(), full,
-                       torch.cuda.get_device_properties(x.device).multi_processor_count, lines,
-                       align)
+    xp, ip, index = x.data_ptr(), idx.data_ptr(), x.device.index
+    key = (x.shape, x.dtype, axis, full, lines, xp & 15, ip & 31, index)
+    args = _LAUNCHES.get(key)
+    if args is None:
+        args = _LAUNCHES[key] = _launch_args(x, axis, full, lines, xp & 15, ip & 31, index)
     lib = _window_lib()
-    rc = lib.adaqp_window_gather(
-        x.data_ptr(), idx.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1], axis,
-        int(full), int(x.dtype == torch.bfloat16), iters, plan.lines, plan.stride, plan.unit,
-        x.device.index, torch.cuda.current_stream(x.device).cuda_stream,
-    )
+    rc = lib.adaqp_window_gather(xp, ip, out.data_ptr(), *args[0], iters, *args[1],
+                                 torch._C._cuda_getCurrentRawStream(index))
     raise_on(lib.adaqp_window_gather_error_string, rc, "window_gather")
     window_gather.launches += 1
     return out
@@ -210,16 +242,7 @@ def window_gather(x: torch.Tensor, idx: torch.Tensor, iters: int, axis: int,
     launch; a line of the gather axis must fit a block's shared memory
     (227 KB) and the indices are trusted. CPU ``x``: the plain version.
     Any other device raises."""
-    if x.dim() != 2 or x.dtype not in (torch.float32, torch.bfloat16) or not x.is_contiguous():
-        raise ValueError(f"x must be a contiguous 2-D f32 or bf16 tensor, got {x.dtype} "
-                         f"{tuple(x.shape)}")
-    if axis not in (0, 1) or iters < 1:
-        raise ValueError(f"axis must be 0 or 1 and iters at least 1, got {axis}, {iters}")
-    if idx.dtype != torch.int32 or idx.device != x.device:
-        raise ValueError(f"idx must be int32 on {x.device}, got {idx.dtype} on {idx.device}")
-    if lines is not None and lines < 1:
-        raise ValueError(f"lines must be at least 1, got {lines}")
-    full = _is_full(x, idx, axis)
+    full = _window_args(x, idx, iters, axis, lines)
     if x.device.type == "cuda":
         return _window_gather_cuda(x, idx.contiguous(), iters, axis, full, lines)
     if x.device.type == "cpu":

@@ -806,6 +806,26 @@ def _pad_cases(t, probe=False):
     return cases
 
 
+def _build_parent(csrc, names):
+    """``{name: ctypes.CDLL}`` of the ``<name>.cu`` sources in ``csrc`` (an
+    older tree's), built at once with the port's ``nvcc`` flags into
+    ``lib<name>_parent.so`` under the work directory."""
+    import ctypes
+
+    from adaqp_tpu_torch.utils.cuda_build import NVCC_FLAGS, nvcc_path
+
+    os.makedirs(WORK, exist_ok=True)
+    so = {name: os.path.join(WORK, f"lib{name}_parent.so") for name in names}
+    procs = {name: subprocess.Popen([nvcc_path(), *NVCC_FLAGS, "-o", so[name],
+                                     os.path.join(csrc, f"{name}.cu")],
+                                    stdout=subprocess.DEVNULL, stderr=subprocess.PIPE)
+             for name in names}
+    for name, proc in procs.items():
+        err = proc.communicate()[1]
+        check(proc.returncode == 0, f"the older {name}.cu failed to build: {err[-2000:]}")
+    return {name: ctypes.CDLL(so[name]) for name in names}
+
+
 def _parent_rows(torch, csrc):
     """The contiguous ``quant_rows`` and ``dequant_rows`` kernels of the
     ``quant_rows.cu`` in ``csrc`` (an older tree's sources, from before one
@@ -813,15 +833,8 @@ def _parent_rows(torch, csrc):
     built with the port's ``nvcc`` flags and wrapped with the port's
     contiguous signatures."""
     import ctypes
-    import subprocess
 
-    from adaqp_tpu_torch.utils.cuda_build import NVCC_FLAGS, nvcc_path
-
-    so = os.path.join(WORK, "libquant_rows_parent.so")
-    os.makedirs(WORK, exist_ok=True)
-    subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", so, os.path.join(csrc, "quant_rows.cu")],
-                   check=True, capture_output=True)
-    lib = ctypes.CDLL(so)
+    lib = _build_parent(csrc, ["quant_rows"])["quant_rows"]
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.adaqp_quant_rows.argtypes = [vp, ci, ci, ci, ci, ci, ctypes.c_uint32, vp, vp, vp, ci, vp]
     lib.adaqp_dequant_rows.argtypes = [vp, vp, vp, ci, ci, vp, ci, vp]
@@ -2265,9 +2278,10 @@ def phase_gather(torch, seed):
     return errs, said
 
 
-def _cold_ms(torch, fn, reps=20):
-    """Mean milliseconds of ``fn`` with L2 flushed before each call (a 256 MB
-    write evicts the 50 MB cache); CUDA events around the call alone."""
+def _cold_ms(torch, fn, reps=50, spread=False):
+    """Median milliseconds of ``fn`` over ``reps`` calls with L2 flushed
+    before each (a 256 MB write evicts the 50 MB cache); CUDA events around
+    the call alone. ``spread``: (median, fastest, slowest)."""
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     fn()
     events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
@@ -2278,7 +2292,22 @@ def _cold_ms(torch, fn, reps=20):
         fn()
         b.record()
     torch.cuda.synchronize()
-    return sum(a.elapsed_time(b) for a, b in events) / reps
+    ms = sorted(a.elapsed_time(b) for a, b in events)
+    return (ms[reps // 2], ms[0], ms[-1]) if spread else ms[reps // 2]
+
+
+def _host_ms(torch, fn, reps=100):
+    """Mean milliseconds of host time a call of ``fn`` takes to return,
+    over ``reps`` calls that the launch queue absorbs (none waits on the
+    card)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ms = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    return ms
 
 
 def _bound(nbytes, ops, rate):
@@ -2294,25 +2323,20 @@ def _parent_gather(torch, csrc):
     registers, its grid given; a block a slab of lines and a range of
     positions), built with the port's ``nvcc`` flags and wrapped with that
     tree's C signatures: ``ring(h, idx, iters, depth, blocks, rows)`` and
-    ``window(x, idx, iters, axis)``."""
+    ``window(x, idx, iters, axis)``, the latter through the same argument
+    checks as ``window_gather`` (so that a call costs the host what that
+    tree's wrapper cost it)."""
     import ctypes
 
-    from adaqp_tpu_torch.utils.cuda_build import NVCC_FLAGS, nvcc_path
+    from adaqp_tpu_torch.scripts import microbench_gather as gb
+    from adaqp_tpu_torch.utils.cuda_build import raise_on
 
-    os.makedirs(WORK, exist_ok=True)
-    libs = {}
-    procs = {name: subprocess.Popen([nvcc_path(), *NVCC_FLAGS, "-o",
-                                     os.path.join(WORK, f"lib{name}_parent.so"),
-                                     os.path.join(csrc, f"{name}.cu")],
-                                    stdout=subprocess.DEVNULL, stderr=subprocess.PIPE)
-             for name in ("ring_gather", "window_gather")}
-    for name, proc in procs.items():
-        err = proc.communicate()[1]
-        check(proc.returncode == 0, f"the older {name}.cu failed to build: {err[-2000:]}")
-        libs[name] = ctypes.CDLL(os.path.join(WORK, f"lib{name}_parent.so"))
+    libs = _build_parent(csrc, ["ring_gather", "window_gather"])
     vp, ci = ctypes.c_void_p, ctypes.c_int
     libs["ring_gather"].adaqp_ring_gather.argtypes = [vp, vp, vp] + [ci] * 7 + [vp]
     libs["window_gather"].adaqp_window_gather.argtypes = [vp, vp, vp] + [ci] * 7 + [vp]
+    libs["window_gather"].adaqp_window_gather_error_string.argtypes = [ci]
+    libs["window_gather"].adaqp_window_gather_error_string.restype = ctypes.c_char_p
 
     def ring(h, idx, iters, depth, blocks, rows):
         out = torch.empty((idx.numel(), h.shape[1]), dtype=h.dtype, device=h.device)
@@ -2324,12 +2348,19 @@ def _parent_gather(torch, csrc):
         return out
 
     def window(x, idx, iters, axis):
+        # that tree's wrapper, line for line, but for its launch count
+        full = gb._window_args(x, idx, iters, axis)
+        idx = idx.contiguous()
         out = torch.empty_like(x)
-        rc = libs["window_gather"].adaqp_window_gather(
+        if x.numel() == 0:
+            return out
+        lib = libs["window_gather"]
+        rc = lib.adaqp_window_gather(
             x.data_ptr(), idx.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1], axis,
-            int(tuple(idx.shape) == tuple(x.shape)), int(x.dtype == torch.bfloat16), iters,
-            x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
-        check(rc == 0, f"the older window_gather failed to launch ({rc})")
+            int(full), int(x.dtype == torch.bfloat16), iters, x.device.index,
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+        raise_on(lib.adaqp_window_gather_error_string, rc, "the older window_gather")
         return out
 
     return ring, window
@@ -2345,11 +2376,12 @@ def phase_time_gather(torch, card, seed, parent_csrc=None):
     L2 flushed) at every depth and index locality, as one block an SM (the
     reference's form, depths 4-64) and as many blocks of 4 rows, each time
     beside the copies in flight for the stream; then, uniform idx alone,
-    one block over the stream at depth 64 (the grid before) and the
-    issuing warps a block at depths 16 and 64. window_gather at the
-    script's windows, and at 11a and 11b with 1 to 8 lines a block.
-    ``parent_csrc``: an older tree's ``csrc`` directory, whose kernels
-    (:func:`_parent_gather`) are timed beside these on the same inputs."""
+    one block over the stream at depth 64 (the grid before). A cold pass
+    reads the median of 50, with the fastest and the slowest.
+    window_gather at the script's windows, one iteration paced by the host
+    (the kernels line) and on the card's clock. ``parent_csrc``: an older
+    tree's ``csrc`` directory, whose kernels (:func:`_parent_gather`) are
+    timed beside these on the same inputs."""
     import numpy as np
 
     from adaqp_tpu_torch.ops.spmm_block import expand_masks
@@ -2374,14 +2406,14 @@ def phase_time_gather(torch, card, seed, parent_csrc=None):
     sms = dg.sm_count(h.device)
     cold = {}
 
-    def ring_case(vname, i, form, depth, issuers=None, warm=True):
+    def ring_case(vname, i, form, depth, warm=True):
         """One grid and depth: a cold pass, then 50 and 100 warm passes."""
-        kw = dict(RING_FORMS[form], issuers=issuers)
-        c = _cold_ms(torch, lambda: dg.ring_gather(h, i, 1, depth, **kw))
-        grid, most, flight = dg.ring_plan(chunk, 1, depth, sms=sms, **RING_FORMS[form])
+        kw = RING_FORMS[form]
+        c, lo, hi = _cold_ms(torch, lambda: dg.ring_gather(h, i, 1, depth, **kw), spread=True)
+        grid, most, flight = dg.ring_plan(chunk, 1, depth, sms=sms, **kw)
         line = (f"[time] {card} | ring_gather {vname:8s} {form:10s} blocks={grid:4d} "
-                f"issuers={dg.ring_issuers(depth, issuers, most):2d} depth={depth:2d}: cold "
-                f"{c:.5f} ms a pass, {flight} in flight")
+                f"issuers={dg.ring_issuers(depth, most):2d} depth={depth:2d}: cold {c:.5f} ms "
+                f"a pass ({lo:.5f}-{hi:.5f}), {flight} in flight")
         if warm:
             # a call of 0.05-0.1 ms is as short as its host time: queued
             # behind a spin, the calls run back to back and a slow host call
@@ -2394,7 +2426,7 @@ def phase_time_gather(torch, card, seed, parent_csrc=None):
             slope = (t2 - t1) / 50
             check(slope > 0.05 * t1 / 50, f"ring_gather {form} depth={depth}: the slope "
                   f"{slope:g} ms a pass is near zero: work left the loop")
-            flight50 = dg.ring_plan(chunk, 50, depth, sms=sms, **RING_FORMS[form])[2]
+            flight50 = dg.ring_plan(chunk, 50, depth, sms=sms, **kw)[2]
             line += (f"; warm {t1 / (50 * chunk) * 1e6:.3f} ns/row at 50 passes ({t1:.4f} ms, "
                      f"{flight50} in flight), 100 passes {t2:.4f} ms, slope {slope * 1e3:.3f} "
                      "us a pass")
@@ -2403,10 +2435,11 @@ def phase_time_gather(torch, card, seed, parent_csrc=None):
 
     for vname, vi in dg.idx_variants(rng, dg.N, chunk).items():
         i = torch.from_numpy(vi).cuda()
-        lib = _cold_ms(torch, lambda: torch.index_select(h, 0, i))
+        lib, lo, hi = _cold_ms(torch, lambda: torch.index_select(h, 0, i), spread=True)
         warm_lib = cuda_ms(torch, lambda: dg.library_gather(h, i, 50), reps=5) / (50 * chunk)
         say(f"[time] {card} | ring_gather {vname:8s} torch.index_select (plain and library) cold "
-            f"{lib:.5f} ms a pass; the script's library loop warm {warm_lib * 1e6:.3f} ns/row")
+            f"{lib:.5f} ms a pass ({lo:.5f}-{hi:.5f}); the script's library loop warm "
+            f"{warm_lib * 1e6:.3f} ns/row")
         cold[(vname, "index_select")] = lib
         # the reference's form (one block an SM keeps `depth` copies in
         # flight over its share) at its depths, then the many-block form
@@ -2414,12 +2447,8 @@ def phase_time_gather(torch, card, seed, parent_csrc=None):
             for depth in depths:
                 cold[(vname, form, depth)] = ring_case(vname, i, form, depth, warm=depth > 1)
         if vname == "uniform":
-            # the grid before (the ring on one SM) beside the new, and the
-            # issuing warps a block
+            # the grid before (the ring on one SM) beside the new
             ring_case(vname, i, "one block", 64)
-            for depth in (16, 64):
-                for issuers in (1, 4, 8, 16):
-                    ring_case(vname, i, "persistent", depth, issuers)
         if parent and vname == "uniform":
             # the older tree's kernel: one warp a block copies each row
             # through registers; its reference form one block, its many-block
@@ -2428,11 +2457,12 @@ def phase_time_gather(torch, card, seed, parent_csrc=None):
                   "the older ring_gather differs from h[idx]")
             for depth in (4, 16, 64):
                 for blocks, rows_b in ((1, chunk), (chunk // 4, 4)):
-                    c = _cold_ms(torch, lambda: parent[0](h, i, 1, depth, blocks, rows_b))
+                    c, lo, hi = _cold_ms(torch, lambda: parent[0](h, i, 1, depth, blocks, rows_b),
+                                         reps=20 if blocks == 1 else 50, spread=True)
                     t1 = cuda_ms(torch, lambda: parent[0](h, i, 50, depth, blocks, rows_b),
                                  reps=3 if blocks == 1 else 20, backlog=True)
                     say(f"[time] {card} | parent ring_gather {vname:8s} blocks={blocks:4d} "
-                        f"depth={depth:2d}: cold {c:.5f} ms a pass; warm "
+                        f"depth={depth:2d}: cold {c:.5f} ms a pass ({lo:.5f}-{hi:.5f}); warm "
                         f"{t1 / (50 * chunk) * 1e6:.3f} ns/row at 50 passes ({t1:.4f} ms)")
     # the kernels line: uniform idx in the main's form, one block an SM, at
     # its deepest ring
@@ -2440,52 +2470,60 @@ def phase_time_gather(torch, card, seed, parent_csrc=None):
     rows["ring_gather"] = dict(ms=cold[("uniform", "persistent", 64)], plain_ms=lib,
                                bound_ms=bound_ms, bound_by=bound_by, library_ms=lib)
 
-    def window_case(tag, x, ii, axis, iters_i=200, lines=None):
+    def window_case(tag, x, ii, axis, iters_i=200):
         """Times one window_gather case (and, with ``parent``, the older
         tree's kernel on it); returns its row at one iteration. One
-        iteration is timed on the card's clock, calls queued behind a spin
-        (a call is shorter than its host time), and paced by the host, as
-        the older kernels were timed."""
+        iteration is timed paced by the host (20 calls between two events,
+        as PRs 5-10 timed it: the kernels line's timer), and on the card's
+        clock, the calls queued behind a spin (a call is shorter than its
+        host time); I and 2I iterations on the card's clock, so that a slow
+        host call does not swamp the slope."""
         full = gb.full_index(x, ii, axis)
         plan = gb.window_plan(*x.shape, axis, x.element_size(),
-                              tuple(ii.shape) == tuple(x.shape), sms, lines)
-
-        def kernel(iters):
-            return gb.window_gather(x, ii, iters, axis, lines)
-
-        t1 = cuda_ms(torch, lambda: kernel(1), reps=20, backlog=True)
-        paced = cuda_ms(torch, lambda: kernel(1), reps=20)
-        ti = cuda_ms(torch, lambda: kernel(iters_i), reps=5)
-        t2 = cuda_ms(torch, lambda: kernel(2 * iters_i), reps=5)
+                              tuple(ii.shape) == tuple(x.shape), sms)
+        paced = cuda_ms(torch, lambda: gb.window_gather(x, ii, 1, axis), reps=20)
+        t1 = cuda_ms(torch, lambda: gb.window_gather(x, ii, 1, axis), reps=20, backlog=True)
+        ti = cuda_ms(torch, lambda: gb.window_gather(x, ii, iters_i, axis), reps=5, backlog=True)
+        t2 = cuda_ms(torch, lambda: gb.window_gather(x, ii, 2 * iters_i, axis), reps=5,
+                     backlog=True)
         slope = (t2 - ti) / iters_i
         check(slope > 0.05 * ti / iters_i, f"window_gather {tag}: the slope {slope:g} ms an "
               "iteration is near zero: work left the loop")
-        plain = cuda_ms(torch, lambda: gb._window_gather_torch(x, ii, 1, axis), reps=20,
-                        backlog=True)
+        plain = cuda_ms(torch, lambda: gb._window_gather_torch(x, ii, 1, axis), reps=20)
+        plain_card = cuda_ms(torch, lambda: gb._window_gather_torch(x, ii, 1, axis), reps=20,
+                             backlog=True)
         plain_i = cuda_ms(torch, lambda: gb._window_gather_torch(x, ii, iters_i, axis), reps=2,
                           warmup=1)
-        lib = cuda_ms(torch, lambda: torch.gather(x, axis, full), reps=20, backlog=True)
-        lib_paced = cuda_ms(torch, lambda: torch.gather(x, axis, full), reps=20)
+        lib = cuda_ms(torch, lambda: torch.gather(x, axis, full), reps=20)
+        lib_card = cuda_ms(torch, lambda: torch.gather(x, axis, full), reps=20, backlog=True)
+        host = _host_ms(torch, lambda: gb.window_gather(x, ii, 1, axis))
+        lib_host = _host_ms(torch, lambda: torch.gather(x, axis, full))
         nbytes = x.numel() * x.element_size() * 2 + ii.numel() * 4
         b1, by1 = _bound(nbytes, x.numel(), PEAK_F32_FLOP_S)
         bi, byi = _bound(nbytes, x.numel() * iters_i, PEAK_F32_FLOP_S)
         tag += f" ({plan.lines} lines a block, {plan.blocks} blocks, {plan.unit}-byte loads)"
-        say(f"[time] {card} | window_gather {tag}: 1 iteration {t1:.5f} ms (paced {paced:.5f}; "
-            f"bound {b1:.5f} by {by1}; plain {plain:.5f}; torch.gather {lib:.5f}, paced "
-            f"{lib_paced:.5f}); {iters_i} iterations {ti:.4f} ms (bound {bi:.5f} by {byi}; plain "
-            f"{plain_i:.3f}), {2 * iters_i} {t2:.4f} ms, slope {slope * 1e3:.4f} us an iteration")
-        if parent and lines is None:
+        say(f"[time] {card} | window_gather {tag}: 1 iteration paced {paced:.5f} ms, on the "
+            f"card's clock {t1:.5f}, host {host:.5f} a call (bound {b1:.5f} by {by1}; plain "
+            f"paced {plain:.5f}, card {plain_card:.5f}; torch.gather paced {lib:.5f}, card "
+            f"{lib_card:.5f}, host {lib_host:.5f}); {iters_i} "
+            f"iterations {ti:.4f} ms (bound {bi:.5f} by {byi}; plain {plain_i:.3f}), "
+            f"{2 * iters_i} {t2:.4f} ms, slope {slope * 1e3:.4f} us an iteration")
+        if parent:
             want = gb._window_gather_torch(x, ii, 3, axis)
             check(torch.equal(parent[1](x, ii, 3, axis), want),
                   f"the older window_gather {tag} differs from its plain version")
-            p1 = cuda_ms(torch, lambda: parent[1](x, ii, 1, axis), reps=20, backlog=True)
             pp = cuda_ms(torch, lambda: parent[1](x, ii, 1, axis), reps=20)
-            pi = cuda_ms(torch, lambda: parent[1](x, ii, iters_i, axis), reps=5)
-            p2 = cuda_ms(torch, lambda: parent[1](x, ii, 2 * iters_i, axis), reps=5)
-            say(f"[time] {card} | parent window_gather {tag.split(' (')[0]}: 1 iteration "
-                f"{p1:.5f} ms (paced {pp:.5f}); {iters_i} iterations {pi:.4f} ms, "
-                f"{2 * iters_i} {p2:.4f} ms, slope {(p2 - pi) / iters_i * 1e3:.4f} us an iteration")
-        return dict(ms=t1, plain_ms=plain, bound_ms=b1, bound_by=by1, library_ms=lib)
+            p1 = cuda_ms(torch, lambda: parent[1](x, ii, 1, axis), reps=20, backlog=True)
+            ph = _host_ms(torch, lambda: parent[1](x, ii, 1, axis))
+            pi = cuda_ms(torch, lambda: parent[1](x, ii, iters_i, axis), reps=5, backlog=True)
+            p2 = cuda_ms(torch, lambda: parent[1](x, ii, 2 * iters_i, axis), reps=5,
+                         backlog=True)
+            say(f"[time] {card} | parent window_gather {tag.split(' (')[0]}: 1 iteration paced "
+                f"{pp:.5f} ms, on the card's clock {p1:.5f}, host {ph:.5f} a call; {iters_i} "
+                f"iterations {pi:.4f} ms, "
+                f"{2 * iters_i} {p2:.4f} ms, slope {(p2 - pi) / iters_i * 1e3:.4f} us an "
+                "iteration")
+        return dict(ms=paced, plain_ms=plain, bound_ms=b1, bound_by=by1, library_ms=lib)
 
     # the element gather (:72) at [4096, 256], full index (rows broadcast),
     # axis 0; the square window (:130) at D = 2048, F 256 and 640
@@ -2493,8 +2531,6 @@ def phase_time_gather(torch, card, seed, parent_csrc=None):
     x = torch.randn(4096, 256, generator=gen, device="cuda")
     ii = idx_rows[:, None].expand(4096, 256).contiguous()
     rows["window_gather"] = window_case("[4096, 256] f32 full idx axis 0", x, ii, 0)
-    for lines in (1, 4):  # the plan takes 2; 8 lines and their index exceed 227 KB
-        window_case("[4096, 256] f32 full idx axis 0", x, ii, 0, lines=lines)
     window_case("[4096, 256] bf16 full idx axis 0", x.to(torch.bfloat16), ii, 0)
     for ff in (256, 640):
         for axis in (0, 1):
@@ -2507,9 +2543,6 @@ def phase_time_gather(torch, card, seed, parent_csrc=None):
                 row = window_case(f"{list(shape)} bf16 {form} idx axis {axis}", x, ii, axis)
                 if (ff, axis, form) == (256, 0, "1-D"):
                     rows["window_gather_square"] = row
-                    for lines in (1, 4, 8):  # the plan takes 2
-                        window_case(f"{list(shape)} bf16 {form} idx axis {axis}", x, ii, axis,
-                                    lines=lines)
 
     # compact_item at fc 256 and 384, kinds 0 and 1
     for fc in (256, 384):

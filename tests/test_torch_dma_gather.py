@@ -132,14 +132,15 @@ def test_ring_plan_gives_each_row_to_one_block(chunk, blocks):
     assert sizes.min() >= 1 and sizes.max() == rows and sizes.max() - sizes.min() <= 1
 
 
-@pytest.mark.parametrize("depth,issuers,items,want", [
-    (64, None, None, dg.ISSUERS), (1, None, None, 1), (2, None, None, min(2, dg.ISSUERS)),
-    (64, 8, None, 8), (4, 8, None, 4), (64, 1, None, 1),
+@pytest.mark.parametrize("depth,items,want", [
+    (64, None, dg.ISSUERS), (1, None, 1), (2, None, 2),
+    # no more issuers than the depth (a slot each at least)
+    (8, None, 8), (dg.ISSUERS, None, dg.ISSUERS), (dg.ISSUERS + 1, None, dg.ISSUERS),
     # no more issuers than a block's rows times passes
-    (64, None, 4, 4), (64, None, 32 * 50, dg.ISSUERS), (64, 16, 3, 3), (4, None, 1, 1),
+    (64, 4, 4), (64, 32 * 50, dg.ISSUERS), (64, 3, 3), (4, 1, 1),
 ])
-def test_ring_issuers(depth, issuers, items, want):
-    assert dg.ring_issuers(depth, issuers, items) == want
+def test_ring_issuers(depth, items, want):
+    assert dg.ring_issuers(depth, items) == want
 
 
 @pytest.mark.parametrize("depth", [1, 64])
@@ -152,8 +153,8 @@ def test_ring_gather_plain_version_takes_either_form(many, depth):
 
 
 @pytest.mark.parametrize("depth", [1, 64])
-@pytest.mark.parametrize("form", [{"blocks": 1}, {"issuers": 1}, {"blocks": 3, "issuers": 8}])
-def test_ring_gather_plain_version_takes_a_grid_and_issuers(form, depth):
+@pytest.mark.parametrize("form", [{"blocks": 1}, {"blocks": 3}, {"blocks": 64}])
+def test_ring_gather_plain_version_takes_a_grid(form, depth):
     rng = np.random.default_rng(12)
     h = torch.from_numpy(rng.normal(size=(512, 16)).astype(np.float32))
     idx = torch.from_numpy(dg.idx_variants(rng, 512, 64)["uniform"])
@@ -172,8 +173,8 @@ def test_ring_gather_plain_version_takes_a_grid_and_issuers(form, depth):
     (dict(h=torch.zeros(8, 8, device="meta"), idx=torch.zeros(4, dtype=torch.int32,
                                                                 device="meta")), "no ring_gather"),
     (dict(blocks=0), "blocks"),
-    (dict(issuers=0), "issuers"),
-    (dict(issuers=33), "issuers"),
+    (dict(blocks=-2), "blocks"),
+    (dict(h=torch.zeros(8)), "2-D"),
 ])
 def test_ring_gather_refuses(bad, match):
     args = dict(h=torch.zeros(8, 8), idx=torch.zeros(4, dtype=torch.int32), iters=1, depth=4,

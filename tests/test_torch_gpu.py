@@ -334,16 +334,24 @@ def test_cuda_ring_gather_persistent_form(cuda_device, blocks, chunk):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("issuers", [1, 2, 3, 8, 32])
+@pytest.mark.parametrize("issuers", [1, 2, 3, 8, 16])
 def test_cuda_ring_gather_any_issuers(cuda_device, issuers):
-    # the ring's slots split over 1 to 32 issuing warps, each with a share
-    # that may be uneven (3 of 64 slots), at f32 rows of 640 columns
+    # the ring's slots split over 1 to 16 issuing warps (ring_issuers: at
+    # most ISSUERS, the depth and a block's rows times passes), a slot each
+    # (depth = issuers: one block an SM, or one block) or shares that may
+    # be uneven (3 warps of 64 slots: blocks of 3 rows, one pass), at f32
+    # rows of 640 columns
     rng = np.random.default_rng(issuers)
     h = torch.from_numpy(rng.normal(size=(dg.N, 640)).astype(np.float32)).to(cuda_device)
-    for chunk in (8, dg.CHUNK):
+    for chunk in (issuers * 8, issuers * 1365):
         i = torch.from_numpy(dg.idx_variants(rng, dg.N, chunk)["uniform"]).to(cuda_device)
-        for depth, blocks in ((64, None), (16, None), (64, 1), (5, 3)):
-            got = dg.ring_gather(h, i, 2, depth, blocks=blocks, issuers=issuers)
+        for depth, blocks, iters in ((issuers, None, 2), (issuers, 1, 2),
+                                     (64, chunk // issuers, 1)):
+            rows = dg.ring_plan(chunk, iters, depth, sms=dg.sm_count(h.device), blocks=blocks)[1]
+            # fewer rows than SMs leave a block a row: as many issuers as items
+            assert dg.ring_issuers(depth, rows * iters) == min(issuers, rows * iters)
+            assert blocks is None or rows * iters >= issuers
+            got = dg.ring_gather(h, i, iters, depth, blocks=blocks)
             assert torch.equal(got, dg._ring_gather_torch(h, i)), (chunk, depth, blocks)
 
 
