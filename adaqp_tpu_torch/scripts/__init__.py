@@ -45,7 +45,7 @@ def _sms(index: int) -> int:
 
 def sm_count(device: torch.device) -> int:
     """Streaming multiprocessors of a CUDA device (1 for the CPU), asked of
-    the driver once a device: the wrappers plan every launch with it."""
+    CUDA once a device: the wrappers plan every launch with it."""
     if device.type != "cuda":
         return 1
     return _sms(torch.cuda.current_device() if device.index is None else device.index)

@@ -2474,9 +2474,9 @@ def phase_time_gather(torch, card, seed, parent_csrc=None):
         """Times one window_gather case (and, with ``parent``, the older
         tree's kernel on it); returns its row at one iteration. One
         iteration is timed paced by the host (20 calls between two events,
-        as PRs 5-10 timed it: the kernels line's timer), and on the card's
-        clock, the calls queued behind a spin (a call is shorter than its
-        host time); I and 2I iterations on the card's clock, so that a slow
+        as the probe was first timed: the kernels line's timer), and on the
+        card's clock, the calls queued behind a spin (a call is shorter than
+        its host time); I and 2I iterations on the card's clock, so that a slow
         host call does not swamp the slope."""
         full = gb.full_index(x, ii, axis)
         plan = gb.window_plan(*x.shape, axis, x.element_size(),
