@@ -1,13 +1,13 @@
 // expand_spmm for NVIDIA Hopper (sm_90a): block bitmask SpMM through dense
-// 0/1 tiles on the tensor cores.
+// 0/1 tiles on the tensor cores, by wgmma.
 //
 // It replaces the TPU kernel `kernel` of scripts/microbench_expand.py:48
 // (make_run, called at :149): one pass out = A^T h over a block layout,
 // where each [256, 2048] tile's int16 mask [256, 128] is expanded into a
 // 0/1 bf16 matrix `a` (column j is bit j / 128 of halfword j % 128, the
 // tiling of pltpu.repeat) and `a @ window` is added into an f32
-// accumulator of the destination block, written once as bf16 at the
-// block's last tile. The four variants compute `a` four ways:
+// accumulator of the destination block, written once as bf16. The four
+// variants compute `a` four ways:
 //   v0  (w >> bit) & 1, to f32, to bf16
 //   v1  (w >> bit) & 1, straight to bf16
 //   v2  a sign select: (w << (31 - bit)) < 0 ? 1 : 0
@@ -19,82 +19,194 @@
 //
 // What bounds it: operations. A pass does 2 * 256 * 2048 * F flops a tile
 // on the tensor cores (bf16 in, f32 accumulate; 989 TFLOP/s dense), some
-// 40x more time than moving the masks, h and out once at 3.35 TB/s.
+// 27x more time than moving the masks, h and out once at 3.35 TB/s.
 //
-// The design (simple and right; speed is later work). The TPU ran the
-// tiles in order on one core and carried the accumulator across grid
-// steps; here a CTA of 8 warps owns a [128, 128] slice of one destination
-// block's output (a row half x a 128-column chunk of F) and walks that
-// block's tiles blk_ptr[b] .. blk_ptr[b + 1] itself, so nothing carries
-// between CTAs and the accumulator stays in registers (64 f32 a thread).
-// A tile runs as 32 K-steps of 64 source columns. Columns
-// bit * 128 + half * 64 + c (c < 64) are bit `bit` of the 64 halfwords
-// half * 64 + c, so a thread loads its row's 32 halfwords of a half once
-// into registers (4 x 16-byte loads) and expands them for 16 bits in turn,
-// writing bf16 0/1 into a shared [128, 64] A slice; the matching 64 window
-// rows x 128 columns of h arrive in shared memory by cp.async, double-
-// buffered one K-step ahead. Each warp multiplies a [64, 32] piece with
-// mma.sync.m16n8k16 (bf16, f32 accumulate), its fragments loaded with
-// ldmatrix (.trans for the row-major window). Shared rows are padded by 16
-// bytes so ldmatrix's eight row addresses fall on distinct banks. The
-// output is written once, as bf16. A destination block without tiles gives zeros.
+// The design, Hopper's warp-specialised shape:
+// - A CTA owns one (destination block, 128-column chunk of F): all 256
+//   rows, so each window slice is fetched once for each tile and chunk.
+//   The block runs along grid x and the chunk along grid y, so the CTAs
+//   that run at once read one chunk's columns of h.
+// - 384 threads. Warpgroups 0 and 1 consume, 128 destination rows each:
+//   two wgmma.mma_async.m64n128k16 a k16 step, 128 f32 sums a thread in
+//   registers (setmaxnreg 232). Warpgroup 2 produces: one thread issues
+//   every TMA load, the warpgroup gives its registers up (setmaxnreg 40).
+// - B, a K-step's window slice, is 64 source rows x 128 columns of h, by
+//   TMA with the 128-byte swizzle: 16 KB a stage (columns 64.. 8 KB after
+//   columns 0..), in a ring of kStages stages on full/empty mbarriers, so
+//   the producer runs up to kStages K-steps ahead. h is row-major, so B is
+//   MN-major: wgmma's transposed-B form, its descriptor LBO 8 KB (the next
+//   64 columns) and SBO 1 KB (the next 8 rows).
+// - A never passes through shared memory: wgmma takes it from registers.
+//   A tile's 32 K-steps run half (64 halfwords), word group (16 halfwords
+//   of the half) and bit quad (4 bits) from outer to inner: K-step g holds
+//   k16 steps kk = 0..3, bit 4 (g % 4) + kk of the group's halfwords, so its
+//   B slice is four 16-row pieces of the window (source rows bit * 128 +
+//   half * 64 + group * 16 + [0, 16)), one 64 x 16 box each per 64
+//   columns, and a piece's rows sit at kk * 2 KB as a k16 step's descriptor
+//   reads them. A thread's fragment holds rows 16 warp + lane / 4 (and + 8)
+//   of its m64 tile and columns 2 (lane % 4) (+ 1, + 8, + 9) of the group;
+//   columns c and c + 1 are the two halves of one 32-bit mask word, so one
+//   32-bit register of `a` comes from one word, and a thread's 8 words of a
+//   group serve its 4 K-steps (16 bits). It reads them from a copy of the
+//   half tile (256 rows x 64 halfwords, 32 KB, 128-byte swizzle) that the
+//   producer stages by TMA in a ring of two. 8 words a thread, not a half's
+//   32, keep the sums, two fragment sets and the words within the registers.
+// - Expansion overlaps the products: the fragment of k16 step kk is built
+//   while step kk - 1's wgmmas run, in a register set of its own (ptxas
+//   keeps v0-v2's four apart), and wgmma.wait_group 1 after each commit
+//   lets at most one step's pair run behind. A window stage goes back to
+//   the producer after the first wait of the next K-step, when no wgmma
+//   reads it any more. Only the producer's waits trap on a lost arrival:
+//   a trap on the consumers' path held ptxas to the launch's 168 registers
+//   a thread, which spilled and serialised every wgmma.
+// - The f32 sums are rounded once to bf16 and stored; a destination block
+//   without tiles writes zeros.
 //
-// Every CTA of a block expands the same masks once per 128-column chunk
-// of F (5 times at F = 640), and a K-step waits on its window without
-// overlapping its expansion: simple first. The wrapper (scripts/
-// microbench_expand.py::expand_spmm) takes only bf16 h with F a multiple
-// of 128 and a square layout, and raises on anything else.
+// The wrapper (scripts/microbench_expand.py::expand_spmm) takes only bf16
+// h with F a multiple of 128 and a square layout, and raises on anything
+// else.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
-constexpr int BD = 256;        // destination rows of a tile
-constexpr int BS = 2048;       // source columns of a tile
-constexpr int WORDS = 128;     // halfwords of a tile row
-constexpr int kRows = 128;     // output rows of a CTA (a row half of a block)
-constexpr int kCols = 128;     // output columns of a CTA
-constexpr int kK = 64;         // source columns of a K-step
-constexpr int kThreads = 256;  // 8 warps: 2 along rows x 4 along columns
-constexpr int kAStride = kK + 8;      // bf16 a row of the A slice (144 bytes)
-constexpr int kBStride = kCols + 8;   // bf16 a row of a window slice (272 bytes)
-constexpr int kASize = kRows * kAStride;  // bf16 of the A slice
-constexpr int kBSize = kK * kBStride;     // bf16 of one window buffer
-constexpr size_t kSmem = (kASize + 2 * kBSize) * sizeof(__nv_bfloat16);
+constexpr int BD = 256;         // destination rows of a tile
+constexpr int WORDS = 128;      // halfwords of a tile row
+constexpr int kCols = 128;      // columns of F a CTA
+constexpr int kK = 64;          // source rows of a K-step
+constexpr int kTileSteps = 32;  // K-steps a tile: 2 halves x 4 word groups x 4 bit quads
+constexpr int kGroup = 16;      // halfwords of a word group
+constexpr int kStages = 6;      // window slices in flight
+constexpr int kBoxCols = 64;    // a box of h: 64 columns (128 bytes) x 16 rows
+constexpr int kStageBytes = kK * kCols * 2;         // 16 KB
+constexpr int kPieceBytes = kGroup * kBoxCols * 2;  // 2 KB: one box
+constexpr int kHalfBytes = BD * (WORDS / 2) * 2;    // 32 KB: 256 rows x 64 halfwords
+constexpr int kMaskStages = 2;
+constexpr int kConsumers = 2;                       // consumer warpgroups
+constexpr int kMTiles = BD / 64 / kConsumers;       // m64 tiles a consumer warpgroup
+constexpr int kThreads = (kConsumers + 1) * 128;
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;
+// setmaxnreg moves registers within the CTA's allocation: the kernel must
+// start with at least this many a thread (ptxas gives 168 at 384 threads)
+constexpr int kRegsAtLaunch = (kConsumers * 128 * kConsumerRegs + 128 * kProducerRegs) / kThreads;
+// a wait that outlasts this many polls means a lost copy or arrival: fail
+// the launch instead of hanging the card
+constexpr uint32_t kMaxPolls = 1u << 26;
+
+// + 1 KB to align the rings to the 128-byte swizzle's 1 KB pattern
+constexpr size_t kSmemBytes = 1024 + kStages * kStageBytes + kMaskStages * kHalfBytes;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_u32(dst)), "l"(src)
+__device__ __forceinline__ void barrier_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
                : "memory");
 }
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;" ::: "memory"); }
-__device__ __forceinline__ void cp_wait_one() {
-  asm volatile("cp.async.wait_group 1;" ::: "memory");
-}
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-// d += a (16 x 16, row) * b (16 x 8, col); bf16 in, f32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
+__device__ __forceinline__ bool try_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n"
+      ".reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n"
+      "}\n"
+      : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+  return done != 0;
+}
+
+// Waits on the barrier's phase. kGuard (the producer's waits): a wait
+// that outlasts kMaxPolls polls traps, so a lost copy or arrival fails the
+// launch instead of hanging the card, and with it the consumers waiting on
+// that copy. The consumers' waits have no trap: a trap on their path makes
+// ptxas hold the whole kernel to the 168 registers of its launch, spilling
+// and serialising the wgmmas.
+template <bool kGuard>
+__device__ __forceinline__ void wait(uint64_t* bar, uint32_t parity) {
+  for (uint32_t i = 0; !try_wait(bar, parity); ++i) {
+    if (kGuard && i == kMaxPolls) __trap();
+  }
+}
+
+__device__ __forceinline__ void expect_bytes(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               ::"r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// The box of `map` at (column c0, row r0) into shared `dst`, completing on `bar`.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int c0, int r0,
+                                         uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(r0),
+        "r"(smem_u32(bar))
+      : "memory");
+}
+
+// wgmma's descriptor of a K16 x N128 piece of a window stage at `addr`
+// (1 KB aligned): MN-major, 128-byte swizzle, LBO = the 8 KB to the
+// second box's 64 columns, SBO = the 1 KB to the next 8 rows.
+__device__ __forceinline__ uint64_t b_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) |
+         (static_cast<uint64_t>((kStageBytes / 2) >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// keeps the compiler from moving accesses to the sums across a wgmma fence
+__device__ __forceinline__ void fence_sums(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d[64 x 128] += a (registers, 64 x 16 bf16) * B (shared, 16 x 128 bf16,
+// MN-major), f32 accumulate
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], const uint32_t (&a)[4],
+                                           uint64_t desc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
 }
 
 // The bf16 bits of one element of `a`: halfword w (sign-extended) at bit b.
@@ -112,179 +224,311 @@ __device__ __forceinline__ uint32_t expand_one(int w, int b) {
   }
 }
 
+// One register of an A fragment: the two halfwords of a mask word at bit b
+// (the lower halfword is the lower column).
 template <int V>
-__global__ void __launch_bounds__(kThreads, 2)
-expand_tile_kernel(const int16_t* __restrict__ masks, const int32_t* __restrict__ src_start,
-                   const int32_t* __restrict__ blk_ptr, const __nv_bfloat16* __restrict__ h,
-                   __nv_bfloat16* __restrict__ out, int f) {
-  extern __shared__ __align__(128) uint8_t smem[];
-  __nv_bfloat16* a_s = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* b_s = a_s + kASize;  // two buffers of kBSize
+__device__ __forceinline__ uint32_t expand_pair(uint32_t word, int b) {
+  const int lo = static_cast<int>(static_cast<int16_t>(word & 0xFFFFu));
+  const int hi = static_cast<int>(static_cast<int16_t>(word >> 16));
+  return expand_one<V>(lo, b) | (expand_one<V>(hi, b) << 16);
+}
 
-  const int f0 = blockIdx.x * kCols;
-  const int row_half = blockIdx.y;
-  const int blk = blockIdx.z;
+template <int V>
+__global__ void __launch_bounds__(kThreads, 1)
+expand_kernel(const __grid_constant__ CUtensorMap hmap, const __grid_constant__ CUtensorMap mmap,
+              const int32_t* __restrict__ src_start, const int32_t* __restrict__ blk_ptr,
+              __nv_bfloat16* __restrict__ out, int f) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[kStages], empty[kStages];
+  __shared__ __align__(8) uint64_t mfull[kMaskStages], mempty[kMaskStages];
+  uint8_t* ring = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  uint8_t* mring = ring + kStages * kStageBytes;
+
+  const int blk = blockIdx.x;
+  const int f0 = blockIdx.y * kCols;
   const int t0 = blk_ptr[blk];
-  const int steps = (blk_ptr[blk + 1] - t0) * 32;  // K-steps of this block
+  const int steps = (blk_ptr[blk + 1] - t0) * kTileSteps;
+  // the warpgroup, warp-uniform by construction, as the .sync.aligned
+  // setmaxnreg of each role's branch needs
+  const int wg = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x >> 7), 0);
 
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int wm = warp >> 2;  // rows wm * 64 .. + 64 of the CTA's 128
-  const int wn = warp & 3;   // columns wn * 32 .. + 32 of its 128
-  // expansion: thread (er, ep) writes A slice row er, columns ep * 32 .. + 32
-  const int er = tid >> 1;
-  const int ep = tid & 1;
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int k = 0; k < 4; ++k) acc[i][j][k] = 0.f;
-
-  // window rows of K-step g (tile t0 + g / 32; within it i = g % 32 is
-  // half i / 16, bit i % 16: source columns bit * 128 + half * 64 + [0, 64))
-  auto load_window = [&](int g) {
-    const int i = g & 31;
-    const int64_t row0 = static_cast<int64_t>(src_start[t0 + (g >> 5)]) + (i & 15) * WORDS +
-                         (i >> 4) * kK;
-    __nv_bfloat16* dst = b_s + (g & 1) * kBSize;
-#pragma unroll
-    for (int k = 0; k < (kK * kCols / 8) / kThreads; ++k) {  // 4 16-byte chunks a thread
-      const int q = tid + k * kThreads;
-      const int r = q >> 4;         // 16 chunks a 128-column row
-      const int c = (q & 15) * 8;
-      cp_async16(dst + r * kBStride + c, h + (row0 + r) * f + f0 + c);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      barrier_init(&full[s], 1);
+      barrier_init(&empty[s], kConsumers);  // one thread a consumer warpgroup
     }
-  };
+    for (int s = 0; s < kMaskStages; ++s) {
+      barrier_init(&mfull[s], 1);
+      barrier_init(&mempty[s], kConsumers * 4);  // one lane a consumer warp
+    }
+    // the barriers' initialisation is seen by the TMA unit's arrivals
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
 
-  uint32_t words[16];  // this thread's 32 halfwords of the current half, in pairs
-  if (steps > 0) load_window(0);
-  cp_commit();
-  for (int g = 0; g < steps; ++g) {
-    const int i = g & 31;
-    if ((i & 15) == 0) {  // a new half of a tile: this row's 32 halfwords
-      const int64_t t = t0 + (g >> 5);
-      const uint4* src = reinterpret_cast<const uint4*>(
-          masks + (t * BD + row_half * kRows + er) * WORDS + (i >> 4) * kK + ep * 32);
+  if (wg == kConsumers) {
+    // ---- the producer: one thread keeps the rings full ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
+    if (threadIdx.x == kConsumers * 128) {
+      int s = 0;
+      uint32_t phase = 0;
+      int row_base = 0;
+      for (int g = 0; g < steps; ++g) {
+        const int i = g & (kTileSteps - 1);
+        const int tile = t0 + g / kTileSteps;
+        if (i == 0) row_base = src_start[tile];
+        const int half = i >> 4;
+        if ((i & 15) == 0) {  // a new half tile: its masks into mask stage hm % 2
+          const int hm = g >> 4;
+          const int ms = hm & 1;
+          wait<true>(&mempty[ms], ((hm >> 1) & 1) ^ 1);
+          expect_bytes(&mfull[ms], kHalfBytes);
+          tma_load(mring + ms * kHalfBytes, &mmap, half * (WORDS / 2), tile * BD, &mfull[ms]);
+        }
+        wait<true>(&empty[s], phase ^ 1);
+        expect_bytes(&full[s], kStageBytes);
+        // piece kk: the 16 rows of bit 4 * quad + kk, word group `group`
+        const int row0 = row_base + (4 * (i & 3)) * WORDS + half * (WORDS / 2) +
+                         ((i >> 2) & 3) * kGroup;
+        uint8_t* stage = ring + s * kStageBytes;
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const uint4 v = src[k];
-        words[4 * k] = v.x;
-        words[4 * k + 1] = v.y;
-        words[4 * k + 2] = v.z;
-        words[4 * k + 3] = v.w;
-      }
-    }
-    // the other buffer was last read by K-step g - 1, which ended in a barrier
-    if (g + 1 < steps) load_window(g + 1);
-    cp_commit();
-    // expand bit i % 16 of the 32 halfwords into A row er, columns ep * 32 ..
-    const int bit = i & 15;
-    uint4* arow = reinterpret_cast<uint4*>(a_s + er * kAStride + ep * 32);
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      uint32_t packed[4];
-#pragma unroll
-      for (int p = 0; p < 4; ++p) {
-        const uint32_t pair = words[4 * k + p];
-        const int lo = static_cast<int>(static_cast<int16_t>(pair & 0xFFFFu));
-        const int hi = static_cast<int>(static_cast<int16_t>(pair >> 16));
-        packed[p] = expand_one<V>(lo, bit) | (expand_one<V>(hi, bit) << 16);
-      }
-      arow[k] = make_uint4(packed[0], packed[1], packed[2], packed[3]);
-    }
-    cp_wait_one();  // this thread's copies of K-step g have landed
-    __syncthreads();
-    const __nv_bfloat16* b_cur = b_s + (g & 1) * kBSize;
-#pragma unroll
-    for (int kk = 0; kk < kK / 16; ++kk) {
-      uint32_t af[4][4];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-        ldmatrix_x4(af[mi], a_s + (wm * 64 + mi * 16 + (lane & 15)) * kAStride + kk * 16 +
-                                (lane >> 4) * 8);
-      }
-#pragma unroll
-      for (int np = 0; np < 2; ++np) {
-        uint32_t bf[4];
-        const int m = lane >> 3;
-        ldmatrix_x4_trans(bf, b_cur + (kk * 16 + (m & 1) * 8 + (lane & 7)) * kBStride +
-                                  wn * 32 + np * 16 + (m >> 1) * 8);
-#pragma unroll
-        for (int mi = 0; mi < 4; ++mi) {
-          mma_bf16(acc[mi][2 * np], af[mi], bf[0], bf[1]);
-          mma_bf16(acc[mi][2 * np + 1], af[mi], bf[2], bf[3]);
+        for (int kk = 0; kk < 4; ++kk) {
+          tma_load(stage + kk * kPieceBytes, &hmap, f0, row0 + kk * WORDS, &full[s]);
+          tma_load(stage + kStageBytes / 2 + kk * kPieceBytes, &hmap, f0 + kBoxCols,
+                   row0 + kk * WORDS, &full[s]);
+        }
+        if (++s == kStages) {
+          s = 0;
+          phase ^= 1;
         }
       }
     }
-    __syncthreads();  // A and this window buffer are free for the next K-step
-  }
+  } else {
+    // ---- the consumers: kMTiles m64 tiles of rows a warpgroup ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsumerRegs));
+    const int ct = threadIdx.x & 127;
+    const int warp = ct >> 5;
+    const int lane = ct & 31;
+    const int quad = lane & 3;
+    const int r8 = lane >> 2;
+    // this thread's first row of the block (+ m * 64 + rr * 8)
+    const int row_a = wg * kMTiles * 64 + warp * 16 + r8;
 
-  const int gid = lane >> 2;
-  const int tig = lane & 3;
-  const int64_t row_base = static_cast<int64_t>(blk) * BD + row_half * kRows + wm * 64;
+    float acc[kMTiles][64];
 #pragma unroll
-  for (int mi = 0; mi < 4; ++mi) {
+    for (int m = 0; m < kMTiles; ++m) {
 #pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const int col = f0 + wn * 32 + ni * 8 + tig * 2;
+      for (int i = 0; i < 64; ++i) acc[m][i] = 0.f;
+      fence_sums(acc[m]);
+    }
+    uint32_t words[kMTiles][2][2];  // [m][row + 8 rr][column + 8 j]
+    uint32_t a[2][kMTiles][4];      // two fragment sets: [set][m][register]
+    int s = 0, prev = 0;
+    uint32_t phase = 0;
+    for (int g = 0; g < steps; ++g) {
+      const int i = g & (kTileSteps - 1);
+      const int group = (i >> 2) & 3;  // the word group of this half
+      if ((i & 3) == 0) {  // a new word group: this thread's 8 mask words
+        const int hm = g >> 4;
+        const int ms = hm & 1;
+        if (group == 0) wait<false>(&mfull[ms], (hm >> 1) & 1);
+        const uint8_t* mb = mring + ms * kHalfBytes;
 #pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        const int64_t row = row_base + mi * 16 + gid + hf * 8;
-        const float x0 = acc[mi][ni][2 * hf], x1 = acc[mi][ni][2 * hf + 1];
-        reinterpret_cast<__nv_bfloat162*>(out + row * f + col)[0] =
-            __floats2bfloat162_rn(x0, x1);
+        for (int m = 0; m < kMTiles; ++m)
+#pragma unroll
+          for (int rr = 0; rr < 2; ++rr)
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              // 128-byte rows; the swizzle moves 16-byte chunk c to c ^ (row % 8)
+              const int r = row_a + m * 64 + rr * 8;
+              words[m][rr][j] = *reinterpret_cast<const uint32_t*>(
+                  mb + r * 128 + (((2 * group + j) ^ r8) << 4) + 4 * quad);
+            }
+        if (group == 3) {
+          // the half's last words are in registers: the stage may be
+          // refilled (by the async proxy, after these generic reads)
+          asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+          __syncwarp();
+          if (lane == 0) arrive(&mempty[ms]);
+        }
+      }
+      const uint32_t stage = smem_u32(ring + s * kStageBytes);
+      // v3's fragment does not depend on the bit: ptxas folds a K-step's four
+      // into one register set, which this step would rewrite while the last
+      // step's final wgmmas still read it, so v3 drains them first
+      if constexpr (V == 3) wgmma_wait<0>();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const int bit = 4 * (i & 3) + kk;
+        uint32_t(&frag)[kMTiles][4] = a[kk & 1];
+#pragma unroll
+        for (int m = 0; m < kMTiles; ++m) {
+          frag[m][0] = expand_pair<V>(words[m][0][0], bit);
+          frag[m][1] = expand_pair<V>(words[m][1][0], bit);
+          frag[m][2] = expand_pair<V>(words[m][0][1], bit);
+          frag[m][3] = expand_pair<V>(words[m][1][1], bit);
+        }
+        if (kk == 0) wait<false>(&full[s], phase);  // the first fragment is built meanwhile
+        wgmma_fence();
+        const uint64_t desc = b_desc(stage + kk * kPieceBytes);  // piece kk's 16 rows
+#pragma unroll
+        for (int m = 0; m < kMTiles; ++m) wgmma_n128(acc[m], frag[m], desc);
+        wgmma_commit();
+        wgmma_wait<1>();  // step kk - 1's group is done: its set may be rewritten
+#pragma unroll
+        for (int m = 0; m < kMTiles; ++m) fence_sums(acc[m]);
+        // after the first wait of a K-step no wgmma reads the last step's stage
+        if (kk == 0 && g > 0 && ct == 0) arrive(&empty[prev]);
+      }
+      prev = s;
+      if (++s == kStages) {
+        s = 0;
+        phase ^= 1;
+      }
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int m = 0; m < kMTiles; ++m) fence_sums(acc[m]);
+
+    const int64_t row0 = static_cast<int64_t>(blk) * BD + row_a;
+#pragma unroll
+    for (int m = 0; m < kMTiles; ++m) {
+#pragma unroll
+      for (int j = 0; j < kCols / 8; ++j) {
+        const int col = f0 + j * 8 + 2 * quad;
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const int64_t row = row0 + m * 64 + rr * 8;
+          reinterpret_cast<__nv_bfloat162*>(out + row * f + col)[0] =
+              __floats2bfloat162_rn(acc[m][4 * j + 2 * rr], acc[m][4 * j + 2 * rr + 1]);
+        }
       }
     }
   }
 }
 
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled of the CUDA library, looked up through the runtime
+// (no -lcuda at link time).
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &q);
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiled>(p);
+    }
+  }
+  return fn;
+}
+
+// A 2-D map of `rows` rows of `cols` 16-bit elements, boxes of box_cols x
+// box_rows, 128-byte swizzle.
+bool encode_2d(EncodeTiled encode, CUtensorMap* map, CUtensorMapDataType type, const void* base,
+               uint64_t cols, uint64_t rows, uint32_t box_cols, uint32_t box_rows) {
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {cols * 2};
+  const cuuint32_t box[2] = {box_cols, box_rows};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  return encode(map, type, 2, const_cast<void*>(base), dims, strides, box, elem_strides,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Each kernel's attributes set and its register count checked, once a
+// device (bit d of the mask: device d; a device past 31 checks every call).
 template <int V>
-cudaError_t launch(const int16_t* masks, const int32_t* src_start, const int32_t* blk_ptr,
-                   const __nv_bfloat16* h, __nv_bfloat16* out, int n_blocks, int f,
-                   cudaStream_t stream) {
-  auto kernel = expand_tile_kernel<V>;
+cudaError_t prepare(int device) {
+  static uint32_t ready = 0;
+  const uint32_t bit = device < 32 ? (1u << device) : 0u;
+  if (ready & bit) return cudaSuccess;
+  auto kernel = expand_kernel<V>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(kSmem));
+                                         static_cast<int>(kSmemBytes));
   if (err != cudaSuccess) return err;
-  const dim3 grid(f / kCols, BD / kRows, n_blocks);
-  kernel<<<grid, kThreads, kSmem, stream>>>(masks, src_start, blk_ptr, h, out, f);
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  // fewer registers at launch and setmaxnreg.inc would wait forever
+  if (attr.numRegs < kRegsAtLaunch) return cudaErrorInvalidConfiguration;
+  ready |= bit;
+  return cudaSuccess;
+}
+
+template <int V>
+cudaError_t launch(const CUtensorMap& hmap, const CUtensorMap& mmap, const int32_t* src_start,
+                   const int32_t* blk_ptr, int n_blocks, __nv_bfloat16* out, int f, int device,
+                   cudaStream_t stream) {
+  cudaError_t err = prepare<V>(device);
+  if (err != cudaSuccess) return err;
+  expand_kernel<V><<<dim3(n_blocks, f / kCols), kThreads, kSmemBytes, stream>>>(
+      hmap, mmap, src_start, blk_ptr, out, f);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// masks int16 [T, 256, 128]; src_start int32 [T]; blk_ptr int32
-// [n_blocks + 1] (tiles blk_ptr[b] .. blk_ptr[b + 1] belong to destination
-// block b); h bf16 [n_src_pad, f], f a positive multiple of 128, all
-// 16-byte aligned; out bf16 [n_blocks * 256, f].
-// variant 0..3 (v0..v3). Launches on `stream` of CUDA device `device` and
-// returns cudaGetLastError() (0 on success), or cudaErrorInvalidValue for
-// an f or variant it does not take; it does not synchronise.
-extern "C" int adaqp_expand_spmm(const void* masks, const void* src_start, const void* blk_ptr,
-                                 const void* h, void* out, int n_blocks, int f, int variant,
-                                 int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+// The two TMA maps a call reads, into maps[0..255] (two CUtensorMaps, any
+// alignment): h bf16 [n_src, f] (boxes of 64 columns x 16 rows) and masks
+// int16 [mask_rows, 128] (the tiles' rows; boxes of 64 halfwords x 256
+// rows). Both 16-byte aligned, f a multiple of 128. Returns a cudaError_t
+// code.
+extern "C" int adaqp_expand_maps(const void* h, long long n_src, int f, const void* masks,
+                                 long long mask_rows, void* maps) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
+  if (f <= 0 || f % kCols || n_src <= 0 || mask_rows <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  CUtensorMap m[2];
+  if (!encode_2d(encode, &m[0], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, h, f, n_src, kBoxCols,
+                 kGroup) ||
+      !encode_2d(encode, &m[1], CU_TENSOR_MAP_DATA_TYPE_UINT16, masks, WORDS, mask_rows,
+                 WORDS / 2, BD)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  memcpy(maps, m, sizeof(m));
+  return 0;
+}
+
+// out bf16 [n_blocks * 256, f] from the maps of adaqp_expand_maps, src_start
+// int32 [T] and blk_ptr int32 [n_blocks + 1] (tiles blk_ptr[b] ..
+// blk_ptr[b + 1] belong to destination block b; T >= 1, as the masks' map
+// needs); a CTA for each destination block and 128-column chunk of f.
+// variant 0..3 (v0..v3). Launches on `stream` of CUDA device `device` (made
+// current if it is not) and returns cudaGetLastError() (0 on success), or
+// cudaErrorInvalidValue for an f, block count or variant it does not take;
+// it does not synchronise.
+extern "C" int adaqp_expand_spmm(const void* maps, const void* src_start, const void* blk_ptr,
+                                 int n_blocks, void* out, int f, int variant, int device,
+                                 void* stream) {
+  int current = -1;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (f <= 0 || f % kCols || n_blocks < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (f <= 0 || f % kCols || f / kCols > 65535 || n_blocks < 0 || variant < 0 || variant > 3) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (n_blocks == 0) return 0;
-  const auto* m = static_cast<const int16_t*>(masks);
+  CUtensorMap m[2];
+  memcpy(m, maps, sizeof(m));
   const auto* ss = static_cast<const int32_t*>(src_start);
   const auto* bp = static_cast<const int32_t*>(blk_ptr);
-  const auto* hh = static_cast<const __nv_bfloat16*>(h);
-  const auto s = static_cast<cudaStream_t>(stream);
   auto* o = static_cast<__nv_bfloat16*>(out);
+  const auto s = static_cast<cudaStream_t>(stream);
   switch (variant) {
-    case 0: err = launch<0>(m, ss, bp, hh, o, n_blocks, f, s); break;
-    case 1: err = launch<1>(m, ss, bp, hh, o, n_blocks, f, s); break;
-    case 2: err = launch<2>(m, ss, bp, hh, o, n_blocks, f, s); break;
-    case 3: err = launch<3>(m, ss, bp, hh, o, n_blocks, f, s); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    case 0: return static_cast<int>(launch<0>(m[0], m[1], ss, bp, n_blocks, o, f, device, s));
+    case 1: return static_cast<int>(launch<1>(m[0], m[1], ss, bp, n_blocks, o, f, device, s));
+    case 2: return static_cast<int>(launch<2>(m[0], m[1], ss, bp, n_blocks, o, f, device, s));
+    default: return static_cast<int>(launch<3>(m[0], m[1], ss, bp, n_blocks, o, f, device, s));
   }
-  return static_cast<int>(err);
 }
 
 extern "C" const char* adaqp_expand_error_string(int code) {

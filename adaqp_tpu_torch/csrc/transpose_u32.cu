@@ -52,12 +52,15 @@ transpose_u32_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
 }  // namespace
 
 // x [rows, cols] and out [cols, rows] of 32-bit words, contiguous. Launches
-// on `stream` of CUDA device `device` and returns cudaGetLastError() (0 on
-// success), or cudaErrorInvalidValue for a shape past the grid's reach; it
-// does not synchronise. An empty matrix launches nothing.
+// on `stream` of CUDA device `device` (made current if it is not) and
+// returns cudaGetLastError() (0 on success), or cudaErrorInvalidValue for a
+// shape past the grid's reach; it does not synchronise. An empty matrix
+// launches nothing.
 extern "C" int adaqp_transpose_u32(const void* x, void* out, long long rows, int cols,
                                    int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  int current = -1;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (rows < 0 || cols < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (rows == 0 || cols == 0) return 0;

@@ -37,6 +37,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import functools
 import os
 import time
 
@@ -87,17 +88,32 @@ def term_magnitudes(layout: BlockDevice, h: torch.Tensor, variant: str) -> torch
                            h.float().abs(), expand)
 
 
-def _lib() -> ctypes.CDLL:
+@functools.lru_cache(maxsize=None)
+def _lib():
+    """The library's launcher, map encoder and error string, their
+    argument types bound once."""
     from ..utils.cuda_build import load_library
 
     lib = load_library("expand_tile")
-    if lib.adaqp_expand_spmm.argtypes is None:
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.adaqp_expand_spmm.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
-        lib.adaqp_expand_spmm.restype = ci
-        lib.adaqp_expand_error_string.argtypes = [ci]
-        lib.adaqp_expand_error_string.restype = ctypes.c_char_p
-    return lib
+    vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    launch, maps, err = lib.adaqp_expand_spmm, lib.adaqp_expand_maps, lib.adaqp_expand_error_string
+    launch.argtypes = [vp, vp, vp, ci, vp, ci, ci, ci, vp]
+    launch.restype = ci
+    maps.argtypes = [vp, cl, ci, vp, cl, vp]
+    maps.restype = ci
+    err.argtypes = [ci]
+    err.restype = ctypes.c_char_p
+    return launch, maps, err
+
+
+@functools.lru_cache(maxsize=256)
+def _maps(h_ptr: int, n_src: int, f: int, masks_ptr: int, mask_rows: int):
+    """The kernel's two TMA maps (256 bytes) of h and the masks, encoded
+    once a signature: a map names an address and a shape, nothing else."""
+    _, encode, err = _lib()
+    buf = ctypes.create_string_buffer(256)
+    raise_on(err, encode(h_ptr, n_src, f, masks_ptr, mask_rows, buf), "expand_spmm's tensor maps")
+    return buf
 
 
 def _expand_cuda(layout: BlockDevice, h: torch.Tensor, variant: str) -> torch.Tensor:
@@ -110,16 +126,18 @@ def _expand_cuda(layout: BlockDevice, h: torch.Tensor, variant: str) -> torch.Te
     if layout.blk_ptr.numel() != n_blocks + 1 or tuple(layout.masks.shape[1:]) != (BD, WORDS):
         raise ValueError("layout shapes do not match n_pad")
     if layout.masks.data_ptr() % 16:
-        raise ValueError("expand_spmm's 16-byte mask loads need 16-byte-aligned masks")
+        raise ValueError("expand_spmm's mask loads need 16-byte-aligned masks")
     out = torch.empty((layout.n_pad, h.shape[1]), dtype=torch.bfloat16, device=h.device)
-    lib = _lib()
-    rc = lib.adaqp_expand_spmm(
-        layout.masks.data_ptr(), layout.src_start.data_ptr(), layout.blk_ptr.data_ptr(),
-        h.data_ptr(), out.data_ptr(), n_blocks, h.shape[1], VARIANTS.index(variant),
-        h.device.index,
-        torch.cuda.current_stream(h.device).cuda_stream,
-    )
-    raise_on(lib.adaqp_expand_error_string, rc, "expand_spmm")
+    if layout.masks.shape[0] == 0:  # no tiles at all: no map to make
+        return out.zero_()
+    index = h.device.index
+    maps = _maps(h.data_ptr(), h.shape[0], h.shape[1], layout.masks.data_ptr(),
+                 layout.masks.shape[0] * BD)
+    launch, _, err = _lib()
+    rc = launch(maps, layout.src_start.data_ptr(), layout.blk_ptr.data_ptr(), n_blocks,
+                out.data_ptr(), h.shape[1], VARIANTS.index(variant), index,
+                torch._C._cuda_getCurrentRawStream(index))
+    raise_on(err, rc, "expand_spmm")
     expand_spmm.launches += 1
     return out
 
@@ -152,6 +170,14 @@ def expand_spmm(layout: BlockDevice, h: torch.Tensor, variant: str) -> torch.Ten
 
 
 expand_spmm.launches = 0
+
+
+def tile_spread(per_block: np.ndarray) -> str:
+    """The spread of tiles a destination block: least, median, most."""
+    if per_block.size == 0:
+        return "none"
+    return (f"{int(per_block.min())} / {float(np.median(per_block)):g} / "
+            f"{int(per_block.max())} (least / median / most)")
 
 
 def reddit_layout(n: int, e: int, seed: int, device: torch.device,
@@ -196,7 +222,9 @@ def main(argv=None) -> dict:
     rng = np.random.default_rng(args.seed)
     h = torch.from_numpy(rng.normal(size=(lay.n_pad, args.f)).astype(np.float32)).to(
         dev, torch.bfloat16)
-    print(f"tiles={t} n_pad={lay.n_pad} f={args.f}", flush=True)
+    per_block = torch.diff(d.blk_ptr).cpu().numpy()
+    print(f"tiles={t} n_pad={lay.n_pad} f={args.f} tiles a destination block "
+          f"{tile_spread(per_block)}", flush=True)
 
     outs = {}
 

@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import functools
 import time
 
 import numpy as np
@@ -55,28 +56,31 @@ def _transpose_torch(x: torch.Tensor) -> torch.Tensor:
     return x.t().contiguous()
 
 
-def _lib() -> ctypes.CDLL:
+@functools.lru_cache(maxsize=None)
+def _lib():
+    """The launcher and its error string, their argument types bound once."""
     from ..utils.cuda_build import load_library
 
     lib = load_library("transpose_u32")
-    if lib.adaqp_transpose_u32.argtypes is None:
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.adaqp_transpose_u32.argtypes = [vp, vp, ctypes.c_longlong, ci, ci, vp]
-        lib.adaqp_transpose_u32.restype = ci
-        lib.adaqp_transpose_error_string.argtypes = [ci]
-        lib.adaqp_transpose_error_string.restype = ctypes.c_char_p
-    return lib
+    fn, err = lib.adaqp_transpose_u32, lib.adaqp_transpose_error_string
+    vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn.argtypes = [vp, vp, cl, ci, ci, vp]
+    fn.restype = ci
+    err.argtypes = [ci]
+    err.restype = ctypes.c_char_p
+    return fn, err
 
 
 def _transpose_cuda(x: torch.Tensor) -> torch.Tensor:
     rows, cols = x.shape
-    out = torch.empty((cols, rows), dtype=x.dtype, device=x.device)
-    if x.numel() == 0:
+    out = x.new_empty((cols, rows))
+    if not rows or not cols:
         return out
-    lib = _lib()
-    rc = lib.adaqp_transpose_u32(x.data_ptr(), out.data_ptr(), rows, cols, x.device.index,
-                                 torch.cuda.current_stream(x.device).cuda_stream)
-    raise_on(lib.adaqp_transpose_error_string, rc, "transpose_u32")
+    index = x.get_device()
+    fn, err = _lib()
+    rc = fn(x.data_ptr(), out.data_ptr(), rows, cols, index,
+            torch._C._cuda_getCurrentRawStream(index))
+    raise_on(err, rc, "transpose_u32")
     transpose_u32.launches += 1
     return out
 
@@ -92,7 +96,7 @@ def transpose_u32(x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"x must be a contiguous 2-D tensor, got {tuple(x.shape)}")
     if x.element_size() != 4:
         raise TypeError(f"x must hold 32-bit words, got {x.dtype}")
-    if x.device.type == "cuda":
+    if x.is_cuda:
         return _transpose_cuda(x)
     if x.device.type == "cpu":
         return _transpose_torch(x)

@@ -27,11 +27,16 @@ form and over the lane tables of synthetic K=4 wires), gather (ring_gather,
 window_gather and compact_item against their plain versions, the two
 mains with their launches checked, then each kernel timed with its
 per-iteration slope, ring_gather also with L2 flushed, one block an SM,
-one over the stream and many), expand (expand_spmm's four variants against their plain
-versions, its main on a Reddit-degree layout of 32,768 nodes, 2,048 dense
+one over the stream and many), expand (the SASS of expand_spmm's kernels:
+wgmma, TMA, no mma.sync, no register cap; its four variants against
+their plain versions at F=128, 384 and 640, on a hub layout too; its
+main on a Reddit-degree layout of 32,768 nodes, 2,048 dense
 tiles (``--full``: Reddit's size), then each variant timed beside
 block_spmm, torch.sparse.mm and its bound), r5 (transpose_u32 bit for bit
-and timed, then the probe's main with its scatter and plane lines),
+and timed paced by the host, on the card's clock and as host time a call,
+then the probe's main with its scatter and plane lines; with
+``--parent_probes DIR`` the expand and r5 timing also time an older tree's
+expand_tile.cu and transpose_u32.cu on the same inputs),
 gpu_tests (``pytest -m gpu tests/test_torch_gpu.py`` in a subprocess,
 every case passed and none skipped), setup, kernel
 (strip SpMM), e2e (a small K=1 run on the card against the same run on
@@ -229,8 +234,12 @@ def phase_build():
     say(f"[build] nvcc sm_90a: {time.perf_counter() - t0:.1f} s")
     for name, log in logs.items():
         for line in log.splitlines():
-            if "ptxas info" in line or "spill" in line:
+            if "ptxas info" in line or "spill" in line or "warning" in line:
                 say(f"[build] {name}: {line.strip()}")
+    # ptxas serialises expand_tile's wgmmas (C7512) when it cannot give the
+    # consumers their setmaxnreg registers: the redesign's whole gain
+    check("C7512" not in logs["expand_tile"],
+          "ptxas serialised expand_tile's wgmma (C7512): the consumers lost their registers")
 
 
 def cuda_ms(torch, fn, reps, warmup=2, backlog=False, spin=20_000_000):
@@ -2607,20 +2616,64 @@ def _hold_expand(torch, me, lay, h, variant, tag):
     return float(err.max())
 
 
+def _expand_sass():
+    """Each expand kernel of ``build/kernels/libexpand_tile.so`` in
+    ``cuobjdump -sass``: fails unless every one multiplies with HGMMA
+    (wgmma), loads by UTMALDG (TMA), holds no HMMA (mma.sync) and uses a
+    register past the launch's 168 (R168 or above: ptxas gave the
+    consumers their setmaxnreg count, and did not hold the kernel to the
+    launch's, spilling). Returns {kernel: (HGMMA, UTMALDG, HMMA, highest
+    register)}."""
+    import re
+
+    from adaqp_tpu_torch.utils.cuda_build import nvcc_path
+
+    tool = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
+    so = os.path.join(HERE, "build", "kernels", "libexpand_tile.so")
+    out = subprocess.run([tool, "-sass", so], capture_output=True, text=True, timeout=120)
+    check(out.returncode == 0, f"cuobjdump failed: {out.stderr[-2000:]}")
+    found = {}
+    for chunk in out.stdout.split("Function : ")[1:]:
+        name = chunk.split()[0]
+        if "expand_kernel" not in name:
+            continue
+        ops = [t.split()[1 if t.startswith("@") else 0].split(".")[0]
+               for t in re.findall(r"/\*[0-9a-f]{4,}\*/\s+([^;]*);", chunk)]
+        regs = max(int(r) for r in re.findall(r"\bR(\d+)\b", chunk))
+        found[name] = (*(ops.count(op) for op in ("HGMMA", "UTMALDG", "HMMA")), regs)
+    check(len(found) == 4, f"{len(found)} expand kernels in libexpand_tile.so, expected 4")
+    for name, (hg, tma, hmma, regs) in found.items():
+        check(hg > 0 and tma > 0 and hmma == 0, f"{name}: {hg} HGMMA, {tma} UTMALDG, {hmma} HMMA")
+        check(regs >= 168, f"{name}: its highest register is R{regs}, within the launch's 168")
+    say("[expand] SASS of the 4 kernels (one a variant): HGMMA "
+        f"{sorted({v[0] for v in found.values()})}, UTMALDG {sorted({v[1] for v in found.values()})}"
+        f", HMMA 0 in every one; highest register R{min(v[3] for v in found.values())}-"
+        f"R{max(v[3] for v in found.values())}")
+    return found
+
+
 def phase_expand(torch, args):
     """expand_spmm's four variants against their plain versions, one pass
-    each: on a small layout (a random 5,000-node graph, F=128 and 640, with
-    and without the all-zero tiles that cover destination blocks with no
-    dense tile, so a block with no tiles must give zeros) and on the
-    Reddit-degree layout at F=640 (the main's shapes; built here and kept
-    for the timing); then the script's main at that size, with its
-    launches checked against the plan. Returns (max |kernel - plain|, the
-    main's launches, the device layout, host seconds of its build)."""
+    each: on a small layout (a random 5,000-node graph, F=128, 384 (an odd
+    count of 128-column chunks) and 640, with and without the all-zero
+    tiles that cover destination blocks with no dense tile, so a block with
+    no tiles must give zeros), on a hub layout (one destination block of 26
+    tiles, its 832 K-steps cycling the window ring, and empty blocks; F=384
+    and 640), and on the Reddit-degree layout at F=640 (the main's shapes;
+    built here and kept for the timing); then the script's main at that size, with its launches
+    checked against the plan. First the kernels' SASS (wgmma, TMA, no
+    mma.sync). Returns (max |kernel - plain|, the main's launches, the
+    device layout, host seconds of its build)."""
     import numpy as np
 
     from adaqp_tpu_torch.ops import spmm_block as sb
     from adaqp_tpu_torch.scripts import microbench_expand as me
 
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from torch_helpers import holed as without_empty_tiles
+    from torch_helpers import hub_layout
+
+    _expand_sass()
     rng = np.random.default_rng(SEED)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     worst = dict.fromkeys(me.VARIANTS, 0.0)  # max |kernel - plain| a variant
@@ -2629,28 +2682,33 @@ def phase_expand(torch, args):
     dst = np.where(rng.random(200_000) < 0.7, (src + rng.integers(-300, 300, 200_000)) % n,
                    rng.integers(0, n, 200_000)).astype(np.int32)
     lay = sb.block_layout(src, dst, n, min_edges=64).to_device("cuda")
-    keep = lay.masks.flatten(1).any(dim=1)
     t = int(lay.blk_ptr[-1])
-    keep[t:] = False
-    dst_blk = lay.dst_blk[keep]
-    holed = sb.BlockDevice(lay.n, lay.n_pad, lay.n_src_pad, lay.masks[keep].contiguous(),
-                           lay.src_start[keep].contiguous(), dst_blk.contiguous(),
-                           torch.as_tensor(sb.block_pointers(dst_blk.cpu().numpy(), lay.n_pad),
-                                           device="cuda"), None)
+    holed = without_empty_tiles(lay)
     empty = (holed.blk_ptr[1:] == holed.blk_ptr[:-1]).nonzero().flatten()
     check(empty.numel() > 0 and int(holed.blk_ptr[-1]) > lay.n_pad // sb.BD,
           "the holed layout has no empty destination block, or too few tiles")
-    for f in (128, 640):
-        h = torch.randn(lay.n_pad, f, generator=gen, device="cuda").to(torch.bfloat16)
-        for variant in me.VARIANTS:
-            worst[variant] = max(worst[variant], _hold_expand(
-                torch, me, lay, h, variant, f"{variant} {t} tiles F={f}"))
-            worst[variant] = max(worst[variant], _hold_expand(
-                torch, me, holed, h, variant, f"{variant} {int(holed.blk_ptr[-1])} tiles, "
-                f"{empty.numel()} empty blocks, F={f}"))
-        rows = (empty[:, None] * sb.BD + torch.arange(sb.BD, device="cuda")).flatten()
-        check(not me.expand_spmm(holed, h, "v0")[rows].any(),
-              "expand_spmm: a destination block without tiles is not zero")
+    hub = hub_layout(rng, "cuda")
+    hub_tiles = torch.diff(hub.blk_ptr)
+    hub_empty = (hub_tiles == 0).nonzero().flatten()
+    check(int(hub_tiles.max()) >= 24 and hub_empty.numel() > 0,
+          f"the hub layout's blocks hold {int(hub_tiles.max())} tiles at most and "
+          f"{hub_empty.numel()} none")
+    cases = [(lay, f"{t} tiles", (128, 384, 640), empty[:0]),
+             (holed, f"{int(holed.blk_ptr[-1])} tiles, {empty.numel()} empty blocks",
+              (128, 384, 640), empty),
+             (hub, f"hub: {int(hub.blk_ptr[-1])} tiles, {int(hub_tiles.max())} in block 0, "
+              f"{hub_empty.numel()} empty blocks", (384, 640), hub_empty)]
+    for d, tag, fs, none in cases:
+        for f in fs:
+            h = torch.randn(d.n_pad, f, generator=gen, device="cuda").to(torch.bfloat16)
+            for variant in me.VARIANTS:
+                worst[variant] = max(worst[variant], _hold_expand(
+                    torch, me, d, h, variant, f"{variant} {tag} F={f}"))
+            rows = (none[:, None] * sb.BD + torch.arange(sb.BD, device="cuda")).flatten()
+            for variant in me.VARIANTS if none.numel() else ():
+                check(not me.expand_spmm(d, h, variant)[rows].any(),
+                      f"expand_spmm {variant} ({tag}): a destination block without tiles is "
+                      "not zero")
 
     from adaqp_tpu_torch.helper.dataset import REDDIT_E, REDDIT_N
 
@@ -2684,7 +2742,69 @@ def phase_expand(torch, args):
     return worst, launches, dev, secs
 
 
-def phase_time_expand(torch, card, dev, host_s):
+def _parent_probes(torch, csrc):
+    """The ``expand_spmm`` and ``transpose_u32`` kernels of the ``csrc``
+    directory of an older tree (``mma.sync`` on tiles expanded in shared
+    memory; the 32 x 32 tile transpose), built with the port's ``nvcc``
+    flags and called through that tree's C signatures and wrappers, line
+    for line but for the launch counts (so that a call costs the host what
+    it cost there): ``expand(layout, h, variant)`` and ``transpose(x)``."""
+    import ctypes
+
+    from adaqp_tpu_torch.ops.spmm_walk import check_cuda_operands
+    from adaqp_tpu_torch.scripts import microbench_expand as me
+    from adaqp_tpu_torch.utils.cuda_build import raise_on
+
+    libs = _build_parent(csrc, ["expand_tile", "transpose_u32"])
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    ex, tr = libs["expand_tile"], libs["transpose_u32"]
+    ex.adaqp_expand_spmm.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
+    ex.adaqp_expand_spmm.restype = ci
+    ex.adaqp_expand_error_string.argtypes = [ci]
+    ex.adaqp_expand_error_string.restype = ctypes.c_char_p
+    tr.adaqp_transpose_u32.argtypes = [vp, vp, ctypes.c_longlong, ci, ci, vp]
+    tr.adaqp_transpose_u32.restype = ci
+    tr.adaqp_transpose_error_string.argtypes = [ci]
+    tr.adaqp_transpose_error_string.restype = ctypes.c_char_p
+
+    def expand(layout, h, variant):
+        check_cuda_operands(h, layout.n_src_pad, (
+            ("masks", layout.masks, torch.int16),
+            ("src_start", layout.src_start, torch.int32),
+            ("blk_ptr", layout.blk_ptr, torch.int32),
+        ))
+        n_blocks = layout.n_pad // me.BD
+        if layout.blk_ptr.numel() != n_blocks + 1 or tuple(layout.masks.shape[1:]) != (
+                me.BD, me.WORDS):
+            raise ValueError("layout shapes do not match n_pad")
+        if layout.masks.data_ptr() % 16:
+            raise ValueError("expand_spmm's 16-byte mask loads need 16-byte-aligned masks")
+        out = torch.empty((layout.n_pad, h.shape[1]), dtype=torch.bfloat16, device=h.device)
+        rc = ex.adaqp_expand_spmm(
+            layout.masks.data_ptr(), layout.src_start.data_ptr(), layout.blk_ptr.data_ptr(),
+            h.data_ptr(), out.data_ptr(), n_blocks, h.shape[1], me.VARIANTS.index(variant),
+            h.device.index, torch.cuda.current_stream(h.device).cuda_stream)
+        raise_on(ex.adaqp_expand_error_string, rc, "the older expand_spmm")
+        return out
+
+    def transpose(x):
+        if x.dim() != 2 or not x.is_contiguous():
+            raise ValueError(f"x must be a contiguous 2-D tensor, got {tuple(x.shape)}")
+        if x.element_size() != 4:
+            raise TypeError(f"x must hold 32-bit words, got {x.dtype}")
+        rows, cols = x.shape
+        out = torch.empty((cols, rows), dtype=x.dtype, device=x.device)
+        if x.numel() == 0:
+            return out
+        rc = tr.adaqp_transpose_u32(x.data_ptr(), out.data_ptr(), rows, cols, x.device.index,
+                                    torch.cuda.current_stream(x.device).cuda_stream)
+        raise_on(tr.adaqp_transpose_error_string, rc, "the older transpose_u32")
+        return out
+
+    return expand, transpose
+
+
+def phase_time_expand(torch, card, dev, host_s, parent=None):
     """Each variant at F=640 on the Reddit-degree layout: one pass (CUDA
     events) beside the bound of the function A^T h (the masks, index
     arrays, the h rows the edges read and out once at the memory rate, or
@@ -2693,7 +2813,10 @@ def phase_time_expand(torch, card, dev, host_s):
     bf16 rate: the floor of this design, not of the function), the plain
     version, block_spmm (the window-stationary walk) and torch.sparse.mm of the
     tiles' edges; and the per-pass slope of chains of I and 2I passes,
-    which must be nonzero."""
+    which must be nonzero. Then the wrapper's host time a call and the
+    part its map cache saves, and, with ``parent``
+    (:func:`_parent_probes`), the older kernel's variants in the same
+    call, v0 in turns with this one."""
     from adaqp_tpu_torch.ops import spmm_block as sb
     from adaqp_tpu_torch.scripts import microbench_expand as me
 
@@ -2713,7 +2836,8 @@ def phase_time_expand(torch, card, dev, host_s):
     lib = cuda_ms(torch, lambda: torch.sparse.mm(csr, h), reps=10)
     del csr
     say(f"[time] {card} | expand layout n_pad={dev.n_pad}: {t} tiles, {nnz} tile edges "
-        f"({nnz / (t * sb.BD * sb.BS):.4%} dense), {h_rows} source rows read, host build "
+        f"({nnz / (t * sb.BD * sb.BS):.4%} dense), {h_rows} source rows read, tiles a "
+        f"destination block {me.tile_spread(torch.diff(dev.blk_ptr).cpu().numpy())}, host build "
         f"{host_s:.1f} s; F={f}: bound of A^T h {bound_ms:.4f} ms by {bound_by} "
         f"({nbytes / 1e9:.3f} GB, {2.0 * nnz * f / 1e12:.4f} TFLOP); dense tiles on the tensor "
         f"cores {dense_ms:.4f} ms ({dense_flops / 1e12:.3f} TFLOP); block_spmm (window-stationary walk) "
@@ -2737,11 +2861,32 @@ def phase_time_expand(torch, card, dev, host_s):
         say(f"[time] {card} | expand_spmm {variant} F={f}: {ms:.4f} ms a pass "
             f"({ms / t * 1e3:.3f} us a tile; {bound_ms / ms:.2%} of the bound of A^T h, "
             f"{dense_ms / ms:.1%} of the dense tiles' tensor-core time, "
-            f"{walk / ms:.2f}x block_spmm's speed); chains of {EXPAND_ITERS} / "
-            f"{2 * EXPAND_ITERS} passes {ti:.3f} / {t2:.3f} ms, slope {slope:.4f} ms a pass; "
-            f"plain {plain:.2f} ms")
+            f"{walk / ms:.2f}x block_spmm's speed, {lib / ms:.2f}x torch.sparse.mm's); chains "
+            f"of {EXPAND_ITERS} / {2 * EXPAND_ITERS} passes {ti:.3f} / {t2:.3f} ms, slope "
+            f"{slope:.4f} ms a pass ({slope / ms:.3f} of one pass); plain {plain:.2f} ms")
         rows[variant] = dict(ms=ms, plain_ms=plain, bound_ms=bound_ms, bound_by=bound_by,
                              library_ms=lib)
+    # the wrapper's host time a call, and the part of it that its map cache
+    # saves: encoding the two TMA maps of this call's h and masks
+    key = (h.data_ptr(), h.shape[0], f, dev.masks.data_ptr(), dev.masks.shape[0] * sb.BD)
+    call_us = _host_ms(torch, lambda: me.expand_spmm(dev, h, "v0"), reps=20) * 1e3
+    encode_us = _host_ms(torch, lambda: me._maps.__wrapped__(*key), reps=200) * 1e3
+    say(f"[time] {card} | expand_spmm v0 F={f}: host {call_us:.1f} us a call with its maps "
+        f"cached; encoding the maps (what the cache saves a call) {encode_us:.1f} us")
+    if parent is not None:
+        expand = parent[0]
+        for variant in me.VARIANTS:
+            if variant == "v0":  # in turns: parent, this, this, parent
+                ms = [cuda_ms(torch, lambda: expand(dev, h, variant), reps=10),
+                      cuda_ms(torch, lambda: me.expand_spmm(dev, h, variant), reps=10),
+                      cuda_ms(torch, lambda: me.expand_spmm(dev, h, variant), reps=10),
+                      cuda_ms(torch, lambda: expand(dev, h, variant), reps=10)]
+                say(f"[time] {card} | expand_spmm v0 F={f} in turns, the older kernel / this "
+                    f"one: {ms[0]:.4f} / {ms[1]:.4f} / {ms[2]:.4f} / {ms[3]:.4f} ms a pass")
+            else:
+                ms = cuda_ms(torch, lambda: expand(dev, h, variant), reps=10)
+                say(f"[time] {card} | expand_spmm {variant} F={f}, the older kernel: {ms:.4f} "
+                    f"ms a pass (this one {rows[variant]['ms']:.4f})")
     me.expand_spmm.launches, sb.block_spmm.launches = saved
     return rows
 
@@ -2752,12 +2897,16 @@ TRANSPOSE_SHAPES = ((4096, 25), (1, 1), (33, 31), (1000, 7), (7, 1000), (4097, 6
                     (100_003, 25), (1_856_512, 25))
 
 
-def phase_r5(torch, card):
+def phase_r5(torch, card, parent=None):
     """transpose_u32 bit for bit with x.t().contiguous() at the probe's
     shape, odd shapes and the wire's; its time at the probe's and the
-    wire's shapes beside its byte bound and the plain (and library) call;
-    then the script's main at its own sizes (the scatter and plane lines),
-    with its launches checked."""
+    wire's shapes beside x.t().contiguous() (plain and library) and, with
+    ``parent`` (:func:`_parent_probes`), the older
+    kernel through its own wrapper: each read three ways (paced by the
+    host, 20 calls between two events; on the card's clock, the same calls
+    behind a spin; host time a call), in two rounds, the second in reverse
+    order; then the script's main at its own sizes (the scatter and plane
+    lines), with its launches checked."""
     from adaqp_tpu_torch.scripts import probe_r5 as pr
 
     saved = pr.transpose_u32.launches
@@ -2781,14 +2930,33 @@ def phase_r5(torch, card):
     rows = {}
     for shape in ((4096, 25), (1_856_512, 25)):
         x = xs[shape]
-        ms = cuda_ms(torch, lambda: pr.transpose_u32(x), reps=20)
-        plain = cuda_ms(torch, lambda: pr._transpose_torch(x), reps=20)
+        calls = {"transpose_u32": lambda: pr.transpose_u32(x),
+                 "x.t().contiguous()": lambda: pr._transpose_torch(x)}
+        if parent is not None:
+            calls["older kernel"] = lambda: parent[1](x)
+        reads = {name: [] for name in calls}
+        for names in (list(calls), list(calls)[::-1]):
+            for name in names:
+                fn = calls[name]
+                reads[name].append((cuda_ms(torch, fn, reps=20),
+                                    cuda_ms(torch, fn, reps=20, backlog=True),
+                                    _host_ms(torch, fn)))
         bound_ms, bound_by = _bound(2 * x.numel() * 4, 0, 1)
-        say(f"[time] {card} | transpose_u32 {list(shape)} u32: {ms:.5f} ms (bound {bound_ms:.5f} "
-            f"by {bound_by}, {bound_ms / ms:.1%} of it); x.t().contiguous() (plain and library) "
-            f"{plain:.5f} ms")
-        rows[shape] = dict(ms=ms, plain_ms=plain, bound_ms=bound_ms, bound_by=bound_by,
-                           library_ms=plain)
+
+        def spread(name, i):
+            a, b = sorted(r[i] for r in reads[name])
+            return f"{a:.5f}-{b:.5f}"
+
+        say(f"[time] {card} | transpose_u32 {list(shape)} u32, ms paced / on the card's clock / "
+            f"host a call (two rounds): " + "; ".join(
+                f"{name} {spread(name, 0)} / {spread(name, 1)} / {spread(name, 2)}"
+                for name in calls)
+            + f"; bound {bound_ms:.5f} by {bound_by} (transpose_u32 on the card's clock: "
+            f"{bound_ms / min(r[1] for r in reads['transpose_u32']):.1%} of it)")
+        first = reads["transpose_u32"][0]
+        rows[shape] = dict(ms=first[0], plain_ms=reads["x.t().contiguous()"][0][0],
+                           bound_ms=bound_ms, bound_by=bound_by,
+                           library_ms=reads["x.t().contiguous()"][0][0])
     pr.transpose_u32.launches = saved
     del xs
 
@@ -2858,6 +3026,10 @@ def main():
                    help="a csrc directory of an older tree: the gather timing also times its "
                         "ring_gather.cu and window_gather.cu (their older C interfaces) on the "
                         "same inputs")
+    p.add_argument("--parent_probes", type=str, default=None,
+                   help="a csrc directory of an older tree: the expand and r5 timing also time "
+                        "its expand_tile.cu and transpose_u32.cu (their older C interfaces) on "
+                        "the same inputs")
     p.add_argument("--profile", action="store_true",
                    help="also trace a few K=1 training steps with torch.profiler (the "
                         "Reddit run and each train_agg run)")
@@ -2866,6 +3038,8 @@ def main():
         args.parent_rows = os.path.abspath(args.parent_rows)
     if args.parent_gather:
         args.parent_gather = os.path.abspath(args.parent_gather)
+    if args.parent_probes:
+        args.parent_probes = os.path.abspath(args.parent_probes)
     only = None if args.only is None else set(args.only.split(","))
     try:
         import torch
@@ -2896,13 +3070,17 @@ def main():
     if want("gather"):
         gather_errs, gather_l = run("gather", phase_gather, torch, SEED)
         gtimes = run("time", phase_time_gather, torch, card, SEED, args.parent_gather)
+    parent_probes = None
+    if args.parent_probes and (want("expand") or want("r5")):
+        parent_probes = _parent_probes(torch, args.parent_probes)
     if want("expand"):
         expand_err, expand_l, expand_lay, expand_host = run("expand", phase_expand, torch, args)
-        etimes = run("time", phase_time_expand, torch, card, expand_lay, expand_host)
+        etimes = run("time", phase_time_expand, torch, card, expand_lay, expand_host,
+                     parent_probes)
         del expand_lay
         torch.cuda.empty_cache()
     if want("r5"):
-        r5_l, r5_err, r5_time = run("r5", phase_r5, torch, card)
+        r5_l, r5_err, r5_time = run("r5", phase_r5, torch, card, parent_probes)
         torch.cuda.empty_cache()
     if want("gpu_tests"):
         run("gpu_tests", phase_gpu_tests)

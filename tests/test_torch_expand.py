@@ -175,3 +175,40 @@ def test_main_needs_a_card_unless_cpu_is_asked(tmp_path):
         pytest.skip("a CUDA card is present: the no-card behaviour cannot show")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         me.main(["--n", "2048", "--e", "65536", "--cache_dir", str(tmp_path)])
+
+
+
+@pytest.mark.parametrize("shape", [(2048, 128), (2048, 384), (1024, 128)])
+def test_map_cache_is_keyed_by_address_and_shape(monkeypatch, shape):
+    encoded = []
+
+    def encode(h, rows, f, masks, mask_rows, buf):
+        encoded.append((h, rows, f, masks, mask_rows))
+        return 0
+
+    monkeypatch.setattr(me, "_lib", lambda: (None, encode, None))
+    me._maps.cache_clear()
+    h = torch.zeros(2048 * 384, dtype=torch.bfloat16)[:shape[0] * shape[1]].view(shape)
+    masks = torch.zeros(3, 256, 128, dtype=torch.int16)
+
+    def maps(h, masks):
+        return me._maps(h.data_ptr(), h.shape[0], h.shape[1], masks.data_ptr(),
+                        masks.shape[0] * me.BD)
+
+    first = maps(h, masks)
+    assert maps(h, masks) is first and len(encoded) == 1  # one encoding a signature
+    assert encoded[0] == (h.data_ptr(), shape[0], shape[1], masks.data_ptr(), 3 * 256)
+    wide = h.view(shape[0] // 2, shape[1] * 2)  # the same address, another shape
+    assert maps(wide, masks) is not first and len(encoded) == 2
+    assert maps(h, masks[:2]) is not first and len(encoded) == 3
+    assert maps(h, masks[1:]) is not first and len(encoded) == 4  # another address
+    me._maps.cache_clear()
+
+
+@pytest.mark.parametrize("tiles,want", [
+    ([16] * 8, "16 / 16 / 16 (least / median / most)"),
+    ([1, 35, 39, 0], "0 / 18 / 39 (least / median / most)"),
+    ([], "none"),
+])
+def test_tile_spread_reads_least_median_most(tiles, want):
+    assert me.tile_spread(np.array(tiles, dtype=np.int64)) == want

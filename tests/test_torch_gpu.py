@@ -26,8 +26,8 @@ from adaqp_tpu_torch.scripts import microbench_dma_gather as dg
 from adaqp_tpu_torch.scripts import microbench_expand as me
 from adaqp_tpu_torch.scripts import microbench_gather as gb
 from adaqp_tpu_torch.scripts import probe_r5 as pr
-from torch_helpers import (abs_sums, merged_targets, random_edges, random_plan, random_wire,
-                           rank_buckets, received, received_frames, strip_cases)
+from torch_helpers import (abs_sums, hub_layout, merged_targets, random_edges, random_plan,
+                           random_wire, rank_buckets, received, received_frames, strip_cases)
 
 
 @pytest.fixture
@@ -413,12 +413,22 @@ def test_cuda_compact_item_matches_plain(cuda_device, kind, fc):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("f", [128, 640])
+@pytest.mark.parametrize("layout,f", [("random", 128), ("random", 384), ("random", 640),
+                                      ("hub", 384)])
 @pytest.mark.parametrize("variant", me.VARIANTS)
-def test_cuda_expand_spmm_matches_plain(rng, cuda_device, variant, f):
-    src, dst = random_edges(rng, 5000, 200_000)
-    lay = tblock.block_layout(src, dst, 5000, min_edges=64).to_device(cuda_device)
-    assert int(lay.blk_ptr[-1]) > lay.n_pad // BD  # more tiles than destination blocks
+def test_cuda_expand_spmm_matches_plain(rng, cuda_device, variant, layout, f):
+    """A random layout with more tiles than destination blocks, and a hub
+    (``tests/torch_helpers.py::hub_layout``): one block of 26 tiles, whose
+    832 K-steps cycle the window ring many times, and blocks with no tile,
+    which must come out zero."""
+    if layout == "hub":
+        lay = hub_layout(rng, cuda_device)
+        tiles = torch.diff(lay.blk_ptr)
+        assert int(tiles[0]) == 26 and int((tiles == 0).sum()) > 100
+    else:
+        src, dst = random_edges(rng, 5000, 200_000)
+        lay = tblock.block_layout(src, dst, 5000, min_edges=64).to_device(cuda_device)
+        assert int(lay.blk_ptr[-1]) > lay.n_pad // BD  # more tiles than destination blocks
     h = torch.from_numpy(rng.normal(size=(lay.n_pad, f)).astype(np.float32)).to(
         cuda_device, torch.bfloat16)
     before = me.expand_spmm.launches
@@ -433,6 +443,10 @@ def test_cuda_expand_spmm_matches_plain(rng, cuda_device, variant, f):
     # far exceed the result by; each rounding adds 2^-8 of the result
     tol = 1e-4 + 2.0 ** -7 * want.abs() + 1e-5 * me.term_magnitudes(lay, h, variant)
     assert ((got.float() - want).abs() <= tol).all()
+    if layout == "hub":
+        none = ((tiles == 0).nonzero().flatten()[:, None] * BD
+                + torch.arange(BD, device=cuda_device)).flatten()
+        assert not got[none].any()
 
 
 @pytest.mark.gpu

@@ -423,3 +423,39 @@ def abs_sums(buf, fr, n_out, f):
     keep = fr.dst < n_out
     return torch.zeros(n_out, f, device=buf.device).index_add_(0, fr.dst[keep],
                                                                terms[keep].abs())
+
+
+def holed(layout):
+    """A block ``BlockDevice`` without its all-zero tiles (those
+    ``block_layout`` gives the destination blocks with no dense tile), so
+    those blocks have no tile."""
+    import torch
+
+    from adaqp_tpu_torch.ops import spmm_block as sb
+
+    keep = layout.masks.flatten(1).any(dim=1)
+    keep[int(layout.blk_ptr[-1]):] = False
+    dst_blk = layout.dst_blk[keep]
+    return sb.BlockDevice(layout.n, layout.n_pad, layout.n_src_pad,
+                          layout.masks[keep].contiguous(), layout.src_start[keep].contiguous(),
+                          dst_blk.contiguous(),
+                          torch.as_tensor(sb.block_pointers(dst_blk.cpu().numpy(), layout.n_pad),
+                                          device=layout.masks.device), None)
+
+
+def hub_layout(rng, device):
+    """A holed block layout on ``device`` in which destination block 0
+    gathers from every one of 26 source windows (26 tiles, 832 K-steps
+    through expand_spmm's ring of window stages), blocks 1-31 from a band
+    of neighbours, and blocks 32-207 from nothing (no tile: zeros)."""
+    from adaqp_tpu_torch.ops import spmm_block as sb
+
+    n = 26 * 2048 - 300
+    win = np.repeat(np.arange(26), 400)
+    hub_src = np.minimum(win * 2048 + rng.integers(0, 2048, win.size), n - 1)
+    hub_dst = rng.integers(0, 256, win.size)
+    band_src = rng.integers(0, 8192, 60_000)
+    band_dst = (band_src + rng.integers(-200, 200, band_src.size)) % 8192
+    src = np.concatenate([hub_src, band_src]).astype(np.int32)
+    dst = np.concatenate([hub_dst, band_dst]).astype(np.int32)
+    return holed(sb.block_layout(src, dst, n, min_edges=64).to_device(device))
