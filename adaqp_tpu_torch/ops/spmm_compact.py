@@ -44,7 +44,7 @@ import ctypes
 import functools
 import os
 from dataclasses import dataclass
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -403,17 +403,20 @@ def _run_compact_torch(layout: CompactDevice, h: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _lib() -> ctypes.CDLL:
+@functools.lru_cache(maxsize=None)
+def _lib():
+    """The row gather's launcher and error string, their argument types
+    bound once."""
     from ..utils.cuda_build import load_library
 
     lib = load_library("spmm_compact")
-    if lib.adaqp_gather_rows.argtypes is None:
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.adaqp_gather_rows.argtypes = [vp, vp, vp, ci, ci, ci, vp]
-        lib.adaqp_gather_rows.restype = ci
-        lib.adaqp_compact_error_string.argtypes = [ci]
-        lib.adaqp_compact_error_string.restype = ctypes.c_char_p
-    return lib
+    fn, err = lib.adaqp_gather_rows, lib.adaqp_compact_error_string
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [vp, vp, vp] + [ci] * 8 + [vp]
+    fn.restype = ci
+    err.argtypes = [ci]
+    err.restype = ctypes.c_char_p
+    return fn, err
 
 
 def _run_compact_cuda(layout: CompactDevice, h: torch.Tensor) -> torch.Tensor:
@@ -443,8 +446,10 @@ def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``out[r, c] = x[idx[r, c], c]`` (``take_along_axis`` along rows) for
     f32 ``x`` and int32 ``idx`` of one shape [R, C].
 
-    CUDA tensors: the hand-written kernel (each launch adds one to
-    ``gather_rows.launches``). CPU tensors: ``torch.take_along_dim``."""
+    CUDA tensors: the hand-written kernel on the plan of
+    :func:`gather_plan` (each launch adds one to ``gather_rows.launches``),
+    after a check of idx's range that reads its least and greatest values
+    back to the host. CPU tensors: ``torch.take_along_dim``."""
     if x.dim() != 2 or idx.shape != x.shape:
         raise ValueError(f"x and idx must share one [R, C] shape, got {tuple(x.shape)}, "
                          f"{tuple(idx.shape)}")
@@ -460,15 +465,59 @@ def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return _launch_gather_rows(x, idx)
 
 
+class GatherPlan(NamedTuple):
+    """One launch of ``gather_rows``: thread (x, y) of block (i, j) owns
+    columns ``[width * (bx i + x), width * (bx i + x) + width)`` of rows
+    ``r0 + k by`` for ``k < unroll``, from ``r0 = by unroll j + y`` in
+    steps of ``gy by unroll``."""
+    width: int   # columns a thread: 4 (16-byte idx loads and out stores) or 1
+    unroll: int  # rows a thread a pass: 4 gathers in flight
+    block: tuple  # (bx: column groups, by: rows), 128 threads
+    grid: tuple   # (gx: column groups, gy: rows), gy at most one wave
+
+
+GATHER_THREADS = 128  # threads a block
+GATHER_LOADS = 4      # gathers a thread has in flight (csrc/spmm_compact.cu's kLoads)
+
+
+@functools.lru_cache(maxsize=256)
+def gather_plan(rows: int, cols: int, aligned: bool, sms: int = 132) -> GatherPlan:
+    """The launch plan of ``gather_rows`` for ``[rows, cols]`` operands,
+    ``aligned`` when idx and out start on 16 bytes: 4 columns a thread where
+    cols allows it, else 1; a block 32 column groups wide (fewer, a power of
+    two, for narrow rows); as many row blocks as cover the rows, at most
+    one wave of 16 blocks an SM in all."""
+    width = 4 if aligned and cols % 4 == 0 else 1
+    groups = cols // width
+    bx = min(32, 1 << max(groups - 1, 0).bit_length())
+    by = GATHER_THREADS // bx
+    unroll = GATHER_LOADS // width
+    gx = -(-groups // bx)
+    wave = sms * (2048 // GATHER_THREADS)
+    gy = max(1, min(-(-rows // (by * unroll)), wave // gx, 65535))
+    return GatherPlan(width, unroll, (bx, by), (gx, gy))
+
+
+@functools.lru_cache(maxsize=256)
+def _gather_args(rows: int, cols: int, aligned: bool, index: int) -> tuple:
+    plan = gather_plan(rows, cols, aligned,
+                       torch.cuda.get_device_properties(index).multi_processor_count)
+    return (plan.width, *plan.block, *plan.grid)
+
+
 def _launch_gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Launch the gather kernel on operands :func:`gather_rows` checked."""
+    """Launch the gather kernel on operands :func:`gather_rows` checked, on
+    the plan of :func:`gather_plan`."""
     out = torch.empty_like(x)
-    lib = _lib()
-    rc = lib.adaqp_gather_rows(
-        x.data_ptr(), idx.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1],
-        x.device.index, torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    raise_on(lib.adaqp_compact_error_string, rc, "gather_rows")
+    if not x.numel():
+        return out
+    rows, cols = x.shape
+    ip, op, index = idx.data_ptr(), out.data_ptr(), x.device.index
+    fn, err = _lib()
+    aligned = (ip | op) % 16 == 0
+    rc = fn(x.data_ptr(), ip, op, rows, cols, *_gather_args(rows, cols, aligned, index), index,
+            torch._C._cuda_getCurrentRawStream(index))
+    raise_on(err, rc, "gather_rows")
     gather_rows.launches += 1
     return out
 

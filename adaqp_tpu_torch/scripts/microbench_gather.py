@@ -52,6 +52,7 @@ SBK = 8            # destination blocks of an item's accumulator
 # another order
 ITEM_RTOL, ITEM_ATOL = 2.0 ** -7, 1e-6
 MAX_SMEM = 227 * 1024  # shared memory a block can use on Hopper
+ITEM_ROWS, ITEM_COLS = 64, 128  # compact_item: A's rows and win's columns a CTA
 SMS = 132              # an H100's SMs, the plan's default
 
 
@@ -275,32 +276,90 @@ def _compact_item_torch(mask: torch.Tensor, col: torch.Tensor, win: torch.Tensor
     return acc.to(torch.bfloat16)
 
 
-def _item_lib() -> ctypes.CDLL:
+class ItemPlan(NamedTuple):
+    """One launch of ``compact_item``: a CTA a (slice, chunk, share) of
+    ``grid``, each multiplying rows ``[64 share, 64 share + 64)`` of A's
+    columns ``[256 slice, 256 slice + 256)`` by the matching 256 rows of win
+    (kind 1: of ``win[col]``) at columns ``[128 chunk, 128 chunk + 128)``
+    below fc."""
+    ld: int       # win's row stride in the kernel: fc rounded up to 8 (16 bytes)
+    grid: tuple   # (slices, chunks, shares); kind 0's 8 slices are a cluster that adds up
+
+
+@functools.lru_cache(maxsize=64)
+def item_plan(fc: int) -> ItemPlan:
+    """The launch plan of ``compact_item`` for win ``[2048, fc]``, the same
+    units for both kinds: kind 0 spreads its depth over as many CTAs as
+    kind 1 (96 at fc 384, 64 at fc 256)."""
+    if fc < 1:
+        raise ValueError(f"fc must be at least 1, got {fc}")
+    return ItemPlan(-(-fc // 8) * 8, (GROUP, -(-fc // ITEM_COLS), BD // ITEM_ROWS))
+
+
+@functools.lru_cache(maxsize=None)
+def _item_lib():
+    """The launcher, kind 0's map encoder and the error string, their
+    argument types bound once."""
     from ..utils.cuda_build import load_library
 
     lib = load_library("compact_item")
-    if lib.adaqp_compact_item.argtypes is None:
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.adaqp_compact_item.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, vp]
-        lib.adaqp_compact_item.restype = ci
-        lib.adaqp_compact_item_error_string.argtypes = [ci]
-        lib.adaqp_compact_item_error_string.restype = ctypes.c_char_p
-    return lib
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    launch, encode, err = (lib.adaqp_compact_item, lib.adaqp_compact_item_map,
+                           lib.adaqp_compact_item_error_string)
+    launch.argtypes = [vp] * 5 + [ci] * 6 + [vp]
+    launch.restype = ci
+    encode.argtypes = [vp, ci, vp]
+    encode.restype = ci
+    err.argtypes = [ci]
+    err.restype = ctypes.c_char_p
+    return launch, encode, err
+
+
+@functools.lru_cache(maxsize=256)
+def _item_map(win_ptr: int, ld: int):
+    """Kind 0's TMA map of win (128 bytes), encoded once a signature: a map
+    names an address and a shape, nothing else."""
+    _, encode, err = _item_lib()
+    buf = ctypes.create_string_buffer(128)
+    raise_on(err, encode(win_ptr, ld, buf), "compact_item's tensor map")
+    return buf
 
 
 def _compact_item_cuda(mask, col, win, kind, iters):
     fc = win.shape[1]
+    plan = item_plan(fc)
+    if plan.ld != fc:  # TMA and the 16-byte pieces need rows of a multiple of 16 bytes
+        win = torch.nn.functional.pad(win, (0, plan.ld - fc))
+    elif win.data_ptr() % 16:
+        win = win.clone()
+    if mask.data_ptr() % 4:
+        raise ValueError("compact_item reads the mask a 32-bit word at a time: align it to 4 "
+                         "bytes")
     out = torch.empty((SBK * BD, fc), dtype=torch.bfloat16, device=win.device)
-    if mask.data_ptr() % 16:
-        raise ValueError("compact_item reads the mask 16 bytes at a time: align it to 16 bytes")
-    lib = _item_lib()
-    rc = lib.adaqp_compact_item(
-        mask.data_ptr(), col.data_ptr(), win.data_ptr(), out.data_ptr(), fc, kind, iters,
-        win.device.index, torch.cuda.current_stream(win.device).cuda_stream,
-    )
-    raise_on(lib.adaqp_compact_item_error_string, rc, "compact_item")
+    index = win.device.index
+    launch, _, err = _item_lib()
+    rc = launch(_item_map(win.data_ptr(), plan.ld) if kind == 0 else None, mask.data_ptr(),
+                col.data_ptr(), win.data_ptr(), out.data_ptr(), fc, plan.ld, plan.grid[1], kind,
+                iters, index, torch._C._cuda_getCurrentRawStream(index))
+    raise_on(err, rc, "compact_item")
     compact_item.launches += 1
     return out
+
+
+def _item_args(mask: torch.Tensor, col: torch.Tensor, win: torch.Tensor, kind: int,
+               iters: int) -> None:
+    """Raises on arguments :func:`compact_item` does not take."""
+    if mask.shape != (BD, WORDS) or mask.dtype != torch.int16:
+        raise ValueError(f"mask must be int16 [{BD}, {WORDS}], got {mask.dtype} "
+                         f"{tuple(mask.shape)}")
+    if col.numel() != BS or col.dtype != torch.int32:
+        raise ValueError(f"col must be int32 with {BS} entries, got {col.dtype} {col.numel()}")
+    if win.dim() != 2 or win.shape[0] != BS or win.dtype != torch.bfloat16 or win.shape[1] < 1:
+        raise ValueError(f"win must be bf16 [{BS}, fc], got {win.dtype} {tuple(win.shape)}")
+    if kind not in (0, 1) or iters < 1:
+        raise ValueError(f"kind must be 0 or 1 and iters at least 1, got {kind}, {iters}")
+    if not (mask.device == col.device == win.device):
+        raise ValueError("mask, col and win must lie on one device")
 
 
 def compact_item(mask: torch.Tensor, col: torch.Tensor, win: torch.Tensor, kind: int,
@@ -313,20 +372,12 @@ def compact_item(mask: torch.Tensor, col: torch.Tensor, win: torch.Tensor, kind:
     256s..256s+255 are ``iters`` times A[:, 256s:256s+256] @
     win[col[256s:256s+256]]. Sums in f32, rounded once to bf16.
 
-    CUDA ``win``: the kernel (one more ``compact_item.launches`` per
-    launch); ``col`` is trusted. CPU ``win``: the plain version. Any other
-    device raises."""
-    if mask.shape != (BD, WORDS) or mask.dtype != torch.int16:
-        raise ValueError(f"mask must be int16 [{BD}, {WORDS}], got {mask.dtype} "
-                         f"{tuple(mask.shape)}")
-    if col.numel() != BS or col.dtype != torch.int32:
-        raise ValueError(f"col must be int32 with {BS} entries, got {col.dtype} {col.numel()}")
-    if win.dim() != 2 or win.shape[0] != BS or win.dtype != torch.bfloat16 or win.shape[1] < 1:
-        raise ValueError(f"win must be bf16 [{BS}, fc], got {win.dtype} {tuple(win.shape)}")
-    if kind not in (0, 1) or iters < 1:
-        raise ValueError(f"kind must be 0 or 1 and iters at least 1, got {kind}, {iters}")
-    if not (mask.device == col.device == win.device):
-        raise ValueError("mask, col and win must lie on one device")
+    CUDA ``win``: the kernel on the grid of :func:`item_plan` (one more
+    ``compact_item.launches`` per launch; where fc is not a multiple of 8,
+    or win not 16-byte aligned, it reads a padded copy of win made first);
+    ``col`` is trusted. CPU ``win``: the plain version. Any other device
+    raises."""
+    _item_args(mask, col, win, kind, iters)
     if win.device.type == "cuda":
         return _compact_item_cuda(mask.contiguous(), col.contiguous().reshape(-1),
                                   win.contiguous(), kind, iters)

@@ -64,6 +64,7 @@ power limit. Everything it writes goes under ``build/`` in this checkout.
 """
 import argparse
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -236,10 +237,12 @@ def phase_build():
         for line in log.splitlines():
             if "ptxas info" in line or "spill" in line or "warning" in line:
                 say(f"[build] {name}: {line.strip()}")
-    # ptxas serialises expand_tile's wgmmas (C7512) when it cannot give the
-    # consumers their setmaxnreg registers: the redesign's whole gain
-    check("C7512" not in logs["expand_tile"],
-          "ptxas serialised expand_tile's wgmma (C7512): the consumers lost their registers")
+    # ptxas serialises a kernel's wgmmas (C7512) when it cannot keep their
+    # sums in registers (expand_tile's consumers lost their setmaxnreg
+    # registers to a trap once): the redesigns' whole gain
+    for name in ("expand_tile", "compact_item"):
+        check("C7512" not in logs[name],
+              f"ptxas serialised {name}'s wgmma (C7512): its sums left the registers")
 
 
 def cuda_ms(torch, fn, reps, warmup=2, backlog=False, spin=20_000_000):
@@ -1854,10 +1857,12 @@ def phase_agg(torch, seed):
     _hold_backward(torch, gen, "spmm_compact", sc.spmm_compact, sc._run_compact_torch, fwd, rev,
                    256, "agg")
 
-    # the row gather, bit for bit, at the probe's shape and a ragged one
-    for r, c in ((2048, 128), (1000, 37)):
+    # the row gather, bit for bit, at the probe's shape, ragged ones and an
+    # idx that starts 4 bytes past 16 (the scalar path)
+    for r, c, skew in ((2048, 128, 0), (1000, 37, 0), (2048, 1, 0), (1000, 128, 1)):
         x = torch.randn(r, c, generator=gen, device="cuda")
-        idx = torch.randint(0, r, (r, c), generator=gen, device="cuda", dtype=torch.int32)
+        idx = torch.empty(r * c + skew, device="cuda", dtype=torch.int32)[skew:].view(r, c)
+        idx.copy_(torch.randint(0, r, (r, c), generator=gen, device="cuda", dtype=torch.int32))
         saved = sc.gather_rows.launches
         got = sc.gather_rows(x, idx)
         torch.cuda.synchronize()
@@ -1865,8 +1870,8 @@ def phase_agg(torch, seed):
         sc.gather_rows.launches = saved
         want = torch.take_along_dim(x, idx.long(), dim=0)
         errs["gather_rows"] = max(errs["gather_rows"], float((got - want).abs().max()))
-        say(f"[agg] gather_rows [{r}, {c}]: max |kernel - take_along_dim| "
-            f"{float((got - want).abs().max()):g}")
+        say(f"[agg] gather_rows [{r}, {c}] idx at +{4 * skew} bytes: max |kernel - "
+            f"take_along_dim| {float((got - want).abs().max()):g}")
         check(torch.equal(got, want), "gather_rows differs from torch.take_along_dim")
     return errs
 
@@ -2071,12 +2076,12 @@ def _layout_coo(torch, lay):
     return torch.cat(rows), torch.cat(cols)
 
 
-def phase_time_agg(torch, card, runs):
+def phase_time_agg(torch, card, runs, parent=None):
     """The three tile kernels on the products forward local layout at F=256
-    and at each one's layer-0 width, and gather_rows at the probe's shape,
-    each beside its bound, its plain version and a library call."""
-    from adaqp_tpu_torch.ops import spmm_compact as sc
-
+    and at each one's layer-0 width, and gather_rows at the probe's shape
+    (:func:`_time_gather_rows`; ``parent``: an older tree's kernels,
+    :func:`_parent_gather`), each beside its bound, its plain version and a
+    library call."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     rows = {}
     clock = sm_clock_mhz()
@@ -2118,21 +2123,52 @@ def phase_time_agg(torch, card, runs):
             rows[(name, f)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                                    bound_by=bound_by, library_ms=lib_ms)
         del csr
+    rows[("gather_rows", 128)] = _time_gather_rows(torch, card, gen, parent)
+    return rows
+
+
+def _time_gather_rows(torch, card, gen, parent=None):
+    """gather_rows at the probe's [2048, 128] f32 (random idx), through its
+    launch (the wrapper's range check reads idx back), beside
+    torch.take_along_dim on an int64 index made beforehand (the plain
+    version and the library call) and, with ``parent``
+    (:func:`_parent_gather`), the older kernel's launch: each read three
+    ways (:func:`_three_ways`) in two rounds, the second in reverse order.
+    Returns the kernels line's row: the first round, paced."""
+    from adaqp_tpu_torch.ops import spmm_compact as sc
+
     x = torch.randn(2048, 128, generator=gen, device="cuda")
     i = torch.randint(0, 2048, (2048, 128), generator=gen, device="cuda", dtype=torch.int32)
     il = i.long()
     saved = sc.gather_rows.launches
-    # the launch alone: the wrapper's index range check reads idx back
-    ms = cuda_ms(torch, lambda: sc._launch_gather_rows(x, i), reps=20)
+    calls = {"gather_rows": lambda: sc._launch_gather_rows(x, i),
+             "torch.take_along_dim": lambda: torch.take_along_dim(x, il, dim=0)}
+    if parent is not None:
+        check(torch.equal(parent[1](x, i), torch.take_along_dim(x, il, dim=0)),
+              "the older gather_rows differs from torch.take_along_dim")
+        calls["older kernel"] = lambda: parent[1](x, i)
+    reads = {name: [] for name in calls}
+    for names in (list(calls), list(calls)[::-1]):
+        for name in names:
+            reads[name].append(_three_ways(torch, calls[name]))
     sc.gather_rows.launches = saved
-    plain_ms = cuda_ms(torch, lambda: torch.take_along_dim(x, il, dim=0), reps=20)
     nbytes = 3 * x.numel() * 4
     bound_ms = nbytes / PEAK_BYTES_S * 1e3
-    say(f"[time] {card} | gather_rows [2048, 128] f32: kernel {ms:.4f} ms; bound {bound_ms:.5f} ms by bytes ({nbytes / 1e6:.2f} MB); "
-        f"torch.take_along_dim {plain_ms:.4f} ms (the plain version and the library call)")
-    rows[("gather_rows", 128)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                                      bound_by="bytes", library_ms=plain_ms)
-    return rows
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = sc.gather_plan(2048, 128, True, sms)
+
+    def spread(name, k):
+        lo, hi = sorted(r[k] for r in reads[name])
+        return f"{lo:.5f}-{hi:.5f}"
+
+    say(f"[time] {card} | gather_rows [2048, 128] f32 ({plan.width} columns a thread, blocks "
+        f"{plan.block}, grid {plan.grid}), ms paced / on the card's clock / host a call (two "
+        "rounds): " + "; ".join(f"{name} {spread(name, 0)} / {spread(name, 1)} / {spread(name, 2)}"
+                                 for name in calls)
+        + f"; bound {bound_ms:.5f} ms by bytes ({nbytes / 1e6:.2f} MB)")
+    ms, plain_ms = reads["gather_rows"][0][0], reads["torch.take_along_dim"][0][0]
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
+                library_ms=plain_ms)
 
 
 # ---------------------------------------------------------------------------
@@ -2191,6 +2227,7 @@ def phase_gather(torch, seed):
 
     check(not torch.backends.cuda.matmul.allow_tf32,
           "TF32 matmuls are on: compact_item's plain version needs full f32 products")
+    _item_sass()
     wrappers = _gather_wrappers()
     saved = {k: w.launches for k, w in wrappers.items()}
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -2326,56 +2363,66 @@ def _bound(nbytes, ops, rate):
     return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
 
 
+def _three_ways(torch, fn):
+    """(paced by the host: 20 calls between two events; on the card's clock:
+    the same calls queued behind a spin; host time a call), in ms."""
+    return (cuda_ms(torch, fn, reps=20), cuda_ms(torch, fn, reps=20, backlog=True),
+            _host_ms(torch, fn))
+
+
 def _parent_gather(torch, csrc):
-    """The ``ring_gather`` and ``window_gather`` kernels of the ``csrc``
-    directory of an older tree (one warp a block copying each row through
-    registers, its grid given; a block a slab of lines and a range of
-    positions), built with the port's ``nvcc`` flags and wrapped with that
-    tree's C signatures: ``ring(h, idx, iters, depth, blocks, rows)`` and
-    ``window(x, idx, iters, axis)``, the latter through the same argument
-    checks as ``window_gather`` (so that a call costs the host what that
-    tree's wrapper cost it)."""
+    """The ``compact_item`` and ``gather_rows`` kernels of the ``csrc``
+    directory of an older tree (compact_item: mma.sync on A and B staged in
+    shared memory, a block 64 rows x 64 columns, kind 0 on the first 256
+    rows' blocks only; gather_rows: a thread an element), built with the
+    port's ``nvcc`` flags and called through that tree's C signatures and
+    wrappers, line for line but for the launch counts (so that a call costs
+    the host what it cost there): ``item(mask, col, win, kind, iters)`` and
+    ``rows(x, idx)`` (the launch alone, as its time was always read)."""
     import ctypes
 
     from adaqp_tpu_torch.scripts import microbench_gather as gb
     from adaqp_tpu_torch.utils.cuda_build import raise_on
 
-    libs = _build_parent(csrc, ["ring_gather", "window_gather"])
+    libs = _build_parent(csrc, ["compact_item", "spmm_compact"])
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    libs["ring_gather"].adaqp_ring_gather.argtypes = [vp, vp, vp] + [ci] * 7 + [vp]
-    libs["window_gather"].adaqp_window_gather.argtypes = [vp, vp, vp] + [ci] * 7 + [vp]
-    libs["window_gather"].adaqp_window_gather_error_string.argtypes = [ci]
-    libs["window_gather"].adaqp_window_gather_error_string.restype = ctypes.c_char_p
+    item_lib, rows_lib = libs["compact_item"], libs["spmm_compact"]
+    item_lib.adaqp_compact_item.argtypes = [vp] * 4 + [ci] * 4 + [vp]
+    item_lib.adaqp_compact_item.restype = ci
+    item_lib.adaqp_compact_item_error_string.argtypes = [ci]
+    item_lib.adaqp_compact_item_error_string.restype = ctypes.c_char_p
+    rows_lib.adaqp_gather_rows.argtypes = [vp, vp, vp, ci, ci, ci, vp]
+    rows_lib.adaqp_gather_rows.restype = ci
+    rows_lib.adaqp_compact_error_string.argtypes = [ci]
+    rows_lib.adaqp_compact_error_string.restype = ctypes.c_char_p
 
-    def ring(h, idx, iters, depth, blocks, rows):
-        out = torch.empty((idx.numel(), h.shape[1]), dtype=h.dtype, device=h.device)
-        rc = libs["ring_gather"].adaqp_ring_gather(
-            h.data_ptr(), idx.data_ptr(), out.data_ptr(), idx.numel(), iters, depth,
-            h.shape[1] * h.element_size(), blocks, rows, h.device.index,
-            torch.cuda.current_stream(h.device).cuda_stream)
-        check(rc == 0, f"the older ring_gather failed to launch ({rc})")
-        return out
-
-    def window(x, idx, iters, axis):
-        # that tree's wrapper, line for line, but for its launch count
-        full = gb._window_args(x, idx, iters, axis)
-        idx = idx.contiguous()
-        out = torch.empty_like(x)
-        if x.numel() == 0:
-            return out
-        lib = libs["window_gather"]
-        rc = lib.adaqp_window_gather(
-            x.data_ptr(), idx.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1], axis,
-            int(full), int(x.dtype == torch.bfloat16), iters, x.device.index,
-            torch.cuda.current_stream(x.device).cuda_stream,
+    def item(mask, col, win, kind, iters):
+        gb._item_args(mask, col, win, kind, iters)
+        mask, col, win = mask.contiguous(), col.contiguous().reshape(-1), win.contiguous()
+        fc = win.shape[1]
+        out = torch.empty((gb.SBK * gb.BD, fc), dtype=torch.bfloat16, device=win.device)
+        if mask.data_ptr() % 16:
+            raise ValueError("the older compact_item reads the mask 16 bytes at a time")
+        rc = item_lib.adaqp_compact_item(
+            mask.data_ptr(), col.data_ptr(), win.data_ptr(), out.data_ptr(), fc, kind, iters,
+            win.device.index, torch.cuda.current_stream(win.device).cuda_stream,
         )
-        raise_on(lib.adaqp_window_gather_error_string, rc, "the older window_gather")
+        raise_on(item_lib.adaqp_compact_item_error_string, rc, "the older compact_item")
         return out
 
-    return ring, window
+    def rows(x, idx):
+        out = torch.empty_like(x)
+        rc = rows_lib.adaqp_gather_rows(
+            x.data_ptr(), idx.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1],
+            x.device.index, torch.cuda.current_stream(x.device).cuda_stream,
+        )
+        raise_on(rows_lib.adaqp_compact_error_string, rc, "the older gather_rows")
+        return out
+
+    return item, rows
 
 
-def phase_time_gather(torch, card, seed, parent_csrc=None):
+def phase_time_gather(torch, card, seed, parent=None):
     """Each gather kernel at its script's shapes with CUDA events: its time
     at one iteration (one pass) beside its bound, its plain version and the
     library call; its time at the script's I iterations and at 2I, and the
@@ -2388,9 +2435,12 @@ def phase_time_gather(torch, card, seed, parent_csrc=None):
     one block over the stream at depth 64 (the grid before). A cold pass
     reads the median of 50, with the fastest and the slowest.
     window_gather at the script's windows, one iteration paced by the host
-    (the kernels line) and on the card's clock. ``parent_csrc``: an older
-    tree's ``csrc`` directory, whose kernels (:func:`_parent_gather`) are
-    timed beside these on the same inputs."""
+    (the kernels line) and on the card's clock. compact_item at fc 256 and
+    384, both kinds: one iteration paced by the host (the kernels line), on
+    the card's clock and as host time a call, and the slope beside the
+    bound an iteration by operations. ``parent``: an older tree's
+    compact_item (:func:`_parent_gather`), timed beside it on the same
+    inputs."""
     import numpy as np
 
     from adaqp_tpu_torch.ops.spmm_block import expand_masks
@@ -2403,7 +2453,6 @@ def phase_time_gather(torch, card, seed, parent_csrc=None):
     gen = torch.Generator(device="cuda").manual_seed(seed)
     rng = np.random.default_rng(seed)
     rows = {}
-    parent = _parent_gather(torch, parent_csrc) if parent_csrc else None
 
     # ring_gather: bf16 h [233,472, 256], 4,096 rows a pass
     f, chunk = 256, dg.CHUNK
@@ -2458,21 +2507,6 @@ def phase_time_gather(torch, card, seed, parent_csrc=None):
         if vname == "uniform":
             # the grid before (the ring on one SM) beside the new
             ring_case(vname, i, "one block", 64)
-        if parent and vname == "uniform":
-            # the older tree's kernel: one warp a block copies each row
-            # through registers; its reference form one block, its many-block
-            # form 4 rows a block
-            check(torch.equal(parent[0](h, i, 3, 64, 1, chunk), dg._ring_gather_torch(h, i)),
-                  "the older ring_gather differs from h[idx]")
-            for depth in (4, 16, 64):
-                for blocks, rows_b in ((1, chunk), (chunk // 4, 4)):
-                    c, lo, hi = _cold_ms(torch, lambda: parent[0](h, i, 1, depth, blocks, rows_b),
-                                         reps=20 if blocks == 1 else 50, spread=True)
-                    t1 = cuda_ms(torch, lambda: parent[0](h, i, 50, depth, blocks, rows_b),
-                                 reps=3 if blocks == 1 else 20, backlog=True)
-                    say(f"[time] {card} | parent ring_gather {vname:8s} blocks={blocks:4d} "
-                        f"depth={depth:2d}: cold {c:.5f} ms a pass ({lo:.5f}-{hi:.5f}); warm "
-                        f"{t1 / (50 * chunk) * 1e6:.3f} ns/row at 50 passes ({t1:.4f} ms)")
     # the kernels line: uniform idx in the main's form, one block an SM, at
     # its deepest ring
     lib = cold[("uniform", "index_select")]
@@ -2480,8 +2514,7 @@ def phase_time_gather(torch, card, seed, parent_csrc=None):
                                bound_ms=bound_ms, bound_by=bound_by, library_ms=lib)
 
     def window_case(tag, x, ii, axis, iters_i=200):
-        """Times one window_gather case (and, with ``parent``, the older
-        tree's kernel on it); returns its row at one iteration. One
+        """Times one window_gather case; returns its row at one iteration. One
         iteration is timed paced by the host (20 calls between two events,
         as the probe was first timed: the kernels line's timer), and on the
         card's clock, the calls queued behind a spin (a call is shorter than
@@ -2517,21 +2550,6 @@ def phase_time_gather(torch, card, seed, parent_csrc=None):
             f"{lib_card:.5f}, host {lib_host:.5f}); {iters_i} "
             f"iterations {ti:.4f} ms (bound {bi:.5f} by {byi}; plain {plain_i:.3f}), "
             f"{2 * iters_i} {t2:.4f} ms, slope {slope * 1e3:.4f} us an iteration")
-        if parent:
-            want = gb._window_gather_torch(x, ii, 3, axis)
-            check(torch.equal(parent[1](x, ii, 3, axis), want),
-                  f"the older window_gather {tag} differs from its plain version")
-            pp = cuda_ms(torch, lambda: parent[1](x, ii, 1, axis), reps=20)
-            p1 = cuda_ms(torch, lambda: parent[1](x, ii, 1, axis), reps=20, backlog=True)
-            ph = _host_ms(torch, lambda: parent[1](x, ii, 1, axis))
-            pi = cuda_ms(torch, lambda: parent[1](x, ii, iters_i, axis), reps=5, backlog=True)
-            p2 = cuda_ms(torch, lambda: parent[1](x, ii, 2 * iters_i, axis), reps=5,
-                         backlog=True)
-            say(f"[time] {card} | parent window_gather {tag.split(' (')[0]}: 1 iteration paced "
-                f"{pp:.5f} ms, on the card's clock {p1:.5f}, host {ph:.5f} a call; {iters_i} "
-                f"iterations {pi:.4f} ms, "
-                f"{2 * iters_i} {p2:.4f} ms, slope {(p2 - pi) / iters_i * 1e3:.4f} us an "
-                "iteration")
         return dict(ms=paced, plain_ms=plain, bound_ms=b1, bound_by=by1, library_ms=lib)
 
     # the element gather (:72) at [4096, 256], full index (rows broadcast),
@@ -2561,7 +2579,7 @@ def phase_time_gather(torch, card, seed, parent_csrc=None):
         a_sub = a.reshape(BD, GROUP, CSUB).transpose(0, 1).contiguous()
         g_sub = g.reshape(GROUP, CSUB, fc)
         for kind, name in ((0, "full"), (1, "group")):
-            t1 = cuda_ms(torch, lambda: gb.compact_item(mask, col, win, kind, 1), reps=20)
+            t1, c1, h1 = _three_ways(torch, lambda: gb.compact_item(mask, col, win, kind, 1))
             ti = cuda_ms(torch, lambda: gb.compact_item(mask, col, win, kind, 200), reps=3)
             t2 = cuda_ms(torch, lambda: gb.compact_item(mask, col, win, kind, 400), reps=3)
             slope = (t2 - ti) / 200
@@ -2575,11 +2593,25 @@ def phase_time_gather(torch, card, seed, parent_csrc=None):
             flops = 2.0 * BD * BS * fc
             b1, by1 = _bound(nbytes, flops, PEAK_BF16_FLOP_S)
             bi, byi = _bound(nbytes, flops * 200, PEAK_BF16_FLOP_S)
-            say(f"[time] {card} | compact_item {name} fc={fc}: 1 iteration {t1:.5f} ms (bound "
+            ctas = math.prod(gb.item_plan(fc).grid)
+            say(f"[time] {card} | compact_item {name} fc={fc} ({ctas} CTAs): 1 iteration paced "
+                f"{t1:.5f} ms, on the card's clock {c1:.5f}, host {h1:.5f} a call (bound "
                 f"{b1:.5f} by {by1}; plain {plain:.4f}; library none); 200 iterations "
                 f"{ti:.4f} ms (bound {bi:.4f} by {byi}), 400 {t2:.4f} ms, slope "
-                f"{slope * 1e3:.3f} us an iteration; torch.matmul on the pre-expanded bf16 A "
-                f"(the products alone) {yard:.5f} ms")
+                f"{slope * 1e3:.3f} us an iteration (bound {flops / PEAK_BF16_FLOP_S * 1e6:.3f} "
+                "us by operations); torch.matmul on the pre-expanded bf16 A (the products "
+                f"alone) {yard:.5f} ms")
+            if parent:
+                check(gb.item_within(parent[0](mask, col, win, kind, 3),
+                                     gb._compact_item_torch(mask, col, win, kind, 3)),
+                      f"the older compact_item {name} fc={fc} differs from its plain version")
+                p1, pc, ph = _three_ways(torch, lambda: parent[0](mask, col, win, kind, 1))
+                pi = cuda_ms(torch, lambda: parent[0](mask, col, win, kind, 200), reps=3)
+                p2 = cuda_ms(torch, lambda: parent[0](mask, col, win, kind, 400), reps=3)
+                say(f"[time] {card} | parent compact_item {name} fc={fc}: 1 iteration paced "
+                    f"{p1:.5f} ms, on the card's clock {pc:.5f}, host {ph:.5f} a call; 200 "
+                    f"iterations {pi:.4f} ms, 400 {p2:.4f} ms, slope {(p2 - pi) / 200 * 1e3:.3f} "
+                    "us an iteration")
             if (fc, kind) == (384, 1):
                 rows["compact_item"] = dict(ms=t1, plain_ms=plain, bound_ms=b1, bound_by=by1,
                                             library_ms=None)
@@ -2616,6 +2648,31 @@ def _hold_expand(torch, me, lay, h, variant, tag):
     return float(err.max())
 
 
+def _sass_ops(lib, marker):
+    """Each kernel whose name holds ``marker`` in ``build/kernels/lib<lib>.so``
+    (``cuobjdump -sass``): {kernel: (HGMMA, UTMALDG, HMMA, highest
+    register, local loads and stores (spills))}."""
+    import re
+
+    from adaqp_tpu_torch.utils.cuda_build import nvcc_path
+
+    tool = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
+    so = os.path.join(HERE, "build", "kernels", f"lib{lib}.so")
+    out = subprocess.run([tool, "-sass", so], capture_output=True, text=True, timeout=120)
+    check(out.returncode == 0, f"cuobjdump failed: {out.stderr[-2000:]}")
+    found = {}
+    for chunk in out.stdout.split("Function : ")[1:]:
+        name = chunk.split()[0]
+        if marker not in name:
+            continue
+        ops = [t.split()[1 if t.startswith("@") else 0].split(".")[0]
+               for t in re.findall(r"/\*[0-9a-f]{4,}\*/\s+([^;]*);", chunk)]
+        regs = max(int(r) for r in re.findall(r"\bR(\d+)\b", chunk))
+        found[name] = (*(ops.count(op) for op in ("HGMMA", "UTMALDG", "HMMA")), regs,
+                       ops.count("LDL") + ops.count("STL"))
+    return found
+
+
 def _expand_sass():
     """Each expand kernel of ``build/kernels/libexpand_tile.so`` in
     ``cuobjdump -sass``: fails unless every one multiplies with HGMMA
@@ -2624,31 +2681,30 @@ def _expand_sass():
     consumers their setmaxnreg count, and did not hold the kernel to the
     launch's, spilling). Returns {kernel: (HGMMA, UTMALDG, HMMA, highest
     register)}."""
-    import re
-
-    from adaqp_tpu_torch.utils.cuda_build import nvcc_path
-
-    tool = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
-    so = os.path.join(HERE, "build", "kernels", "libexpand_tile.so")
-    out = subprocess.run([tool, "-sass", so], capture_output=True, text=True, timeout=120)
-    check(out.returncode == 0, f"cuobjdump failed: {out.stderr[-2000:]}")
-    found = {}
-    for chunk in out.stdout.split("Function : ")[1:]:
-        name = chunk.split()[0]
-        if "expand_kernel" not in name:
-            continue
-        ops = [t.split()[1 if t.startswith("@") else 0].split(".")[0]
-               for t in re.findall(r"/\*[0-9a-f]{4,}\*/\s+([^;]*);", chunk)]
-        regs = max(int(r) for r in re.findall(r"\bR(\d+)\b", chunk))
-        found[name] = (*(ops.count(op) for op in ("HGMMA", "UTMALDG", "HMMA")), regs)
+    found = _sass_ops("expand_tile", "expand_kernel")
     check(len(found) == 4, f"{len(found)} expand kernels in libexpand_tile.so, expected 4")
-    for name, (hg, tma, hmma, regs) in found.items():
+    for name, (hg, tma, hmma, regs, _) in found.items():
         check(hg > 0 and tma > 0 and hmma == 0, f"{name}: {hg} HGMMA, {tma} UTMALDG, {hmma} HMMA")
         check(regs >= 168, f"{name}: its highest register is R{regs}, within the launch's 168")
     say("[expand] SASS of the 4 kernels (one a variant): HGMMA "
         f"{sorted({v[0] for v in found.values()})}, UTMALDG {sorted({v[1] for v in found.values()})}"
         f", HMMA 0 in every one; highest register R{min(v[3] for v in found.values())}-"
         f"R{max(v[3] for v in found.values())}")
+    return found
+
+
+def _item_sass():
+    """compact_item's two kernels (a kind each) in ``cuobjdump -sass`` of
+    ``build/kernels/libcompact_item.so``: fails unless each multiplies with
+    HGMMA (wgmma) and holds no HMMA (mma.sync), and kind 0's loads by
+    UTMALDG (TMA)."""
+    found = _sass_ops("compact_item", "compact_item_kernel")
+    check(len(found) == 2, f"{len(found)} compact_item kernels in libcompact_item.so, expected 2")
+    for name, (hg, tma, hmma, regs, local) in found.items():
+        check(hg > 0 and hmma == 0, f"{name}: {hg} HGMMA, {hmma} HMMA")
+        say(f"[gather] SASS of {name}: {hg} HGMMA, {tma} UTMALDG, {hmma} HMMA, highest "
+            f"register R{regs}, {local} local loads and stores")
+    check(any(v[1] > 0 for v in found.values()), "compact_item: no UTMALDG in either kernel")
     return found
 
 
@@ -2744,28 +2800,41 @@ def phase_expand(torch, args):
 
 def _parent_probes(torch, csrc):
     """The ``expand_spmm`` and ``transpose_u32`` kernels of the ``csrc``
-    directory of an older tree (``mma.sync`` on tiles expanded in shared
-    memory; the 32 x 32 tile transpose), built with the port's ``nvcc``
-    flags and called through that tree's C signatures and wrappers, line
-    for line but for the launch counts (so that a call costs the host what
-    it cost there): ``expand(layout, h, variant)`` and ``transpose(x)``."""
+    directory of an older tree whose expand_tile.cu takes TMA maps
+    (``adaqp_expand_maps``: ``wgmma`` on fragments expanded in registers; the
+    32 x 32 tile transpose), built with the port's ``nvcc`` flags and called
+    through that tree's C signatures and wrappers, line for line but for the
+    launch counts (so that a call costs the host what it cost there):
+    ``expand(layout, h, variant)`` and ``transpose(x)``."""
     import ctypes
+    import functools
 
     from adaqp_tpu_torch.ops.spmm_walk import check_cuda_operands
     from adaqp_tpu_torch.scripts import microbench_expand as me
     from adaqp_tpu_torch.utils.cuda_build import raise_on
 
     libs = _build_parent(csrc, ["expand_tile", "transpose_u32"])
-    vp, ci = ctypes.c_void_p, ctypes.c_int
+    vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     ex, tr = libs["expand_tile"], libs["transpose_u32"]
-    ex.adaqp_expand_spmm.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
-    ex.adaqp_expand_spmm.restype = ci
-    ex.adaqp_expand_error_string.argtypes = [ci]
-    ex.adaqp_expand_error_string.restype = ctypes.c_char_p
-    tr.adaqp_transpose_u32.argtypes = [vp, vp, ctypes.c_longlong, ci, ci, vp]
-    tr.adaqp_transpose_u32.restype = ci
-    tr.adaqp_transpose_error_string.argtypes = [ci]
-    tr.adaqp_transpose_error_string.restype = ctypes.c_char_p
+    launch, encode, ex_err = ex.adaqp_expand_spmm, ex.adaqp_expand_maps, ex.adaqp_expand_error_string
+    launch.argtypes = [vp, vp, vp, ci, vp, ci, ci, ci, vp]
+    launch.restype = ci
+    encode.argtypes = [vp, cl, ci, vp, cl, vp]
+    encode.restype = ci
+    ex_err.argtypes = [ci]
+    ex_err.restype = ctypes.c_char_p
+    fn, tr_err = tr.adaqp_transpose_u32, tr.adaqp_transpose_error_string
+    fn.argtypes = [vp, vp, cl, ci, ci, vp]
+    fn.restype = ci
+    tr_err.argtypes = [ci]
+    tr_err.restype = ctypes.c_char_p
+
+    @functools.lru_cache(maxsize=256)
+    def maps(h_ptr, n_src, f, masks_ptr, mask_rows):
+        buf = ctypes.create_string_buffer(256)
+        raise_on(ex_err, encode(h_ptr, n_src, f, masks_ptr, mask_rows, buf),
+                 "the older expand_spmm's tensor maps")
+        return buf
 
     def expand(layout, h, variant):
         check_cuda_operands(h, layout.n_src_pad, (
@@ -2778,13 +2847,17 @@ def _parent_probes(torch, csrc):
                 me.BD, me.WORDS):
             raise ValueError("layout shapes do not match n_pad")
         if layout.masks.data_ptr() % 16:
-            raise ValueError("expand_spmm's 16-byte mask loads need 16-byte-aligned masks")
+            raise ValueError("expand_spmm's mask loads need 16-byte-aligned masks")
         out = torch.empty((layout.n_pad, h.shape[1]), dtype=torch.bfloat16, device=h.device)
-        rc = ex.adaqp_expand_spmm(
-            layout.masks.data_ptr(), layout.src_start.data_ptr(), layout.blk_ptr.data_ptr(),
-            h.data_ptr(), out.data_ptr(), n_blocks, h.shape[1], me.VARIANTS.index(variant),
-            h.device.index, torch.cuda.current_stream(h.device).cuda_stream)
-        raise_on(ex.adaqp_expand_error_string, rc, "the older expand_spmm")
+        if layout.masks.shape[0] == 0:
+            return out.zero_()
+        index = h.device.index
+        m = maps(h.data_ptr(), h.shape[0], h.shape[1], layout.masks.data_ptr(),
+                 layout.masks.shape[0] * me.BD)
+        rc = launch(m, layout.src_start.data_ptr(), layout.blk_ptr.data_ptr(), n_blocks,
+                    out.data_ptr(), h.shape[1], me.VARIANTS.index(variant), index,
+                    torch._C._cuda_getCurrentRawStream(index))
+        raise_on(ex_err, rc, "the older expand_spmm")
         return out
 
     def transpose(x):
@@ -2793,12 +2866,13 @@ def _parent_probes(torch, csrc):
         if x.element_size() != 4:
             raise TypeError(f"x must hold 32-bit words, got {x.dtype}")
         rows, cols = x.shape
-        out = torch.empty((cols, rows), dtype=x.dtype, device=x.device)
-        if x.numel() == 0:
+        out = x.new_empty((cols, rows))
+        if not rows or not cols:
             return out
-        rc = tr.adaqp_transpose_u32(x.data_ptr(), out.data_ptr(), rows, cols, x.device.index,
-                                    torch.cuda.current_stream(x.device).cuda_stream)
-        raise_on(tr.adaqp_transpose_error_string, rc, "the older transpose_u32")
+        index = x.get_device()
+        rc = fn(x.data_ptr(), out.data_ptr(), rows, cols, index,
+                torch._C._cuda_getCurrentRawStream(index))
+        raise_on(tr_err, rc, "the older transpose_u32")
         return out
 
     return expand, transpose
@@ -2937,10 +3011,7 @@ def phase_r5(torch, card, parent=None):
         reads = {name: [] for name in calls}
         for names in (list(calls), list(calls)[::-1]):
             for name in names:
-                fn = calls[name]
-                reads[name].append((cuda_ms(torch, fn, reps=20),
-                                    cuda_ms(torch, fn, reps=20, backlog=True),
-                                    _host_ms(torch, fn)))
+                reads[name].append(_three_ways(torch, calls[name]))
         bound_ms, bound_by = _bound(2 * x.numel() * 4, 0, 1)
 
         def spread(name, i):
@@ -3024,12 +3095,12 @@ def main():
                         "exchange around its kernels")
     p.add_argument("--parent_gather", type=str, default=None,
                    help="a csrc directory of an older tree: the gather timing also times its "
-                        "ring_gather.cu and window_gather.cu (their older C interfaces) on the "
-                        "same inputs")
+                        "compact_item.cu, and the timing after train_agg its spmm_compact.cu "
+                        "(gather_rows), with their older C interfaces on the same inputs")
     p.add_argument("--parent_probes", type=str, default=None,
-                   help="a csrc directory of an older tree: the expand and r5 timing also time "
-                        "its expand_tile.cu and transpose_u32.cu (their older C interfaces) on "
-                        "the same inputs")
+                   help="a csrc directory of an older tree whose expand_tile.cu takes TMA maps: "
+                        "the expand and r5 timing also time its expand_tile.cu and "
+                        "transpose_u32.cu on the same inputs")
     p.add_argument("--profile", action="store_true",
                    help="also trace a few K=1 training steps with torch.profiler (the "
                         "Reddit run and each train_agg run)")
@@ -3067,9 +3138,12 @@ def main():
     agg_errs = run("agg", phase_agg, torch, SEED) if want("agg") else None
     pad_q_err, pad_d_err = run("pad", phase_pad, torch, SEED) if want("pad") else (None, None)
     pack_err, quant_err = run("quant", phase_quant, torch, SEED) if want("quant") else (None, None)
+    parent_gather = None
+    if args.parent_gather and (want("gather") or want("train_agg")):
+        parent_gather = _parent_gather(torch, args.parent_gather)
     if want("gather"):
         gather_errs, gather_l = run("gather", phase_gather, torch, SEED)
-        gtimes = run("time", phase_time_gather, torch, card, SEED, args.parent_gather)
+        gtimes = run("time", phase_time_gather, torch, card, SEED, parent_gather)
     parent_probes = None
     if args.parent_probes and (want("expand") or want("r5")):
         parent_probes = _parent_probes(torch, args.parent_probes)
@@ -3111,7 +3185,7 @@ def main():
         run("e2e_agg", phase_e2e_agg, torch, SEED)
     if want("train_agg"):
         agg = run("train_agg", phase_train_agg, torch, args)
-        atimes = run("time", phase_time_agg, torch, card, agg)
+        atimes = run("time", phase_time_agg, torch, card, agg, parent_gather)
     if only is not None:
         say("[done] partial run (--only): no result lines")
         return

@@ -295,6 +295,33 @@ def test_cuda_gather_rows_is_bit_exact(rng, cuda_device):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("shape,skew", [((2048, 128), 0), ((1000, 37), 0), ((1000, 1), 0),
+                                        ((2048, 128), 1), ((1000, 37), 1), ((7, 4), 3)],
+                         ids=["2048x128", "1000x37", "C=1", "2048x128-at+4", "1000x37-at+4",
+                              "7x4-at+12"])
+@pytest.mark.parametrize("zero", [False, True], ids=["random", "zero-idx"])
+def test_cuda_gather_rows_shapes_and_alignments(cuda_device, shape, skew, zero):
+    """Bit for bit with torch.take_along_dim on the 4-wide and the scalar
+    paths: idx (and x) as contiguous views ``skew`` elements into their
+    storage, random or all-zero (the JAX probe's own input)."""
+    rng = np.random.default_rng(sum(shape) + skew)
+    r, c = shape
+
+    def view(a, dtype):
+        out = torch.empty(r * c + skew, dtype=dtype, device=cuda_device)[skew:].view(r, c)
+        return out.copy_(torch.from_numpy(a))
+
+    x = view(rng.normal(size=shape).astype(np.float32), torch.float32)
+    idx = view(np.zeros(shape, np.int32) if zero else
+               rng.integers(0, r, shape).astype(np.int32), torch.int32)
+    assert x.is_contiguous() and idx.is_contiguous() and idx.data_ptr() % 16 == 4 * skew % 16
+    before = tc.gather_rows.launches
+    got = tc.gather_rows(x, idx)
+    assert tc.gather_rows.launches == before + 1
+    assert torch.equal(got, torch.take_along_dim(x, idx.long(), dim=0))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_cuda_ring_gather_matches_plain(cuda_device, dtype):
     rng = np.random.default_rng(0)
@@ -399,9 +426,11 @@ def test_cuda_window_gather_uneven_shapes(cuda_device, shape, axis, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("fc", [256, 136])
+@pytest.mark.parametrize("fc", [64, 100, 136, 256, 384, 640])
 @pytest.mark.parametrize("kind", [0, 1])
 def test_cuda_compact_item_matches_plain(cuda_device, kind, fc):
+    """fc 100: a row stride that is not a multiple of 16 bytes (the wrapper
+    pads a copy); 136 and 640: a last chunk of 8 and of 128 columns."""
     mask, col, win = (torch.from_numpy(a).to(cuda_device)
                       for a in _item_inputs(np.random.default_rng(fc), fc))
     win = win.to(torch.bfloat16)
@@ -410,6 +439,34 @@ def test_cuda_compact_item_matches_plain(cuda_device, kind, fc):
         got = gb.compact_item(mask, col, win, kind, iters)
         assert gb.compact_item.launches == before + 1
         assert gb.item_within(got, gb._compact_item_torch(mask, col, win, kind, iters))
+        if kind == 0:
+            assert torch.equal(got[BD:], torch.zeros_like(got[BD:]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("masks", ["ones", "zeros"])
+@pytest.mark.parametrize("cols", ["equal", "arange"])
+@pytest.mark.parametrize("kind", [0, 1])
+def test_cuda_compact_item_edge_inputs(cuda_device, kind, cols, masks):
+    """A mask of all ones (every product a full sum) and of all zeros
+    (zeros out), ``col`` all one row and ``col = arange`` (kind 1 then
+    multiplies the same rows as kind 0), at 1 and 200 iterations."""
+    rng = np.random.default_rng(7)
+    fc = 136
+    mask = torch.full((BD, WORDS), -1 if masks == "ones" else 0, dtype=torch.int16,
+                      device=cuda_device)
+    col = (torch.full((BS,), 1234, dtype=torch.int32) if cols == "equal" else
+           torch.arange(BS, dtype=torch.int32)).to(cuda_device)
+    win = torch.from_numpy(rng.normal(size=(BS, fc)).astype(np.float32)).to(
+        cuda_device, torch.bfloat16)
+    for iters in (1, 200):
+        got = gb.compact_item(mask, col, win, kind, iters)
+        want = gb._compact_item_torch(mask, col, win, kind, iters)
+        assert gb.item_within(got, want)
+        if masks == "zeros":
+            assert not got.any()
+        if kind == 0:
+            assert not got[BD:].any()
 
 
 @pytest.mark.gpu

@@ -215,6 +215,44 @@ def test_plain_gather_rows_equals_jax_take_along_axis(rng):
         tc.gather_rows(torch.from_numpy(x), torch.from_numpy(idx[:5]))
 
 
+def _gather_cover(plan, rows, cols):
+    """How many times the kernel's walk (csrc/spmm_compact.cu) on ``plan``
+    reaches each element: thread (x, y) of block (i, j) takes column group
+    ``bx i + x`` (if below ``cols // width``) and rows ``r0 + k by`` (k <
+    unroll, below ``rows``) for ``r0 = by unroll j + y`` stepping by ``gy
+    by unroll``."""
+    (bx, by), (gx, gy), w, u = plan.block, plan.grid, plan.width, plan.unroll
+    groups = np.arange(gx * bx)
+    groups = groups[groups < cols // w]
+    step = gy * by * u
+    starts = (np.arange(gy)[:, None] * by * u + np.arange(by)[None, :]).ravel()
+    r = (starts[:, None, None] + step * np.arange(-(-rows // step))[None, :, None]
+         + by * np.arange(u)[None, None, :]).ravel()
+    r = r[r < rows]
+    c = (groups[:, None] * w + np.arange(w)[None, :]).ravel()
+    seen = np.zeros((rows, cols), np.int32)
+    np.add.at(seen, (r[:, None], c[None, :]), 1)
+    return seen
+
+
+@pytest.mark.parametrize("rows,cols,aligned,sms", [
+    (2048, 128, True, 132), (2048, 128, False, 132), (1000, 37, True, 132),
+    (1000, 1, True, 132), (7, 4, True, 132), (3000, 64, True, 2), (3000, 33, True, 2),
+    (5, 3000, False, 1)])
+def test_gather_plan_reaches_every_element_once(rows, cols, aligned, sms):
+    """The 4-wide path exactly where C and the alignment allow it, 128
+    threads a block, 4 gathers a thread, at most a wave of 16 blocks an SM
+    along the rows (a small ``sms`` makes the blocks stride), and every
+    element reached once."""
+    plan = tc.gather_plan(rows, cols, aligned, sms)
+    (bx, by), (gx, gy) = plan.block, plan.grid
+    assert plan.width == (4 if aligned and cols % 4 == 0 else 1)
+    assert bx * by == tc.GATHER_THREADS and plan.width * plan.unroll == tc.GATHER_LOADS
+    assert gy == 1 or gx * gy <= sms * 16
+    assert (_gather_cover(plan, rows, cols) == 1).all()
+    assert tc.gather_plan(2048, 128, True) == tc.GatherPlan(4, 1, (32, 4), (1, 512))
+
+
 def test_wrappers_take_the_plain_version_only_on_the_cpu():
     e = np.zeros(0, np.int32)
     lay = tc.compact_layout(e, e, 2048).to_device("cpu")

@@ -13,6 +13,8 @@ mode). The port's plain versions must equal the window gathers bit for bit
 rounding). ``chip_smoke.py`` and the ``gpu`` tests of ``tests/test_torch_gpu.py``
 hold the CUDA kernels against these plain versions on the card.
 """
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -21,6 +23,7 @@ import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
+from adaqp_tpu_torch.ops.spmm_block import expand_masks
 from adaqp_tpu_torch.ops.spmm_compact import BD, BS, CSUB, GROUP, WORDS
 from adaqp_tpu_torch.scripts import microbench_gather as gb
 
@@ -295,6 +298,81 @@ def test_compact_item_refuses(bad, match):
     args.update(bad)
     with pytest.raises(ValueError, match=match):
         gb.compact_item(**args)
+
+
+def _item_writes(fc, kind):
+    """Each CTA of ``gb.item_plan`` with the output blocks the kernel
+    (csrc/compact_item.cu) has it write: ``[((slice, chunk, share), [(row0,
+    rows, col0, cols), ...]), ...]``. Kind 1 writes its unit's 64 x 128
+    sums at rows ``256 slice + 64 share``; kind 0's CTA writes rows ``8
+    slice..`` of its share (the cluster's sums over the slices) and its 56
+    rows of zeros past row 256."""
+    slices, chunks, shares = gb.item_plan(fc).grid
+    rows = gb.ITEM_ROWS
+    zero = (SBK * BD - BD) // (slices * shares)
+    out = []
+    for s in range(slices):
+        for c in range(chunks):
+            c0 = c * gb.ITEM_COLS
+            cols = min(gb.ITEM_COLS, fc - c0)
+            for sh in range(shares):
+                if kind == 1:
+                    blocks = [(s * BD + sh * rows, rows, c0, cols)]
+                else:
+                    blocks = [(sh * rows + s * (rows // slices), rows // slices, c0, cols),
+                              (BD + (sh * slices + s) * zero, zero, c0, cols)]
+                out.append(((s, c, sh), blocks))
+    return out
+
+
+@pytest.mark.parametrize("fc", [1, 64, 100, 136, 256, 384, 640])
+def test_item_plan_writes_every_output_once_on_the_same_units(fc):
+    """Each kind's CTAs write every element of the [2048, fc] output once
+    (kind 1 its unit's sums; kind 0 an eighth of its share's sums over the
+    cluster and 56 zero rows); both kinds run the same (slice, chunk, share)
+    units, each once."""
+    plan = gb.item_plan(fc)
+    assert plan.ld % 8 == 0 and fc <= plan.ld < fc + 8 and plan.grid[0] == GROUP
+    units = {}
+    for kind in (0, 1):
+        seen = np.zeros((SBK * BD, fc), np.int32)
+        writes = _item_writes(fc, kind)
+        for _, blocks in writes:
+            for r0, nr, c0, nc in blocks:
+                seen[r0:r0 + nr, c0:c0 + nc] += 1
+        assert (seen == 1).all()
+        units[kind] = [u for u, _ in writes]
+        assert len(units[kind]) == math.prod(plan.grid) == len(set(units[kind]))
+    assert units[0] == units[1]
+
+
+def test_item_plan_spreads_both_kinds_over_the_card():
+    assert math.prod(gb.item_plan(384).grid) >= 96
+    assert math.prod(gb.item_plan(256).grid) >= 64
+    with pytest.raises(ValueError, match="fc"):
+        gb.item_plan(0)
+
+
+def test_item_fragments_hold_the_columns_of_a():
+    """The kernel's A fragments (csrc/compact_item.cu): the thread of lane l
+    in warp w of share sh holds mask words 8g + 4j + l % 4 of rows 64 sh +
+    16 w + l // 4 + 8 rr; at k16 step kk of slice s, word group g = kk % 8
+    at bit 2s + kk // 8 gives A's columns 256s + 16kk + 2 (l % 4) + 8j and
+    the next (low halfword, then high) of those rows."""
+    mask = np.random.default_rng(3).integers(0, 1 << 16, (BD, WORDS)).astype(np.uint16)
+    a = expand_masks(torch.from_numpy(mask.view(np.int16))[None])[0].numpy()
+    words = mask.view(np.uint32).reshape(BD, WORDS // 2)
+    s, kk, row, quad, j = np.meshgrid(np.arange(GROUP), np.arange(16), np.arange(BD),
+                                      np.arange(4), np.arange(2), indexing="ij")
+    word = words[row, 8 * (kk % 8) + 4 * j + quad]
+    bit = 2 * s + kk // 8
+    col = s * CSUB + 16 * kk + 2 * quad + 8 * j
+    assert (a[row, col] == (word >> bit) & 1).all()
+    assert (a[row, col + 1] == (word >> (16 + bit)) & 1).all()
+    seen = np.zeros(a.shape, np.int32)
+    np.add.at(seen, (row, col), 1)
+    np.add.at(seen, (row, col + 1), 1)
+    assert (seen == 1).all()
 
 
 def test_main_prints_the_probe_on_the_cpu(capsys):
