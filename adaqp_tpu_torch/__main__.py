@@ -6,6 +6,8 @@
     python -m adaqp_tpu_torch --dataset sbm --num_parts 2 --mode AdaQP --device cpu
     python -m adaqp_tpu_torch --dataset sbm --num_parts 1 --spmm_impl compact --device cpu
     python -m adaqp_tpu_torch --dataset sbm --num_parts 2 --wire_impl padded --device cpu
+    python -m adaqp_tpu_torch --dataset sbm --num_parts 2 --device cpu --ckpt_every 5
+    python -m adaqp_tpu_torch --dataset sbm --num_parts 2 --device cpu --resume
 
 ``--num_parts K`` > 1 starts K ranks on this machine (one per partition;
 over nccl when there is a card for each rank, else over gloo). Under
@@ -63,6 +65,12 @@ def parse_args(argv=None):
     p.add_argument("--normal_mode", type=str, default=None,
                    choices=["nadir_utopia", "magnitude"],
                    help="bi-objective normalization of the bit assigner")
+    p.add_argument("--ckpt_every", type=int, default=None,
+                   help="write a checkpoint after every N-th epoch (0: none)")
+    p.add_argument("--ckpt_dir", type=str, default=None,
+                   help="where checkpoints go, under {graph}/{K}part_{model}/")
+    p.add_argument("--resume", action="store_true", default=None,
+                   help="go on from the latest checkpoint of this run, if there is one")
     p.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"],
                    help="where every rank runs (default: the CUDA card)")
     return p.parse_args(argv)

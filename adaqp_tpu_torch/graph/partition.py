@@ -13,8 +13,10 @@ we provide:
   a fraction of the cost.
 - ``metis``   — uses pymetis if importable, else falls back to ``ldg``.
 
-The port runs the numpy LDG path only; a native loader for the C++
-implementation of the same algorithm is not ported yet.
+LDG runs the C++ implementation of the same algorithm (``native/``, built
+with ``g++`` on first use), which gives the numpy path's partition; where
+the library cannot be built or loaded, a WARNING carries the reason and
+the numpy path runs. Either way an INFO line says which path ran.
 """
 from __future__ import annotations
 
@@ -61,10 +63,23 @@ def _bfs_order(indptr: np.ndarray, nbrs: np.ndarray, n: int) -> np.ndarray:
     return order
 
 
-def partition_ldg(src: np.ndarray, dst: np.ndarray, n: int, k: int, slack: float = 1.05) -> np.ndarray:
-    """Linear Deterministic Greedy streaming partitioning in BFS order."""
+def partition_ldg(src: np.ndarray, dst: np.ndarray, n: int, k: int, slack: float = 1.05,
+                  native: bool = True) -> np.ndarray:
+    """Linear Deterministic Greedy streaming partitioning in BFS order: the
+    native library's unless ``native`` is False or it is unavailable."""
     if k == 1:
         return np.zeros(n, np.int32)
+    if native:
+        from ..native import NativeUnavailable, ldg_partition
+
+        try:
+            part = ldg_partition(src, dst, n, k, slack)
+        except NativeUnavailable as exc:
+            logger.warning("native LDG unavailable, running the numpy path: %s", exc)
+        else:
+            logger.info("LDG partition of %d nodes into %d parts: native path", n, k)
+            return part
+    logger.info("LDG partition of %d nodes into %d parts: numpy path", n, k)
     indptr, nbrs = _csr_from_edges(src, dst, n)
     order = _bfs_order(indptr, nbrs, n)
     cap = slack * n / k

@@ -3,12 +3,10 @@
 
 YAML sections mirror the reference (``AdaQP/config/*.yaml``):
 ``data`` / ``model`` / ``runtime`` / ``assignment``. The field set is the
-JAX package's, so one config describes a run of either package. Of the
-fields for paths this port does not run yet, the Trainer rejects the one
-that changes the result (checkpointing). Fields that tune the JAX
-package's compiler or TPU memory have no effect here: ``static_wire``
-(PyTorch runs eagerly, so exact wire shapes cost no recompile),
-``remat`` and ``log_hbm``.
+JAX package's, so one config describes a run of either package. Fields
+that tune the JAX package's compiler or TPU memory have no effect here:
+``static_wire`` (PyTorch runs eagerly, so exact wire shapes cost no
+recompile), ``remat`` and ``log_hbm``.
 """
 from __future__ import annotations
 

@@ -34,7 +34,15 @@ adaqp_tpu_torch`` start them):
   comes from timing the transport at start-up (``assigner/profile.py``);
 - the breakdown probe (``measure_breakdown``, on by default) times the
   parts of a training epoch before the first one and fills the time CSV's
-  Comm, Quant, Central and Marginal columns (:meth:`Trainer._breakdown_probe`).
+  Comm, Quant, Central and Marginal columns (:meth:`Trainer._breakdown_probe`);
+- checkpoints (``ckpt_every``, ``resume``; ``utils/checkpoint.py``): after
+  each ``ckpt_every``-th epoch's evaluation rank 0 writes one file with the
+  parameters, the Adam state, the recorder, the assignment, the cost model
+  and every rank's traces. A resumed run reads the latest one at
+  construction, takes its cost model instead of profiling, and goes on
+  from the next epoch; as every random stream below comes from the epoch
+  index, it draws what the straight run draws (the JAX Trainer splits a
+  key once an executed epoch, so its resumed runs draw other keys).
 
 Random streams, all derived from ``seed`` with
 ``ops/quant_cuda.py::stream_key``, so that a run is reproducible and a
@@ -119,15 +127,16 @@ def _check_supported(cfg: RunConfig) -> RunConfig:
             "fp32_lanes needs the ragged wire: the padded wire's buckets carry "
             "only quantized widths (2, 4, 8 bits)"
         )
-    if cfg.ckpt_every or cfg.resume:
-        raise NotImplementedError(
-            "checkpointing is not ported (ROADMAP Queue 1, 'Trainer')"
-        )
     # auto is the strip kernel on every device (the JAX Trainer picks the
     # segment sum off the TPU; on the card the tile kernels are the point)
     return dataclasses.replace(
         cfg, spmm_impl="strip" if cfg.spmm_impl == "auto" else cfg.spmm_impl
     )
+
+
+def _scalar_or_array(a: np.ndarray):
+    """A saved cost-model term: a float for a 0-d array (one global fit)."""
+    return float(a) if a.ndim == 0 else a
 
 
 def _check_compact_gate(cfg: RunConfig, device: torch.device) -> None:
@@ -253,12 +262,16 @@ class Trainer:
         if self.k > 1 and cfg.wire_impl == "ragged":
             self.wire_fp = self._local_wires(wire_fp(plan, self.layer_dims, cfg.num_layers))
 
+        # ---- checkpoint to resume from (read before the assigner: it holds
+        # the cost model and the assignment) ----
+        resume = self._read_checkpoint() if cfg.resume else None
+
         # ---- assigner (quantized modes; at K=1 nothing crosses) ----
         self.assignment: Optional[Assignment] = None
         self.assigner: Optional[Assigner] = None
         self.profile_s = 0.0
         self.assign_s: List[float] = []
-        if self.mode.quantized and self.k > 1:
+        if self._has_assigner():
             acfg = AssignerConfig(
                 group_size=cfg.group_size,
                 coe_lambda=cfg.coe_lambda,
@@ -268,7 +281,13 @@ class Trainer:
                 bits_options=self._bits_options(),
             )
             cost_model = (1.0, 0.1)
-            if self.scheme is Scheme.ADAPTIVE:
+            if resume is not None:
+                # the saved fit, not a new profile: the next reassignment
+                # then solves what the straight run solves (the JAX Trainer
+                # profiles again on resume)
+                cost_model = tuple(_scalar_or_array(resume[1][f"cost.{x}"])
+                                   for x in ("alpha", "beta"))
+            elif self.scheme is Scheme.ADAPTIVE:
                 tp = time.perf_counter()
                 sizes, times = profile_cost_model(
                     max_bytes_per_pair=plan.s_pad * (self.static.f_pad + 4),
@@ -288,13 +307,20 @@ class Trainer:
                 )
             self.assigner = Assigner(plan, cfg.num_layers, acfg, cost_model)
             # bootstrap: uniform assign_bits (reference trainer.py:63-66)
-            if self.scheme is Scheme.RANDOM:
+            if resume is not None:
+                st = resume[1]
+                self.assignment = Assignment(
+                    [st[f"asg.fwd.{i}"] for i in range(cfg.num_layers)],
+                    [st[f"asg.bwd.{i}"] for i in range(cfg.num_layers)])
+            elif self.scheme is Scheme.RANDOM:
                 self.assignment = random_assignment(plan, cfg.num_layers, cfg.seed)
             else:
                 self.assignment = self.assigner.bootstrap()
             self._lower_assignment()
         self._reset_traces()
         self.recorder = Recorder(cfg.num_epochs)
+        # epochs already trained: training goes on from the next one
+        self.start_epoch = 0 if resume is None else self._apply_checkpoint(*resume)
         self.overhead_s = time.perf_counter() - t0
         logger.info(
             "Trainer ready: %s %s mode=%s scheme=%s K=%d rank=%d Lmax=%d R=%d S=%d on %s",
@@ -411,6 +437,111 @@ class Trainer:
                     raise ValueError(f"parameter names {sorted(src)} != {sorted(layer)}")
                 for name, p in layer.items():
                     p.copy_(src[name])
+
+    # ------------------------------------------------------------------
+    def _has_assigner(self) -> bool:
+        """Quantized modes at K>1 assign widths (at K=1 nothing crosses)."""
+        return self.mode.quantized and self.k > 1
+
+    def _named_params(self):
+        return [(f"{i}.{name}", p) for i, layer in enumerate(self.params)
+                for name, p in layer.items()]
+
+    def _ckpt_path(self, epoch: int) -> str:
+        """The JAX Trainer's path: ``ckpt_dir/{graph}/{K}part_{model}/ckpt_{epoch}``."""
+        return os.path.join(self.cfg.ckpt_dir, self.graph.name,
+                            f"{self.k}part_{self.cfg.model_name}", f"ckpt_{epoch}")
+
+    def _ckpt_shapes(self) -> Dict[str, Optional[Tuple[int, ...]]]:
+        """Name -> shape of every array a checkpoint of this run holds (None:
+        any shape). One file for all ranks: parameters and Adam state are
+        the same on every rank, the traces are stacked over ranks."""
+        L, plan = self.cfg.num_layers, self.layout.plan_fwd
+        shapes: Dict[str, Optional[Tuple[int, ...]]] = {"recorder": None}
+        for key, p in self._named_params():
+            shapes[f"params.{key}"] = tuple(p.shape)
+            shapes[f"opt.{key}.step"] = ()
+            shapes[f"opt.{key}.exp_avg"] = shapes[f"opt.{key}.exp_avg_sq"] = tuple(p.shape)
+        shapes["trace.fwd"] = (self.world, L, self.k, plan.s_pad)
+        shapes["trace.bwd"] = (self.world, L, plan.r_pad)
+        if self._has_assigner():
+            shapes["cost.alpha"] = shapes["cost.beta"] = None  # scalars or [K, K]
+            for i in range(L):
+                shapes[f"asg.fwd.{i}"] = tuple(plan.send_idx.shape)
+                shapes[f"asg.bwd.{i}"] = (self.k, plan.r_pad)
+        return shapes
+
+    def _read_checkpoint(self):
+        """``(step, state, path)`` of the latest checkpoint of this run, or
+        None when there is none (the run then starts fresh)."""
+        from ..utils.checkpoint import latest_checkpoint, load_checkpoint
+
+        t0 = time.perf_counter()
+        d = os.path.dirname(self._ckpt_path(0))
+        path = latest_checkpoint(d)
+        if path is None:
+            logger.info("resume requested but no checkpoint under %s: starting fresh", d)
+            return None
+        step, state, _ = load_checkpoint(path, self._ckpt_shapes())
+        self.timer.add("ckpt_load", time.perf_counter() - t0)
+        return step, state, path
+
+    def _apply_checkpoint(self, step: int, state, path: str) -> int:
+        """Parameters, Adam state, this rank's traces and the recorder from
+        a checkpoint; returns its epoch."""
+        with torch.no_grad():
+            for key, p in self._named_params():
+                p.copy_(torch.from_numpy(state[f"params.{key}"]))
+        sd = self.opt.state_dict()
+        sd["state"] = {i: {f: torch.from_numpy(state[f"opt.{key}.{f}"])
+                           for f in ("step", "exp_avg", "exp_avg_sq")}
+                       for i, (key, _) in enumerate(self._named_params())}
+        self.opt.load_state_dict(sd)
+        self.trace_fwd.copy_(torch.from_numpy(state["trace.fwd"][self.rank]))
+        self.trace_bwd.copy_(torch.from_numpy(state["trace.bwd"][self.rank]))
+        # into the fresh matrix: the resumed run may end at another epoch
+        loaded = state["recorder"]
+        n = min(len(loaded), len(self.recorder.metrics))
+        self.recorder.metrics[:n] = loaded[:n]
+        self.recorder._cursor = min(step, n)
+        logger.info("resumed from %s at epoch %d", path, step)
+        return step
+
+    def _ckpt_state(self, trace_fwd: torch.Tensor, trace_bwd: torch.Tensor
+                    ) -> Dict[str, np.ndarray]:
+        """The arrays of :meth:`_ckpt_shapes`, with the traces of every rank."""
+        state = {"recorder": self.recorder.metrics,
+                 "trace.fwd": trace_fwd.cpu().numpy(), "trace.bwd": trace_bwd.cpu().numpy()}
+        for key, p in self._named_params():
+            state[f"params.{key}"] = p.detach().cpu().numpy()
+            for f, v in self.opt.state[p].items():
+                state[f"opt.{key}.{f}"] = v.detach().cpu().numpy()
+        if self._has_assigner():
+            state["cost.alpha"] = np.asarray(self.assigner.alpha)
+            state["cost.beta"] = np.asarray(self.assigner.beta)
+            for d, arrays in (("fwd", self.assignment.fwd), ("bwd", self.assignment.bwd)):
+                for i, a in enumerate(arrays):
+                    state[f"asg.{d}.{i}"] = np.asarray(a)
+        return state
+
+    def _save_checkpoint(self, epoch: int) -> None:
+        """Rank 0 writes one checkpoint with every rank's traces; a
+        collective at K>1 that ends in a barrier, so no rank runs ahead of
+        a half-written file."""
+        from ..utils.checkpoint import save_checkpoint
+
+        t0 = time.perf_counter()
+        if self.world > 1:
+            tf, tb = self._all_gather(self.trace_fwd), self._all_gather(self.trace_bwd)
+        else:
+            tf, tb = self.trace_fwd[None], self.trace_bwd[None]
+        if self.rank == 0:
+            meta = {"mode": self.mode.value, "scheme": self.scheme.value,
+                    "num_epochs": self.cfg.num_epochs}
+            save_checkpoint(self._ckpt_path(epoch), epoch, self._ckpt_state(tf, tb), meta)
+        if self.world > 1:
+            dist.barrier()
+        self.timer.add("ckpt_save", time.perf_counter() - t0)
 
     # ------------------------------------------------------------------
     def _all_reduce(self, t: torch.Tensor) -> torch.Tensor:
@@ -722,7 +853,7 @@ class Trainer:
         t_train0 = time.perf_counter()
         losses = []
         planned = np.zeros(2, np.int64)
-        for epoch in range(1, cfg.num_epochs + 1):
+        for epoch in range(self.start_epoch + 1, cfg.num_epochs + 1):
             if (
                 self.assigner is not None
                 and self.scheme in (Scheme.ADAPTIVE, Scheme.RANDOM)
@@ -744,6 +875,8 @@ class Trainer:
                     "epoch %04d | loss %.4f | %.3fs | train %.4f val %.4f test %.4f",
                     epoch, loss, self.timer.epoch_times[-1], tr, va, te,
                 )
+            if cfg.ckpt_every and epoch % cfg.ckpt_every == 0:
+                self._save_checkpoint(epoch)
         total = time.perf_counter() - t_train0
         ep = np.asarray(self.timer.epoch_times)
         # median: robust to the first epoch's one-time costs (kernel build
@@ -759,7 +892,8 @@ class Trainer:
             "val_curve": self.recorder.val_curve(),
             "loss_curve": np.asarray(losses),
             "planned_quant_launches": tuple(int(x) for x in planned),
-            "planned_tile_launches": cfg.num_epochs * self.tile_launches_per_epoch(),
+            "planned_tile_launches": (cfg.num_epochs - self.start_epoch)
+            * self.tile_launches_per_epoch(),
             "probe_launches": self.probe_launches() if cfg.measure_breakdown else {},
         }
         logger.info(

@@ -41,7 +41,14 @@ gpu_tests (``pytest -m gpu tests/test_torch_gpu.py`` in a subprocess,
 every case passed and none skipped), setup, kernel
 (strip SpMM), e2e (a small K=1 run on the card against the same run on
 the CPU), e2e_k (the same at K=2, Vanilla and AdaQP), e2e_pad (e2e_k on
-the padded wire), train (K=1), train_k (K=4), train_pad (K=4 AdaQP on the
+the padded wire), train (K=1), train_k (K=4; its AdaQP run checkpoints
+after epoch 8), ckpt (four new ranks resume that run from its checkpoint:
+the loaded state bit for bit, the reassignment at epoch 11 without a new
+profile, launches as planned, losses within one bf16 step of the straight
+run's), partition (the native LDG against the numpy one on train_k's
+graph, then ``python -m adaqp_tpu_torch.graph_partition``), parity
+(``adaqp_tpu_torch.scripts.accuracy_parity``'s eight configurations at K=4,
+``--epochs_parity`` epochs each), train_pad (K=4 AdaQP on the
 padded wire, with the probe), e2e_agg (K=2 card against CPU for block,
 compact and segment), train_agg (the products GCN through the four
 aggregations), time (after k1, train_k, train_pad and train_agg; after
@@ -80,6 +87,12 @@ WORK = os.path.join(HERE, "build", "smoke")
 PEAK_BYTES_S = 3.35e12
 PEAK_BF16_FLOP_S = 989e12
 SEED = 0
+# train_k's AdaQP run checkpoints after this epoch; phase ckpt resumes there
+CKPT_EPOCH = 8
+# the resumed run's losses against the straight run's: the card adds in no
+# fixed order (the ELL tail's index_add_, the receive side's atomics in
+# the backward), so not bit for bit; one bf16 step
+CKPT_RTOL = 2.0 ** -7
 # |kernel - plain| <= ATOL + RTOL * |plain| for bf16: both sum in f32 and
 # round once to bf16, in another order: one bf16 step (2^-7 of the value)
 # plus f32 reordering error next to zero
@@ -1046,6 +1059,7 @@ def _train_k_worker(rank, world, device, cfg, graph_fn, profile, parent_rows=Non
     reassign = t._reassign
 
     def recording_reassign(epoch):
+        before[epoch] = _trace_sum(t)
         reassign(epoch)
         hist.append((epoch, [
             {b: int(((a == b) & (a > 0)).sum()) for b in (2, 4, 8)}
@@ -1056,6 +1070,13 @@ def _train_k_worker(rank, world, device, cfg, graph_fn, profile, parent_rows=Non
 
     volume, pad_cases = [(1, _wire_volume(t))], _pad_cases(t, cfg.measure_breakdown)
     t._reassign = recording_reassign
+    digests, before, save = {}, {}, t._save_checkpoint
+
+    def recording_save(epoch):
+        digests[epoch] = _state_digest(t)
+        save(epoch)
+
+    t._save_checkpoint = recording_save
     fh = t.blocks.devices()[2]
     halo = (int(fh.blk_ptr[-1]), 0 if fh.straggler is None else
             sum(int((r < fh.n).sum()) for _, r, _, _ in fh.straggler.buckets))
@@ -1095,6 +1116,10 @@ def _train_k_worker(rank, world, device, cfg, graph_fn, profile, parent_rows=Non
         "pad_cases": sorted(pad_cases), "volume": volume,
         "peak_gib": peak_gib,
         "profile_s": t.profile_s, "assign_s": t.assign_s, "hist": hist,
+        "digests": digests, "trace_before": before,
+        "ckpt_save_s": t.timer.totals().get("ckpt_save", 0.0),
+        "assignment": None if t.assignment is None else [
+            np.asarray(a) for a in t.assignment.fwd + t.assignment.bwd],
         "halo": halo, "lanes": int(plan.counts[rank].sum()),
         "layout": (t.layout.l_max, plan.r_pad, plan.s_pad,
                    [int(x) for x in t.layout.num_local]),
@@ -1152,6 +1177,8 @@ def phase_train_k(torch, args):
         ]))
         cfg.assign_cycle, cfg.log_steps, cfg.measure_breakdown = 5, 1, False
         cfg.partition_dir = os.path.join(WORK, "k4_parts")
+        if mode == "AdaQP":  # the one checkpoint, which phase ckpt resumes
+            cfg.ckpt_every, cfg.ckpt_dir = CKPT_EPOCH, os.path.join(WORK, "k4_ckpt")
         check((cfg.num_layers, cfg.hidden_dim, cfg.dropout_rate, cfg.use_norm,
                cfg.learning_rate, cfg.partition_method) == (3, 256, 0.5, True, 0.01, "ldg"),
               "reddit.yaml no longer holds the Reddit GCN settings")
@@ -1207,6 +1234,235 @@ def phase_train_k(torch, args):
         f"Vanilla {out['Vanilla'][0]['per_epoch'] * 1e3:.1f} ms "
         "(four ranks time-sharing one card over a host-staged transport)")
     return out
+
+
+def _state_digest(t):
+    """SHA-256 of a Trainer's parameters, Adam state and this rank's traces."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for _, p in t._named_params():
+        h.update(p.detach().cpu().numpy().tobytes())
+        for f in ("step", "exp_avg", "exp_avg_sq"):
+            h.update(t.opt.state[p][f].detach().cpu().numpy().tobytes())
+    for x in (t.trace_fwd, t.trace_bwd):
+        h.update(x.cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _trace_sum(t):
+    """This rank's accumulated traces, summed in f64."""
+    return float(t.trace_fwd.double().sum() + t.trace_bwd.double().sum())
+
+
+def _ckpt_worker(rank, world, device, cfg, graph_fn):
+    """One rank of the resumed K=4 run: the state it loaded, then its
+    epochs after the checkpoint, with the kernels' launches."""
+    import numpy as np
+    import torch
+
+    from adaqp_tpu_torch.ops import quant_cuda as qc
+    from adaqp_tpu_torch.ops import spmm_strip as ss
+    from adaqp_tpu_torch.trainer import Trainer
+
+    t = Trainer(cfg, graph=graph_fn(), device=device)
+    digest = _state_digest(t)
+    reassigned, before, reassign = [], {}, t._reassign
+
+    def recording_reassign(epoch):
+        before[epoch] = _trace_sum(t)
+        reassigned.append(epoch)
+        reassign(epoch)
+
+    t._reassign = recording_reassign
+    torch.cuda.synchronize()
+    ss.strip_spmm.launches = qc.quant_pack.launches = qc.unpack_dequant.launches = 0
+    rec = t.train()
+    launches = (ss.strip_spmm.launches, qc.quant_pack.launches, qc.unpack_dequant.launches)
+    return {
+        "start": t.start_epoch, "digest": digest, "profile_s": t.profile_s,
+        "load_s": t.timer.totals().get("ckpt_load", 0.0), "reassigned": reassigned,
+        "trace_before": before, "loss_curve": rec["loss_curve"], "launches": launches,
+        "planned": (rec["planned_tile_launches"], *rec["planned_quant_launches"]),
+        "assignment": [np.asarray(a) for a in t.assignment.fwd + t.assignment.bwd],
+    }
+
+
+def phase_ckpt(torch, args, k4):
+    """Resume train_k's AdaQP run from its epoch-8 checkpoint on four new
+    ranks: the loaded state equals each rank's state at the save bit for
+    bit, the reassignment at epoch 11 runs on the loaded traces plus the
+    new epochs' without profiling again, the kernels launch as planned,
+    and the losses follow the straight run's."""
+    import functools
+
+    import numpy as np
+
+    from adaqp_tpu_torch.__main__ import config_from_args, parse_args
+    from adaqp_tpu_torch.comm.distributed import spawn
+    from adaqp_tpu_torch.helper.dataset import REDDIT_C, REDDIT_E, REDDIT_F, REDDIT_N, synth_reddit
+
+    straight = k4["AdaQP"]
+    epochs = straight[0]["epochs"]
+    check(epochs > CKPT_EPOCH + 2, f"ckpt needs train_k past epoch {CKPT_EPOCH + 2} "
+          f"(--epochs_k {epochs})")
+    n = args.nodes_k
+    graph_fn = functools.partial(synth_reddit, n, n * round(REDDIT_E / REDDIT_N), REDDIT_F,
+                                 REDDIT_C, seed=SEED, device="cuda")
+    ckpt_dir = os.path.join(WORK, "k4_ckpt")
+    cfg = config_from_args(parse_args([
+        "--dataset", "reddit", "--num_parts", "4", "--mode", "AdaQP",
+        "--assign_scheme", "adaptive", "--num_epochs", str(epochs),
+        "--agg_dtype", "bfloat16", "--seed", str(SEED), "--resume", "--ckpt_dir", ckpt_dir,
+        "--exp_path", os.path.join(WORK, "k4_exp"),
+    ]))
+    cfg.assign_cycle, cfg.log_steps, cfg.measure_breakdown = 5, 1, False
+    cfg.partition_dir = os.path.join(WORK, "k4_parts")
+    graphs = os.listdir(ckpt_dir)  # ckpt_dir/{graph}/4part_gcn/
+    check(len(graphs) == 1, f"train_k checkpointed {graphs}")
+    run_dir = os.path.join(ckpt_dir, graphs[0], "4part_gcn")
+    files = sorted(os.listdir(run_dir))
+    check(files == [f"ckpt_{CKPT_EPOCH}.json", f"ckpt_{CKPT_EPOCH}.npz"],
+          f"train_k left other checkpoint files: {files}")
+    nbytes = sum(os.path.getsize(os.path.join(run_dir, f)) for f in files)
+    t0 = time.perf_counter()
+    res = spawn(_ckpt_worker, 4, "cuda", args=(cfg, graph_fn),
+                workdir=os.path.join(WORK, "launch"), timeout_s=480)
+    wall = time.perf_counter() - t0
+    tile_epoch = 6 * cfg.num_layers - 2
+    for rank, (r, s) in enumerate(zip(res, straight)):
+        strip, qp, ud = r["launches"]
+        say(f"[ckpt] rank {rank}: resumed at epoch {r['start']}; state digest "
+            f"{r['digest'][:16]} (at the save {s['digests'].get(CKPT_EPOCH, 'none')[:16]}); "
+            f"profiling {r['profile_s']:.2f} s; reassigned at {r['reassigned']}; launches strip "
+            f"{strip}, quant_pack {qp}, unpack_dequant {ud} (planned {r['planned']})")
+        check(r["start"] == CKPT_EPOCH, f"rank {rank} resumed at epoch {r['start']}")
+        check(r["digest"] == s["digests"].get(CKPT_EPOCH),
+              f"rank {rank}: the loaded state differs from the state at the save")
+        check(r["profile_s"] == 0, f"rank {rank} profiled the transport again")
+        check(r["reassigned"] == [e for e, _ in s["hist"] if e > CKPT_EPOCH],
+              f"rank {rank}: reassignments {r['reassigned']} against the straight run's "
+              f"{[e for e, _ in s['hist']]}")
+        check(strip == r["planned"][0] == tile_epoch * (epochs - CKPT_EPOCH)
+              and (qp, ud) == r["planned"][1:] and qp > 0,
+              f"rank {rank}: launches differ from the plans")
+        for e in r["reassigned"]:
+            got, want = r["trace_before"][e], s["trace_before"][e]
+            rel = abs(got - want) / abs(want)
+            say(f"[ckpt] rank {rank} traces before the reassignment at epoch {e}: sum "
+                f"{got!r}, straight run {want!r} (relative {rel:.2e}, limit {CKPT_RTOL:.2e})")
+            check(rel <= CKPT_RTOL, f"rank {rank}: the traces at epoch {e} are not the "
+                  "loaded ones plus the new epochs'")
+    losses = np.asarray(res[0]["loss_curve"])
+    want = np.asarray(straight[0]["loss_curve"])[CKPT_EPOCH:]
+    for r in res[1:]:
+        check(np.array_equal(np.asarray(r["loss_curve"]), losses), "ranks disagree on the loss")
+    rel = float(np.max(np.abs(losses - want) / np.abs(want)))
+    say(f"[ckpt] losses of epochs {CKPT_EPOCH + 1}-{epochs}: resumed "
+        f"{np.round(losses, 5).tolist()}, straight {np.round(want, 5).tolist()}; max relative "
+        f"difference {rel:.2e} (limit {CKPT_RTOL:.2e})")
+    check(len(losses) == len(want) and np.isfinite(losses).all() and rel <= CKPT_RTOL,
+          "the resumed losses left the straight run's")
+    differ = sum(int(((a != b) & ((a > 0) | (b > 0))).sum())
+                 for a, b in zip(res[0]["assignment"], straight[0]["assignment"]))
+    lanes = sum(int((a > 0).sum()) for a in straight[0]["assignment"])
+    say(f"[ckpt] rank 0's assignment after epoch {res[0]['reassigned'][-1]}: {differ} of "
+        f"{lanes} lane widths differ from the straight run's (not gated: the card's sums "
+        "reorder; the CPU test holds it exactly)")
+    say(f"[ckpt] checkpoint {nbytes} bytes; save {straight[0]['ckpt_save_s']:.3f} s (rank 0, "
+        f"gather + write + barrier), load {max(r['load_s'] for r in res):.3f} s (slowest rank); "
+        f"launch + set-up + {epochs - CKPT_EPOCH} epochs {wall:.1f} s")
+    return [r["launches"] for r in res]
+
+
+def phase_partition(torch, args):
+    """The native LDG against the numpy one on train_k's graph (and, with
+    --full, the native one on Reddit's size), then the partitioning CLI."""
+    import logging
+
+    import numpy as np
+
+    from adaqp_tpu_torch.graph.partition import partition_ldg
+    from adaqp_tpu_torch.helper.dataset import REDDIT_C, REDDIT_E, REDDIT_F, REDDIT_N, synth_reddit
+
+    seen = []
+
+    class Paths(logging.Handler):
+        def emit(self, record):
+            seen.append(record.getMessage())
+
+    log = logging.getLogger("adaqp_tpu_torch")
+    handler, level = Paths(), log.level
+    log.addHandler(handler)
+    log.setLevel(logging.INFO)
+    try:
+        sizes = [args.nodes_k] + ([REDDIT_N] if args.full else [])
+        for n in sizes:
+            e = REDDIT_E if n == REDDIT_N else n * round(REDDIT_E / REDDIT_N)
+            g = synth_reddit(n, e, REDDIT_F, REDDIT_C, seed=SEED, device="cuda")
+            keep = g.src != g.dst
+            src, dst, name = g.src[keep], g.dst[keep], g.name
+            del g
+            seen.clear()
+            t0 = time.perf_counter()
+            part = partition_ldg(src, dst, n, 4)
+            native_s = time.perf_counter() - t0
+            check(any("native path" in m for m in seen), f"the native LDG did not run: {seen}")
+            sizes_k = np.bincount(part, minlength=4).tolist()
+            cut = int((part[src] != part[dst]).sum())
+            line = (f"[partition] {n} nodes, {len(src)} edges without self-loops, K=4: native "
+                    f"{native_s:.2f} s; part sizes {sizes_k}; edge cut {cut}")
+            if n == args.nodes_k:
+                t0 = time.perf_counter()
+                plain = partition_ldg(src, dst, n, 4, native=False)
+                numpy_s = time.perf_counter() - t0
+                check(np.array_equal(part, plain), "the native and numpy LDG partitions differ")
+                line += f"; numpy {numpy_s:.2f} s ({numpy_s / native_s:.0f}x), the same partition"
+                cache = os.path.join(WORK, "k4_parts", f"{name}_4part_ldg.npy")
+                if os.path.exists(cache):  # train_k's Trainer partitioned this graph
+                    check(np.array_equal(np.load(cache), part), "train_k's partition differs")
+                    line += ", as train_k's"
+            else:  # the numpy path would take minutes at Reddit's size
+                line += "; numpy not run"
+            say(line)
+    finally:
+        log.removeHandler(handler)
+        log.setLevel(level)
+    cli = subprocess.run(
+        [sys.executable, "-m", "adaqp_tpu_torch.graph_partition", "--dataset", "sbm",
+         "--partition_size", "4", "--partition_dir", os.path.join(WORK, "cli_parts")],
+        cwd=HERE, capture_output=True, text=True, timeout=300)
+    said = cli.stdout.strip().splitlines()
+    check(cli.returncode == 0 and said and said[-1].startswith("saved ")
+          and "native path" in cli.stderr,
+          f"the partitioning CLI failed (exit {cli.returncode}):\n{cli.stdout[-2000:]}"
+          f"{cli.stderr[-2000:]}")
+    say(f"[partition] python -m adaqp_tpu_torch.graph_partition --dataset sbm "
+        f"--partition_size 4: {said[-1]}")
+
+
+def phase_parity(torch, args):
+    """The accuracy-parity experiment on the card (K=4 over gloo): every
+    row finite and at least twice chance, every row's kernels launched as
+    planned."""
+    import math
+
+    from adaqp_tpu_torch.scripts import accuracy_parity as ap
+
+    rows = ap.main(["--epochs", str(args.epochs_parity),
+                    "--workdir", os.path.join(WORK, "parity")])
+    chance = 1.0 / ap.SYNTH["blocks"]
+    for r in rows:
+        say(f"[parity] {r['config']}: test {r['test']:.4f} (train {r['train']:.4f}, val "
+            f"{r['val']:.4f}) in {r['seconds']:.1f} s; launches {r['launches']} (planned "
+            f"{r['planned']})")
+        check(math.isfinite(r["test"]) and r["test"] >= 2 * chance,
+              f"{r['config']}: test accuracy {r['test']} below twice chance ({2 * chance})")
+        check(r["launches"] == r["planned"] and r["launches"]["quant_pack"] > 0
+              and r["launches"]["unpack_dequant"] > 0,
+              f"{r['config']}: launches {r['launches']} against the plans {r['planned']}")
+    return {k: sum(r["launches"][k] for r in rows)
+            for k in ("strip_spmm", "quant_pack", "unpack_dequant")}
 
 
 def phase_time_quant(torch, card, lanes):
@@ -3081,14 +3337,16 @@ def main():
                    help="AdaQP epochs at K=4 (reassignment at 6 and 11 with a cycle of 5)")
     p.add_argument("--epochs_pad", type=int, default=8,
                    help="AdaQP epochs of train_pad (reassignment at 6 with a cycle of 5)")
+    p.add_argument("--epochs_parity", type=int, default=20,
+                   help="epochs of each accuracy_parity run (the script's own default is 60)")
     p.add_argument("--nodes_agg", type=int, default=131_072,
                    help="nodes of the products-degree graph of train_agg")
     p.add_argument("--epochs_agg", type=int, default=8, help="epochs of each train_agg run")
     p.add_argument("--only", type=str, default=None,
                    help="comma-separated phases to run (agg, pad, quant, gather, expand, r5, "
-                        "gpu_tests, e2e, e2e_k, e2e_pad, k1, train_k, train_pad, e2e_agg, "
-                        "train_agg); build always runs, and the result lines print only for a "
-                        "full run")
+                        "gpu_tests, e2e, e2e_k, e2e_pad, k1, train_k, ckpt, partition, parity, "
+                        "train_pad, e2e_agg, train_agg; ckpt runs train_k first); build always "
+                        "runs, and the result lines print only for a full run")
     p.add_argument("--parent_rows", type=str, default=None,
                    help="a csrc directory of an older tree whose quant_rows.cu has the "
                         "contiguous C interface: train_pad also times the per-bucket padded "
@@ -3174,10 +3432,16 @@ def main():
         del trainer
         torch.cuda.empty_cache()
     k4 = None
-    if want("train_k"):
+    if want("train_k") or want("ckpt"):
         k4 = run("train_k", phase_train_k, torch, args)
         lanes = k4["AdaQP"][0]["lanes"]
         qtimes = run("time", phase_time_quant, torch, card, lanes)
+    if want("ckpt"):
+        ckpt_l = run("ckpt", phase_ckpt, torch, args, k4)
+    if want("partition"):
+        run("partition", phase_partition, torch, args)
+    if want("parity"):
+        parity_l = run("parity", phase_parity, torch, args)
     if want("train_pad"):
         kpad = run("train_pad", phase_train_pad, torch, args, k4)
         ptimes, pad_path_err = run("time", phase_time_pad, torch, card, kpad)
@@ -3189,29 +3453,36 @@ def main():
     if only is not None:
         say("[done] partial run (--only): no result lines")
         return
-    k4_strip = sum(r["launches"][0] for r in k4["AdaQP"])
-    k4_q = sum(r["launches"][1] for r in k4["AdaQP"])
-    k4_u = sum(r["launches"][2] for r in k4["AdaQP"])
+    # the K=4 paths (all ranks): train_k's AdaQP run, its resumed run (ckpt)
+    # and the accuracy-parity runs
+    k4_strip, k4_q, k4_u = (sum(r["launches"][i] for r in k4["AdaQP"]) for i in range(3))
+    ck_strip, ck_q, ck_u = (sum(r[i] for r in ckpt_l) for i in range(3))
     agg_l = {k: sum(r["launches"][k] for r in agg.values()) for k in _wrappers()}
     pad_q = sum(r["pad_launches"][0] for r in kpad)
     pad_d = sum(r["pad_launches"][1] for r in kpad)
     say(f"[result] strip_spmm launches: K=1 train {launches}, K=4 AdaQP train {k4_strip} "
-        f"(all ranks), products train {agg_l['strip_spmm']}")
+        f"(all ranks), its resumed run {ck_strip}, accuracy parity {parity_l['strip_spmm']}, "
+        f"products train {agg_l['strip_spmm']}; quant_pack / unpack_dequant: K=4 AdaQP train "
+        f"{k4_q} / {k4_u}, resumed {ck_q} / {ck_u}, accuracy parity {parity_l['quant_pack']} / "
+        f"{parity_l['unpack_dequant']}")
     say(card)
     say(json.dumps({"kernels": [
         {"name": "strip_spmm", "route": "cuda",
          "source": "adaqp_tpu_torch/csrc/spmm_strip.cu",
          "replaces": "adaqp_tpu/ops/spmm_strip.py:277",
-         "launches": launches + k4_strip + agg_l["strip_spmm"], "max_abs_err": err,
+         "launches": launches + k4_strip + ck_strip + parity_l["strip_spmm"]
+         + agg_l["strip_spmm"], "max_abs_err": err,
          **times[640]},
         {"name": "quant_pack", "route": "cuda",
          "source": "adaqp_tpu_torch/csrc/quant_pack.cu",
          "replaces": "adaqp_tpu/ops/quant_pallas.py:103",
-         "launches": k4_q, "max_abs_err": pack_err, **qtimes[640][0]},
+         "launches": k4_q + ck_q + parity_l["quant_pack"], "max_abs_err": pack_err,
+         **qtimes[640][0]},
         {"name": "unpack_dequant", "route": "cuda",
          "source": "adaqp_tpu_torch/csrc/quant_pack.cu",
          "replaces": "adaqp_tpu/ops/quant_pallas.py:202",
-         "launches": k4_u, "max_abs_err": quant_err, **qtimes[640][1]},
+         "launches": k4_u + ck_u + parity_l["unpack_dequant"], "max_abs_err": quant_err,
+         **qtimes[640][1]},
         {"name": "block_spmm", "route": "cuda",
          "source": "adaqp_tpu_torch/csrc/spmm_strip.cu",
          "replaces": "adaqp_tpu/ops/spmm_block.py:248",
