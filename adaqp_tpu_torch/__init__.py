@@ -12,9 +12,11 @@ plain PyTorch version on a CPU tensor.
 Ported so far: training on K partitions, one ``torch.distributed`` rank
 each — layouts, the strip bitmask SpMM kernel with its ELL straggler, the
 exact-size ragged exchange with the quantize-pack and unpack-dequantize
-kernels, the assigner, GCN/SAGE, the Trainer and its command line
-(``python -m adaqp_tpu_torch``); the gather micro-benchmarks of
-``scripts/`` (``adaqp_tpu_torch.scripts``).
+kernels, the assigner, GCN/SAGE, the Trainer with checkpoint and resume
+and its command line (``python -m adaqp_tpu_torch``); the native LDG
+partitioner (``native/``) and its command line (``python -m
+adaqp_tpu_torch.graph_partition``); the probes of ``scripts/`` that hold
+kernels and the accuracy-parity experiment (``adaqp_tpu_torch.scripts``).
 """
 
 __version__ = "0.1.0"

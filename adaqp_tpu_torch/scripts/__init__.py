@@ -10,6 +10,10 @@ the probe's lines:
     python -m adaqp_tpu_torch.scripts.microbench_expand [--f 640] [--n N --e E] [--device cpu]
     python -m adaqp_tpu_torch.scripts.probe_r5 [--device cpu]
 
+``accuracy_parity`` holds no kernel: it trains the Trainer's modes and
+schemes against Vanilla (``python -m
+adaqp_tpu_torch.scripts.accuracy_parity [--scale] [--epochs N] [--device cpu]``).
+
 The mains run on the CUDA card unless ``--device cpu`` is given, and raise
 where the script they replace printed ``FAILED`` and went on.
 """

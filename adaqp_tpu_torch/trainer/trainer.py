@@ -264,7 +264,8 @@ class Trainer:
 
         # ---- checkpoint to resume from (read before the assigner: it holds
         # the cost model and the assignment) ----
-        resume = self._read_checkpoint() if cfg.resume else None
+        ckpt = self._read_checkpoint() if cfg.resume else None  # (epoch, arrays, path)
+        saved = None if ckpt is None else ckpt[1]
 
         # ---- assigner (quantized modes; at K=1 nothing crosses) ----
         self.assignment: Optional[Assignment] = None
@@ -281,11 +282,11 @@ class Trainer:
                 bits_options=self._bits_options(),
             )
             cost_model = (1.0, 0.1)
-            if resume is not None:
+            if saved is not None:
                 # the saved fit, not a new profile: the next reassignment
                 # then solves what the straight run solves (the JAX Trainer
                 # profiles again on resume)
-                cost_model = tuple(_scalar_or_array(resume[1][f"cost.{x}"])
+                cost_model = tuple(_scalar_or_array(saved[f"cost.{x}"])
                                    for x in ("alpha", "beta"))
             elif self.scheme is Scheme.ADAPTIVE:
                 tp = time.perf_counter()
@@ -307,11 +308,10 @@ class Trainer:
                 )
             self.assigner = Assigner(plan, cfg.num_layers, acfg, cost_model)
             # bootstrap: uniform assign_bits (reference trainer.py:63-66)
-            if resume is not None:
-                st = resume[1]
+            if saved is not None:
                 self.assignment = Assignment(
-                    [st[f"asg.fwd.{i}"] for i in range(cfg.num_layers)],
-                    [st[f"asg.bwd.{i}"] for i in range(cfg.num_layers)])
+                    [saved[f"asg.fwd.{i}"] for i in range(cfg.num_layers)],
+                    [saved[f"asg.bwd.{i}"] for i in range(cfg.num_layers)])
             elif self.scheme is Scheme.RANDOM:
                 self.assignment = random_assignment(plan, cfg.num_layers, cfg.seed)
             else:
@@ -320,7 +320,7 @@ class Trainer:
         self._reset_traces()
         self.recorder = Recorder(cfg.num_epochs)
         # epochs already trained: training goes on from the next one
-        self.start_epoch = 0 if resume is None else self._apply_checkpoint(*resume)
+        self.start_epoch = 0 if ckpt is None else self._apply_checkpoint(*ckpt)
         self.overhead_s = time.perf_counter() - t0
         logger.info(
             "Trainer ready: %s %s mode=%s scheme=%s K=%d rank=%d Lmax=%d R=%d S=%d on %s",

@@ -3440,6 +3440,7 @@ def main():
         ckpt_l = run("ckpt", phase_ckpt, torch, args, k4)
     if want("partition"):
         run("partition", phase_partition, torch, args)
+        torch.cuda.empty_cache()
     if want("parity"):
         parity_l = run("parity", phase_parity, torch, args)
     if want("train_pad"):
