@@ -1396,8 +1396,7 @@ def phase_partition(torch, args):
     log.addHandler(handler)
     log.setLevel(logging.INFO)
     try:
-        sizes = [args.nodes_k] + ([REDDIT_N] if args.full else [])
-        for n in sizes:
+        for n in [args.nodes_k] + ([REDDIT_N] if args.full else []):
             e = REDDIT_E if n == REDDIT_N else n * round(REDDIT_E / REDDIT_N)
             g = synth_reddit(n, e, REDDIT_F, REDDIT_C, seed=SEED, device="cuda")
             keep = g.src != g.dst
@@ -1408,10 +1407,10 @@ def phase_partition(torch, args):
             part = partition_ldg(src, dst, n, 4)
             native_s = time.perf_counter() - t0
             check(any("native path" in m for m in seen), f"the native LDG did not run: {seen}")
-            sizes_k = np.bincount(part, minlength=4).tolist()
+            sizes = np.bincount(part, minlength=4).tolist()
             cut = int((part[src] != part[dst]).sum())
             line = (f"[partition] {n} nodes, {len(src)} edges without self-loops, K=4: native "
-                    f"{native_s:.2f} s; part sizes {sizes_k}; edge cut {cut}")
+                    f"{native_s:.2f} s; part sizes {sizes}; edge cut {cut}")
             if n == args.nodes_k:
                 t0 = time.perf_counter()
                 plain = partition_ldg(src, dst, n, 4, native=False)
