@@ -8,6 +8,7 @@
     python -m adaqp_tpu_torch --dataset sbm --num_parts 2 --wire_impl padded --device cpu
     python -m adaqp_tpu_torch --dataset sbm --num_parts 2 --device cpu --ckpt_every 5
     python -m adaqp_tpu_torch --dataset sbm --num_parts 2 --device cpu --resume
+    python -m adaqp_tpu_torch --dataset sbm --num_parts 2 --device cpu --remat 1 --log_hbm
 
 ``--num_parts K`` > 1 starts K ranks on this machine (one per partition;
 over nccl when there is a card for each rank, else over gloo). Under
@@ -55,6 +56,15 @@ def parse_args(argv=None):
     p.add_argument("--compact_full_cols", type=int, default=None,
                    help="compact impl: regions above this occupied-column "
                         "count stay full-bitmask")
+    p.add_argument("--static_wire", type=int, default=None, choices=[0, 1],
+                   help="accepted for the JAX command line and without effect: it buys the "
+                        "JAX package fewer recompiles, and PyTorch runs eagerly")
+    p.add_argument("--remat", type=int, default=None, choices=[0, 1],
+                   help="recompute each GNN layer in the backward pass instead of keeping "
+                        "its intermediates (a smaller peak for a second forward aggregation)")
+    p.add_argument("--log_hbm", action="store_true", default=None,
+                   help="log the first training step's device memory after it (args, the "
+                        "step's peak above them, the gradients)")
     p.add_argument("--fp32_lanes", action="store_true", default=None,
                    help="let the adaptive MILP assign raw fp32 lanes per "
                         "channel group")
@@ -80,6 +90,9 @@ def config_from_args(args):
     from .trainer import RunConfig
 
     overrides = {k: v for k, v in vars(args).items() if k not in ("dataset", "device")}
+    for k in ("static_wire", "remat"):  # 0/1 on the command line, as main.py takes them
+        if overrides[k] is not None:
+            overrides[k] = bool(overrides[k])
     return RunConfig.from_yaml(args.dataset, overrides)
 
 

@@ -87,6 +87,11 @@ class ShardStatic:
     use_norm: bool = True
     spmm: str = "strip"
     edge_chunk: Optional[int] = None  # segment sum: edges per chunk (None: all at once)
+    # recompute each GNN layer in the backward pass instead of keeping its
+    # [n, hidden] intermediates (the aggregation, the dropout mask, the
+    # LayerNorm input, the activation): a second forward aggregation a layer
+    # for a smaller peak, so that graphs that fit forward-only also train
+    remat: bool = False
     agg_dtype: str = "float32"  # aggregation compute dtype ("bfloat16" on the card)
     wire: str = "ragged"  # the K>1 exchange's wire_impl: "ragged" or "padded"
 

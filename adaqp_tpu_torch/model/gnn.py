@@ -13,6 +13,11 @@ unchanged (:func:`params_from_numpy`).
 - SAGE mean  : ``out = h @ W_self + aggregate(h) @ W_neigh + b``
   (``distSAGE.py:46-60``)
 - SAGE 'gcn' : ``out = aggregate(h) @ W_neigh + b``
+
+With ``ShardStatic.remat`` a training pass recomputes each whole layer
+(aggregation, transform, dropout, LayerNorm, ReLU) in the backward pass
+and keeps only its input (:func:`remat_layer`; the JAX package wraps the
+layer in ``jax.checkpoint``, ``gnn.py:145-148``).
 """
 from __future__ import annotations
 
@@ -22,10 +27,11 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from ..common.types import AggregatorType, GNNType
 from ..graph.device import ShardArrays, ShardStatic
-from ..ops.dist_ops import dist_aggregate
+from ..ops.dist_ops import LayerTape, dist_aggregate
 
 Params = List[Dict[str, torch.Tensor]]
 
@@ -75,6 +81,20 @@ def params_from_numpy(params, device=None) -> Params:
     ]
 
 
+def remat_layer(fn, h: torch.Tensor, gen: Optional[torch.Generator]):
+    """``fn(h, tape)`` with the tensors its backward needs recomputed in the
+    backward pass instead of kept: ``torch.utils.checkpoint`` in its
+    non-reentrant form, which passes gradients to the tensors ``fn``
+    captures (the parameters, the sinks of the backward trace) and takes an
+    ``h`` that needs none (layer 0's features). The :class:`LayerTape`
+    replays the dropout generator ``gen`` and the received halo rows; with
+    no ``gen`` the default generators are preserved instead."""
+    tape = LayerTape(gen)
+    return torch.utils.checkpoint.checkpoint(
+        fn, h, tape, use_reentrant=False, preserve_rng_state=gen is None,
+        context_fn=tape.contexts)
+
+
 def apply_gnn(
     params: Params,
     sh: ShardArrays,
@@ -94,7 +114,8 @@ def apply_gnn(
     ``(fwd, bwd)`` wire plans, or ``padded[i]`` the padded wire's lane
     tables (quantized training; None for the f32 exchange); ``keys[i]`` the (forward,
     backward) generator keys of the quantized buckets, ``sinks[i]`` a
-    ``[r_pad]`` leaf for the backward variance trace or None.
+    ``[r_pad]`` leaf for the backward variance trace or None. In training
+    with ``cfg.remat`` each layer is recomputed in the backward pass.
     Returns (logits [L, classes] f32, fwd_traces [num_layers, K, S])."""
     h = sh.feats
     traces = []
@@ -106,41 +127,49 @@ def apply_gnn(
         # layer 0 consumes zero-padded input features; deeper layers run at
         # exact hidden width (the variance range must ignore pad columns)
         ft = cfg.f_true if (i == 0 and cfg.f_true) else h.shape[1]
-        agg, tr = dist_aggregate(
-            h, sh, cfg, blocks, f_true=ft,
-            wire=None if wires is None else wires[i],
-            keys=(0, 0) if keys is None else keys[i],
-            sink=None if sinks is None else sinks[i],
-            padded=None if padded is None else padded[i],
-        )
-        if dt is not None:
-            agg = agg.to(dt)
 
-        def w(name):
-            m = layer[name]
-            return m.to(dt) if dt is not None else m
+        def layer_fn(h, tape=None, i=i, layer=layer, ft=ft):
+            agg, tr = dist_aggregate(
+                h, sh, cfg, blocks, f_true=ft,
+                wire=None if wires is None else wires[i],
+                keys=(0, 0) if keys is None else keys[i],
+                sink=None if sinks is None else sinks[i],
+                padded=None if padded is None else padded[i],
+                tape=tape,
+            )
+            if dt is not None:
+                agg = agg.to(dt)
 
-        if cfg.model is GNNType.GCN:
-            out = agg @ w("w") + w("b")
+            def w(name):
+                m = layer[name]
+                return m.to(dt) if dt is not None else m
+
+            if cfg.model is GNNType.GCN:
+                out = agg @ w("w") + w("b")
+            else:
+                out = agg @ w("w_neigh") + w("b")
+                if "w_self" in layer:
+                    out = out + h.to(agg.dtype) @ w("w_self")
+            if i < n_layers - 1:
+                if train and cfg.dropout > 0.0:
+                    keep = torch.empty(out.shape, device=out.device).bernoulli_(
+                        1.0 - cfg.dropout, generator=dropout_gen
+                    ).bool()
+                    out = torch.where(keep, out / (1.0 - cfg.dropout), 0.0)
+                if cfg.use_norm:
+                    # normalization statistics in f32 regardless of dt
+                    out = F.layer_norm(
+                        out.float(), (out.shape[-1],), layer["ln_scale"],
+                        layer["ln_bias"], eps=1e-5,
+                    ).to(agg.dtype)
+                out = torch.relu(out)
+            else:
+                out = out.float()
+            return out, tr
+
+        if cfg.remat and train:
+            h, tr = remat_layer(layer_fn, h, dropout_gen)
         else:
-            out = agg @ w("w_neigh") + w("b")
-            if "w_self" in layer:
-                out = out + h.to(agg.dtype) @ w("w_self")
-        if i < n_layers - 1:
-            if train and cfg.dropout > 0.0:
-                keep = torch.empty(out.shape, device=out.device).bernoulli_(
-                    1.0 - cfg.dropout, generator=dropout_gen
-                ).bool()
-                out = torch.where(keep, out / (1.0 - cfg.dropout), 0.0)
-            if cfg.use_norm:
-                # normalization statistics in f32 regardless of dt
-                out = F.layer_norm(
-                    out.float(), (out.shape[-1],), layer["ln_scale"],
-                    layer["ln_bias"], eps=1e-5,
-                ).to(agg.dtype)
-            out = torch.relu(out)
-        else:
-            out = out.float()
-        h = out
+            h, tr = layer_fn(h)
         traces.append(tr.float())
     return h, torch.stack(traces)

@@ -25,6 +25,17 @@ Both schedules run the same operations on the same data, so they give the
 same bits. At K=1 no message crosses partitions: the halo input is a
 constant zero block.
 
+Recomputation (``ShardStatic.remat``, :class:`LayerTape`): the model
+recomputes a whole layer in the backward pass (``model/gnn.py``). The
+layer's first forward runs the schedule above and keeps the halo rows it
+received; the recompute reads them instead of exchanging again, so each
+exchange ships once a step and its backward (the transpose routing and the
+backward trace) runs once. The JAX package's ``jax.checkpoint`` runs the
+layer's collective again when it recomputes; on one card the host-staged
+exchange is the largest part of a K>1 step, and the rows it would bring
+are the ones already here. The forward trace, which has no gradient, is
+computed in the first forward only.
+
 The aggregation ``A^T h`` runs on the run's tile kernel, chosen by the
 layout type of ``blocks`` (:func:`pick_block_kernel`: strip, block or
 compact), in the aggregation dtype; with no ``blocks`` (``spmm_impl=
@@ -39,6 +50,7 @@ Aggregation math (reference ``ops.py:17-67``, global degrees clamped >= 1):
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Tuple
 
 import torch
@@ -98,6 +110,49 @@ class PairSegSpmm(torch.autograd.Function):
         return g_l, g_r, None, None, None, None
 
 
+class LayerTape:
+    """What a recomputed layer keeps of its first forward for the recompute
+    in the backward pass: the state of the dropout generator ``gen`` (or
+    None) before the layer drew its mask, and the halo rows its exchange
+    delivered (f32 ``[r_pad, F]``). :meth:`replay` is the recompute's
+    context: it turns the generator back to that state, so that the
+    recompute draws the same mask (``torch.utils.checkpoint`` restores only
+    the default generators), and puts it back where the forward pass left
+    it afterwards."""
+
+    def __init__(self, gen: Optional[torch.Generator]):
+        self.gen = gen
+        self.gen_state = None if gen is None else gen.get_state()
+        self.remote: Optional[torch.Tensor] = None
+        self.remote_grad = False
+        self.replaying = False
+
+    def keep(self, remote: torch.Tensor) -> None:
+        self.remote, self.remote_grad = remote.detach(), remote.requires_grad
+
+    def halo(self) -> torch.Tensor:
+        """The kept halo rows, requiring a gradient where the first
+        forward's did (the recompute must save what the forward saved)."""
+        return self.remote.detach().requires_grad_(self.remote_grad)
+
+    @contextlib.contextmanager
+    def replay(self):
+        now = None if self.gen is None else self.gen.get_state()
+        if now is not None:
+            self.gen.set_state(self.gen_state)
+        self.replaying = True
+        try:
+            yield
+        finally:
+            self.replaying = False
+            if now is not None:
+                self.gen.set_state(now)
+
+    def contexts(self):
+        """``torch.utils.checkpoint``'s ``context_fn``: (forward, recompute)."""
+        return contextlib.nullcontext(), self.replay()
+
+
 def dist_aggregate(
     h: torch.Tensor,
     sh: ShardArrays,
@@ -108,7 +163,8 @@ def dist_aggregate(
     keys: Tuple[int, int] = (0, 0),
     sink: Optional[torch.Tensor] = None,
     padded=None,
-) -> Tuple[torch.Tensor, torch.Tensor]:
+    tape: Optional[LayerTape] = None,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Aggregate one partition's rows ``h`` [L, F] over the graph.
 
     ``blocks``: the rank's tile shards (strip, block or compact), or None
@@ -120,18 +176,23 @@ def dist_aggregate(
     the f32 exchange. ``keys`` are the
     (forward, backward) generator keys of the quantized buckets, and
     ``sink`` a ``[r_pad]`` leaf whose gradient becomes the backward
-    variance trace (or None).
+    variance trace (or None). ``tape``: a recomputed layer's
+    :class:`LayerTape`; the first forward keeps its halo rows there, and a
+    recompute (``tape.replaying``) reads them and starts no exchange.
 
     Returns ``(out [L, F], fwd_trace [K, S])``; fwd_trace is the
     per-sent-lane variance proxy (reference ``@trace_input``,
-    ``op_util.py:91-99``), a value with no gradient.
+    ``op_util.py:91-99``), a value with no gradient (None in a recompute).
     """
     ft = h.shape[1] if f_true is None else f_true
-    fwd_trace = variance_proxy(h.detach()[sh.send_idx], ft)
+    replay = tape is not None and tape.replaying
+    fwd_trace = None if replay else variance_proxy(h.detach()[sh.send_idx], ft)
 
     pending = None
     if cfg.k == 1:
         remote = torch.zeros((cfg.r_pad, h.shape[1]), dtype=torch.float32, device=h.device)
+    elif replay:
+        remote = tape.halo()
     elif cfg.wire == "ragged":
         if wire is None:
             raise ValueError("K>1 aggregation on the ragged wire needs this layer's wire plans")
@@ -187,6 +248,8 @@ def dist_aggregate(
         raise ValueError(f"unknown model {cfg.model}")
     if pending is not None:
         remote = finish()
+    if tape is not None and not replay and cfg.k > 1:
+        tape.keep(remote)
     if cfg.model is GNNType.GCN:
         hs_remote = remote * torch.rsqrt(sh.deg_out[l:])[:, None]
         out = pair(local, hs_remote) * torch.rsqrt(sh.deg_in[:l])[:, None]

@@ -3,10 +3,13 @@
 
 YAML sections mirror the reference (``AdaQP/config/*.yaml``):
 ``data`` / ``model`` / ``runtime`` / ``assignment``. The field set is the
-JAX package's, so one config describes a run of either package. Fields
-that tune the JAX package's compiler or TPU memory have no effect here:
+JAX package's, so one config describes a run of either package. One
+field tunes only the JAX package's compiler and has no effect here:
 ``static_wire`` (PyTorch runs eagerly, so exact wire shapes cost no
-recompile), ``remat`` and ``log_hbm``.
+recompile). ``remat`` and ``log_hbm`` act as in the JAX package, with
+two departures: the recompute reads the halo rows the exchange delivered
+instead of exchanging again, and the memory report comes after the first
+step instead of before it.
 """
 from __future__ import annotations
 
@@ -67,9 +70,10 @@ class RunConfig:
     # pow2-bracket wire capacities (JAX jit caches); no effect in the port
     static_wire: Optional[bool] = None
     agg_dtype: str = "float32"  # aggregation compute dtype
-    # rematerialize GNN layers in backward
+    # recompute each GNN layer in the backward pass instead of keeping its
+    # intermediates (a smaller peak for a second forward aggregation)
     remat: bool = False
-    # log the train step's device-memory footprint before the first step
+    # log the train step's device-memory footprint (after the first step)
     log_hbm: bool = False
     # checkpoint / resume (capability absent in the reference, SURVEY.md §5)
     ckpt_every: int = 0  # epochs between checkpoints; 0 = off

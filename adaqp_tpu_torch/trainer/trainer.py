@@ -42,14 +42,24 @@ adaqp_tpu_torch`` start them):
   construction, takes its cost model instead of profiling, and goes on
   from the next epoch; as every random stream below comes from the epoch
   index, it draws what the straight run draws (the JAX Trainer splits a
-  key once an executed epoch, so its resumed runs draw other keys).
+  key once an executed epoch, so its resumed runs draw other keys);
+- recomputation (``remat``): the training step recomputes each layer in
+  the backward pass instead of keeping its intermediates
+  (``model/gnn.py::remat_layer``); the recompute reads the halo rows the
+  layer's exchange delivered and ships nothing again, so the wire's
+  launches and the traces are those of a run without it;
+- the memory report (``log_hbm``): one line after the first training step
+  with the bytes allocated before it, the step's peak above them and the
+  gradients' bytes (:meth:`Trainer._log_step_memory`).
 
 Random streams, all derived from ``seed`` with
 ``ops/quant_cuda.py::stream_key``, so that a run is reproducible and a
 card run draws what a CPU run draws:
 
 - dropout masks of epoch ``e`` on rank ``r``: a generator seeded with
-  ``stream_key(seed, e, r, 0)``;
+  ``stream_key(seed, e, r, 0)``, which the layers draw from in turn (a
+  recomputed layer draws its mask again from the state it first drew
+  from);
 - quantized bucket ``b`` of layer ``l`` in direction ``d`` (1 forward,
   2 backward), epoch ``e``, rank ``r``: the kernel's generator key
   ``stream_key(stream_key(seed, e, r, l, d), b)``.
@@ -232,6 +242,7 @@ class Trainer:
             agg_dtype=cfg.agg_dtype,
             edge_chunk=cfg.edge_chunk,
             wire=cfg.wire_impl,
+            remat=cfg.remat,
         )
         # global counts from the layout: every node lies in one partition
         lay = self.layout
@@ -681,7 +692,8 @@ class Trainer:
         has no backward) and the evaluation's forward ones. The padded
         wire: (quant_rows, dequant_rows), one pair per direction of a
         quantized training step's exchange that carries any lane (layer 0
-        has no backward)."""
+        has no backward). Recomputation (``remat``) adds none: the
+        recompute reads the halo rows the exchange delivered."""
         if self.padded is not None:
             n = sum(int(w.fwd.n > 0) + (int(w.bwd.n > 0) if i else 0)
                     for i, w in enumerate(self.padded))
@@ -697,17 +709,23 @@ class Trainer:
                 pack, unpack = pack + p, unpack + u
         return pack, unpack
 
+    def _step_tile_launches(self, remat: bool) -> int:
+        """Tile launches of one training step: the forward aggregates twice
+        a layer (local and halo), the backward once a layer after the first
+        (layer 0's input carries no gradient), twice at K>1 (the halo rows
+        carry one through the exchange); with ``remat`` the backward
+        recomputes each layer's forward, twice a layer more."""
+        layers = self.cfg.num_layers
+        fwd = 2 * layers
+        return fwd + (layers - 1) * (1 if self.k == 1 else 2) + (fwd if remat else 0)
+
     def tile_launches_per_epoch(self) -> int:
         """Launches of the run's tile kernel one epoch (a training step and
-        an evaluation) makes on this rank; 0 for the segment sum. Forward
-        and evaluation aggregate twice a layer (local and halo); the
-        backward once a layer after the first (layer 0's input carries no
-        gradient), twice at K>1 (the halo rows carry one through the
-        exchange)."""
+        an evaluation, which aggregates twice a layer) makes on this rank;
+        0 for the segment sum."""
         if self.blocks is None:
             return 0
-        layers = self.cfg.num_layers
-        return 4 * layers + (layers - 1) * (1 if self.k == 1 else 2)
+        return self._step_tile_launches(self.static.remat) + 2 * self.cfg.num_layers
 
     def _probe_aggregation(self):
         """part -> fn(rows) running the run's aggregation of that part:
@@ -737,8 +755,8 @@ class Trainer:
         if self.blocks is not None:
             name = {"strip": "strip_spmm", "block": "block_spmm",
                     "compact": "compact_spmm"}[self.cfg.spmm_impl]
-            # an epoch's launches less the evaluation's two a layer
-            out[name] = calls * (self.tile_launches_per_epoch() - 2 * layers)
+            # a training step's, without recomputation
+            out[name] = calls * self._step_tile_launches(remat=False)
         if self.assigner is not None:
             pair = (("quant_rows", "dequant_rows") if self.cfg.wire_impl == "padded"
                     else ("quant_pack", "unpack_dequant"))
@@ -846,6 +864,50 @@ class Trainer:
                 fns.append(lambda buf=buf: padded_all_to_all(buf))
         return fns
 
+    def _memory_mark(self) -> Optional[Tuple[int, int]]:
+        """(bytes allocated, the peak counter) on the card; None elsewhere."""
+        if self.device.type != "cuda":
+            return None
+        torch.cuda.synchronize(self.device)
+        return (torch.cuda.memory_allocated(self.device),
+                torch.cuda.max_memory_allocated(self.device))
+
+    def _log_step_memory(self, mark: Optional[Tuple[int, int]]) -> Optional[Dict[str, Any]]:
+        """The ``log_hbm`` line of the first training step, ``mark`` taken
+        just before it, in the JAX Trainer's form (``trainer.py:527-534``):
+
+        - args: the bytes allocated before the step (parameters, graph and
+          layouts; torch's Adam creates its moments within the first step,
+          so their bytes fall in temps);
+        - temps: the step's peak above args;
+        - output: the gradients' bytes.
+
+        It comes after the first step, not before: the JAX Trainer reads
+        XLA's analysis of the compiled step, and eager PyTorch knows a
+        step's memory only once it has run. The peak counter is read and
+        never reset, so a caller's own reading of it stays whole; where an
+        earlier peak of the process exceeds the step's, temps is given as
+        at most that. Off the card, as where XLA has no analysis, the line
+        says it is unavailable. Returns the bytes, or None."""
+        if mark is None:
+            logger.info("hbm analysis unavailable on this backend")
+            return None
+        args, peak_before = mark
+        torch.cuda.synchronize(self.device)
+        peak = torch.cuda.max_memory_allocated(self.device)
+        exact = peak > peak_before
+        temps = (peak if exact else peak_before) - args
+        output = sum(p.grad.numel() * p.grad.element_size()
+                     for layer in self.params for p in layer.values() if p.grad is not None)
+        gib = 2.0 ** 30
+        logger.info(
+            "train-step HBM: temps %s%.2f GiB | args %.2f GiB | output %.2f GiB "
+            "(after the first step; bytes: temps %d, args %d, output %d)",
+            "" if exact else "at most ", temps / gib, args / gib, output / gib,
+            temps, args, output,
+        )
+        return {"args": args, "temps": temps, "output": output, "temps_exact": exact}
+
     def train(self) -> Dict[str, Any]:
         cfg = self.cfg
         if cfg.measure_breakdown:
@@ -853,6 +915,7 @@ class Trainer:
         t_train0 = time.perf_counter()
         losses = []
         planned = np.zeros(2, np.int64)
+        hbm = None
         for epoch in range(self.start_epoch + 1, cfg.num_epochs + 1):
             if (
                 self.assigner is not None
@@ -862,11 +925,15 @@ class Trainer:
             ):
                 self._reassign(epoch)
             planned += self.planned_quant_launches()
+            first = cfg.log_hbm and epoch == self.start_epoch + 1
+            mark = self._memory_mark() if first else None
             t0 = time.perf_counter()
             # the host readback waits for the device, so the bracket holds
             # the whole step
             loss = float(self._train_step(epoch))
             self.timer.add_epoch(time.perf_counter() - t0)
+            if first:
+                hbm = self._log_step_memory(mark)
             losses.append(loss)
             tr, va, te = self._eval_step()
             self.recorder.add(tr, va, te)
@@ -895,6 +962,7 @@ class Trainer:
             "planned_tile_launches": (cfg.num_epochs - self.start_epoch)
             * self.tile_launches_per_epoch(),
             "probe_launches": self.probe_launches() if cfg.measure_breakdown else {},
+            "hbm": hbm,
         }
         logger.info(
             "done: best epoch %d train %.4f val %.4f test %.4f | %.3fs/epoch",

@@ -1276,10 +1276,13 @@ def _ckpt_worker(rank, world, device, cfg, graph_fn):
 
     t._reassign = recording_reassign
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     ss.strip_spmm.launches = qc.quant_pack.launches = qc.unpack_dequant.launches = 0
     rec = t.train()
     launches = (ss.strip_spmm.launches, qc.quant_pack.launches, qc.unpack_dequant.launches)
+    torch.cuda.synchronize()
     return {
+        "peak": torch.cuda.max_memory_allocated(), "per_epoch": rec["per_epoch"],
         "start": t.start_epoch, "digest": digest, "profile_s": t.profile_s,
         "load_s": t.timer.totals().get("ckpt_load", 0.0), "reassigned": reassigned,
         "trace_before": before, "loss_curve": rec["loss_curve"], "launches": launches,
@@ -1288,23 +1291,19 @@ def _ckpt_worker(rank, world, device, cfg, graph_fn):
     }
 
 
-def phase_ckpt(torch, args, k4):
-    """Resume train_k's AdaQP run from its epoch-8 checkpoint on four new
-    ranks: the loaded state equals each rank's state at the save bit for
-    bit, the reassignment at epoch 11 runs on the loaded traces plus the
-    new epochs' without profiling again, the kernels launch as planned,
-    and the losses follow the straight run's."""
+def _resume_k4(args, k4, tag, remat=False):
+    """Four new ranks resume train_k's AdaQP run from its epoch-8
+    checkpoint (with ``remat``: recomputing their layers); each rank's
+    :func:`_ckpt_worker` result, the launch's seconds and the checkpoint's
+    bytes."""
     import functools
-
-    import numpy as np
 
     from adaqp_tpu_torch.__main__ import config_from_args, parse_args
     from adaqp_tpu_torch.comm.distributed import spawn
     from adaqp_tpu_torch.helper.dataset import REDDIT_C, REDDIT_E, REDDIT_F, REDDIT_N, synth_reddit
 
-    straight = k4["AdaQP"]
-    epochs = straight[0]["epochs"]
-    check(epochs > CKPT_EPOCH + 2, f"ckpt needs train_k past epoch {CKPT_EPOCH + 2} "
+    epochs = k4["AdaQP"][0]["epochs"]
+    check(epochs > CKPT_EPOCH + 2, f"{tag} needs train_k past epoch {CKPT_EPOCH + 2} "
           f"(--epochs_k {epochs})")
     n = args.nodes_k
     graph_fn = functools.partial(synth_reddit, n, n * round(REDDIT_E / REDDIT_N), REDDIT_F,
@@ -1314,7 +1313,7 @@ def phase_ckpt(torch, args, k4):
         "--dataset", "reddit", "--num_parts", "4", "--mode", "AdaQP",
         "--assign_scheme", "adaptive", "--num_epochs", str(epochs),
         "--agg_dtype", "bfloat16", "--seed", str(SEED), "--resume", "--ckpt_dir", ckpt_dir,
-        "--exp_path", os.path.join(WORK, "k4_exp"),
+        "--exp_path", os.path.join(WORK, "k4_exp"), "--remat", str(int(remat)),
     ]))
     cfg.assign_cycle, cfg.log_steps, cfg.measure_breakdown = 5, 1, False
     cfg.partition_dir = os.path.join(WORK, "k4_parts")
@@ -1328,14 +1327,25 @@ def phase_ckpt(torch, args, k4):
     t0 = time.perf_counter()
     res = spawn(_ckpt_worker, 4, "cuda", args=(cfg, graph_fn),
                 workdir=os.path.join(WORK, "launch"), timeout_s=480)
-    wall = time.perf_counter() - t0
-    tile_epoch = 6 * cfg.num_layers - 2
+    return res, time.perf_counter() - t0, nbytes, cfg
+
+
+def _check_resumed(tag, res, straight, tile_epoch):
+    """Every rank of a resumed run: loaded at the save's state, no profile,
+    the straight run's reassignments on the straight run's traces, its
+    launches as planned; returns the losses of rank 0, which the other ranks
+    share, and their largest relative difference to the straight run's."""
+    import numpy as np
+
+    epochs = straight[0]["epochs"]
     for rank, (r, s) in enumerate(zip(res, straight)):
         strip, qp, ud = r["launches"]
-        say(f"[ckpt] rank {rank}: resumed at epoch {r['start']}; state digest "
+        say(f"[{tag}] rank {rank}: resumed at epoch {r['start']}; state digest "
             f"{r['digest'][:16]} (at the save {s['digests'].get(CKPT_EPOCH, 'none')[:16]}); "
             f"profiling {r['profile_s']:.2f} s; reassigned at {r['reassigned']}; launches strip "
-            f"{strip}, quant_pack {qp}, unpack_dequant {ud} (planned {r['planned']})")
+            f"{strip}, quant_pack {qp}, unpack_dequant {ud} (planned {r['planned']}); peak "
+            f"max_memory_allocated {r['peak'] / 2**30:.3f} GiB; median step "
+            f"{r['per_epoch'] * 1e3:.1f} ms")
         check(r["start"] == CKPT_EPOCH, f"rank {rank} resumed at epoch {r['start']}")
         check(r["digest"] == s["digests"].get(CKPT_EPOCH),
               f"rank {rank}: the loaded state differs from the state at the save")
@@ -1349,7 +1359,7 @@ def phase_ckpt(torch, args, k4):
         for e in r["reassigned"]:
             got, want = r["trace_before"][e], s["trace_before"][e]
             rel = abs(got - want) / abs(want)
-            say(f"[ckpt] rank {rank} traces before the reassignment at epoch {e}: sum "
+            say(f"[{tag}] rank {rank} traces before the reassignment at epoch {e}: sum "
                 f"{got!r}, straight run {want!r} (relative {rel:.2e}, limit {CKPT_RTOL:.2e})")
             check(rel <= CKPT_RTOL, f"rank {rank}: the traces at epoch {e} are not the "
                   "loaded ones plus the new epochs'")
@@ -1358,7 +1368,7 @@ def phase_ckpt(torch, args, k4):
     for r in res[1:]:
         check(np.array_equal(np.asarray(r["loss_curve"]), losses), "ranks disagree on the loss")
     rel = float(np.max(np.abs(losses - want) / np.abs(want)))
-    say(f"[ckpt] losses of epochs {CKPT_EPOCH + 1}-{epochs}: resumed "
+    say(f"[{tag}] losses of epochs {CKPT_EPOCH + 1}-{epochs}: resumed "
         f"{np.round(losses, 5).tolist()}, straight {np.round(want, 5).tolist()}; max relative "
         f"difference {rel:.2e} (limit {CKPT_RTOL:.2e})")
     check(len(losses) == len(want) and np.isfinite(losses).all() and rel <= CKPT_RTOL,
@@ -1366,9 +1376,22 @@ def phase_ckpt(torch, args, k4):
     differ = sum(int(((a != b) & ((a > 0) | (b > 0))).sum())
                  for a, b in zip(res[0]["assignment"], straight[0]["assignment"]))
     lanes = sum(int((a > 0).sum()) for a in straight[0]["assignment"])
-    say(f"[ckpt] rank 0's assignment after epoch {res[0]['reassigned'][-1]}: {differ} of "
+    say(f"[{tag}] rank 0's assignment after epoch {res[0]['reassigned'][-1]}: {differ} of "
         f"{lanes} lane widths differ from the straight run's (not gated: the card's sums "
         "reorder; the CPU test holds it exactly)")
+    return losses, rel
+
+
+def phase_ckpt(torch, args, k4):
+    """Resume train_k's AdaQP run from its epoch-8 checkpoint on four new
+    ranks: the loaded state equals each rank's state at the save bit for
+    bit, the reassignment at epoch 11 runs on the loaded traces plus the
+    new epochs' without profiling again, the kernels launch as planned,
+    and the losses follow the straight run's."""
+    straight = k4["AdaQP"]
+    epochs = straight[0]["epochs"]
+    res, wall, nbytes, cfg = _resume_k4(args, k4, "ckpt")
+    _check_resumed("ckpt", res, straight, 6 * cfg.num_layers - 2)
     say(f"[ckpt] checkpoint {nbytes} bytes; save {straight[0]['ckpt_save_s']:.3f} s (rank 0, "
         f"gather + write + barrier), load {max(r['load_s'] for r in res):.3f} s (slowest rank); "
         f"launch + set-up + {epochs - CKPT_EPOCH} epochs {wall:.1f} s")
@@ -2298,6 +2321,140 @@ def phase_train_agg(torch, args):
     say(f"[train_agg] eval loss before a step, same parameters: {l0}; largest relative "
         f"difference to strip {rel:.2e} (limit {AGG_LOSS0_RTOL:g})")
     check(rel <= AGG_LOSS0_RTOL, "the aggregations disagree on the same parameters")
+    return out, g
+
+
+class _LineCatcher:
+    """Collects the port's log lines that contain ``marker``."""
+
+    def __init__(self, marker):
+        import logging
+
+        self.lines, self.log = [], logging.getLogger("adaqp_tpu_torch")
+        catcher = self
+
+        class Handler(logging.Handler):
+            def emit(self, record):
+                msg = record.getMessage()
+                if marker in msg:
+                    catcher.lines.append(msg)
+
+        self.handler = Handler()
+        self.log.addHandler(self.handler)
+
+    def close(self):
+        self.log.removeHandler(self.handler)
+
+
+def phase_remat(torch, args, agg_graph, k4, ckpt_l):
+    """Layer recomputation (``remat``) on the card. (a) The products GCN at
+    K=1 through strip, on train_agg's graph and cached layout (or, with
+    another ``--nodes_remat``, a graph of its own), twice from one set of
+    initial parameters: remat off, then on, each with ``log_hbm``. The
+    losses agree within one bf16 step, the recompute's strip launches are
+    the plan's, the remat run's peak is the lower, and each run's
+    ``log_hbm`` line agrees with the phase's own readings. (b) Four new
+    ranks resume train_k's epoch-8 checkpoint with remat on: as phase ckpt,
+    the straight run's losses within one bf16 step, its reassignment at 11,
+    the launches as planned (the recompute ships nothing again, so the
+    quant kernels launch as without it). Returns each run's launches."""
+    import numpy as np
+
+    from adaqp_tpu_torch.helper.dataset import synth_reddit
+    from adaqp_tpu_torch.ops import spmm_strip as ss
+    from adaqp_tpu_torch.trainer import RunConfig, Trainer
+
+    n = args.nodes_remat
+    parts = os.path.join(WORK, "agg_parts")
+    if agg_graph is None or n != args.nodes_agg:
+        e = round(n * PRODUCTS_E / PRODUCTS_N)
+        t0 = time.perf_counter()
+        agg_graph = synth_reddit(n, e, PRODUCTS_F, PRODUCTS_C, seed=SEED, device="cuda")
+        parts = os.path.join(WORK, f"remat_parts_{n}")
+        say(f"[remat] products-degree banded graph: {n} nodes, {e} unique directed edges: "
+            f"{time.perf_counter() - t0:.1f} s")
+    runs, init = {}, None
+    for remat in (False, True):
+        cfg = RunConfig.from_yaml("ogbn-products", {
+            "num_parts": 1, "mode": "Vanilla", "num_epochs": args.epochs_agg,
+            "log_steps": 10 ** 6, "partition_dir": parts,
+            "exp_path": os.path.join(WORK, "agg_exp"), "seed": SEED, "logger_level": "INFO",
+            "measure_breakdown": False, "spmm_impl": "strip", "remat": remat, "log_hbm": True,
+        })
+        t0 = time.perf_counter()
+        t = Trainer(cfg, graph=agg_graph)
+        setup_s = time.perf_counter() - t0
+        if init is None:
+            init = [{k: v.detach().cpu().numpy().copy() for k, v in layer.items()}
+                    for layer in t.params]
+        t.load_params(init)
+        catcher = _LineCatcher("train-step HBM")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        ss.strip_spmm.launches = 0
+        try:
+            rec = t.train()
+        finally:
+            catcher.close()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        launches = ss.strip_spmm.launches
+        tag = "remat" if remat else "plain"
+        adam = 2 * sum(p.numel() * p.element_size() for layer in t.params for p in layer.values())
+        hbm = rec["hbm"]
+        say(f"[remat] {tag}: {n} nodes, set-up {setup_s:.1f} s; losses "
+            f"{np.round(rec['loss_curve'], 5).tolist()}; median step "
+            f"{rec['per_epoch'] * 1e3:.2f} ms; peak max_memory_allocated {peak} bytes "
+            f"({peak / 2**30:.3f} GiB), {before} before train(); strip launches {launches} "
+            f"(planned {rec['planned_tile_launches']})")
+        for line in catcher.lines:
+            say(f"[remat] {tag} log_hbm: {line}")
+        check(len(catcher.lines) == 1 and hbm is not None and hbm["temps_exact"],
+              f"{tag}: no log_hbm line with the step's own peak ({catcher.lines})")
+        # the run's peak above args is the first step's, plus Adam's moments,
+        # which torch creates at the end of the first step
+        extra = (peak - before) - hbm["temps"]
+        say(f"[remat] {tag}: log_hbm args {hbm['args']} (phase {before}), temps {hbm['temps']} "
+            f"(the run's peak above args {peak - before}, {extra} more; Adam's moments "
+            f"{adam}), output {hbm['output']}")
+        check(hbm["args"] == before and 0 <= extra <= adam + 2 ** 20,
+              f"{tag}: the log_hbm line disagrees with the phase's readings")
+        check(hbm["output"] == adam // 2, f"{tag}: output {hbm['output']} is not the gradients'")
+        check(launches == rec["planned_tile_launches"], f"{tag}: strip launched {launches} "
+              f"times, planned {rec['planned_tile_launches']}")
+        check(np.isfinite(rec["loss_curve"]).all(), f"{tag}: a loss is not finite")
+        runs[tag] = {"losses": np.asarray(rec["loss_curve"]), "peak": peak,
+                     "step_ms": rec["per_epoch"] * 1e3, "launches": launches,
+                     "planned": rec["planned_tile_launches"], "temps": hbm["temps"]}
+        del t
+        torch.cuda.empty_cache()
+    plain, remat = runs["plain"], runs["remat"]
+    layers, epochs = 3, args.epochs_agg
+    rel = float(np.max(np.abs(remat["losses"] - plain["losses"]) / np.abs(plain["losses"])))
+    say(f"[remat] {n} nodes: losses max relative difference {rel:.2e} (limit {CKPT_RTOL:.2e}); "
+        f"peak {plain['peak'] / 2**30:.3f} -> {remat['peak'] / 2**30:.3f} GiB "
+        f"({(plain['peak'] - remat['peak']) / 2**30:.3f} GiB less); median step "
+        f"{plain['step_ms']:.2f} -> {remat['step_ms']:.2f} ms")
+    check(rel <= CKPT_RTOL, "the remat run's losses left the plain run's")
+    check(remat["planned"] == plain["planned"] + 2 * layers * epochs,
+          "the remat plan is not the plain plan plus two forward aggregations a layer a step")
+    check(remat["peak"] < plain["peak"], "remat did not lower the peak")
+    out = {"strip": plain["launches"] + remat["launches"], "quant_pack": 0, "unpack_dequant": 0}
+    if k4 is None:
+        return out
+    # (b) the K=4 run resumed from train_k's checkpoint, recomputing its layers
+    res, wall, _, cfg = _resume_k4(args, k4, "remat", remat=True)
+    check(cfg.remat, "the resumed ranks' config lost --remat")
+    _check_resumed("remat", res, k4["AdaQP"], 6 * cfg.num_layers - 2 + 2 * cfg.num_layers)
+    if ckpt_l is not None:
+        # against the same run without remat: the same wire launches
+        check([r["launches"][1:] for r in res] == [l[1:] for l in ckpt_l],
+              "the remat run's quant launches differ from the run without it")
+    say(f"[remat] K=4 resumed with remat: launch + set-up + "
+        f"{k4['AdaQP'][0]['epochs'] - CKPT_EPOCH} epochs {wall:.1f} s")
+    for i, name in enumerate(("strip", "quant_pack", "unpack_dequant")):
+        out[name] += sum(r["launches"][i] for r in res)
     return out
 
 
@@ -3340,11 +3497,16 @@ def main():
                    help="epochs of each accuracy_parity run (the script's own default is 60)")
     p.add_argument("--nodes_agg", type=int, default=131_072,
                    help="nodes of the products-degree graph of train_agg")
-    p.add_argument("--epochs_agg", type=int, default=8, help="epochs of each train_agg run")
+    p.add_argument("--epochs_agg", type=int, default=8,
+                   help="epochs of each train_agg run and each remat run")
+    p.add_argument("--nodes_remat", type=int, default=None,
+                   help="nodes of the products-degree graph of remat (default: --nodes_agg, "
+                        "on train_agg's graph and layout when it ran)")
     p.add_argument("--only", type=str, default=None,
                    help="comma-separated phases to run (agg, pad, quant, gather, expand, r5, "
                         "gpu_tests, e2e, e2e_k, e2e_pad, k1, train_k, ckpt, partition, parity, "
-                        "train_pad, e2e_agg, train_agg; ckpt runs train_k first); build always "
+                        "train_pad, e2e_agg, train_agg, remat; ckpt and remat run train_k "
+                        "first); build always "
                         "runs, and the result lines print only for a full run")
     p.add_argument("--parent_rows", type=str, default=None,
                    help="a csrc directory of an older tree whose quant_rows.cu has the "
@@ -3368,6 +3530,8 @@ def main():
         args.parent_gather = os.path.abspath(args.parent_gather)
     if args.parent_probes:
         args.parent_probes = os.path.abspath(args.parent_probes)
+    if args.nodes_remat is None:
+        args.nodes_remat = args.nodes_agg
     only = None if args.only is None else set(args.only.split(","))
     try:
         import torch
@@ -3430,8 +3594,8 @@ def main():
         times = run("time", phase_time, torch, trainer, card)
         del trainer
         torch.cuda.empty_cache()
-    k4 = None
-    if want("train_k") or want("ckpt"):
+    k4 = ckpt_l = None
+    if want("train_k") or want("ckpt") or want("remat"):
         k4 = run("train_k", phase_train_k, torch, args)
         lanes = k4["AdaQP"][0]["lanes"]
         qtimes = run("time", phase_time_quant, torch, card, lanes)
@@ -3447,9 +3611,13 @@ def main():
         ptimes, pad_path_err = run("time", phase_time_pad, torch, card, kpad)
     if want("e2e_agg"):
         run("e2e_agg", phase_e2e_agg, torch, SEED)
+    agg_graph = None
     if want("train_agg"):
-        agg = run("train_agg", phase_train_agg, torch, args)
+        agg, agg_graph = run("train_agg", phase_train_agg, torch, args)
         atimes = run("time", phase_time_agg, torch, card, agg, parent_gather)
+    if want("remat"):
+        remat_l = run("remat", phase_remat, torch, args, agg_graph, k4, ckpt_l)
+    del agg_graph
     if only is not None:
         say("[done] partial run (--only): no result lines")
         return
@@ -3462,26 +3630,29 @@ def main():
     pad_d = sum(r["pad_launches"][1] for r in kpad)
     say(f"[result] strip_spmm launches: K=1 train {launches}, K=4 AdaQP train {k4_strip} "
         f"(all ranks), its resumed run {ck_strip}, accuracy parity {parity_l['strip_spmm']}, "
-        f"products train {agg_l['strip_spmm']}; quant_pack / unpack_dequant: K=4 AdaQP train "
-        f"{k4_q} / {k4_u}, resumed {ck_q} / {ck_u}, accuracy parity {parity_l['quant_pack']} / "
-        f"{parity_l['unpack_dequant']}")
+        f"products train {agg_l['strip_spmm']}, remat {remat_l['strip']}; quant_pack / "
+        f"unpack_dequant: K=4 AdaQP train {k4_q} / {k4_u}, resumed {ck_q} / {ck_u}, accuracy "
+        f"parity {parity_l['quant_pack']} / {parity_l['unpack_dequant']}, remat "
+        f"{remat_l['quant_pack']} / {remat_l['unpack_dequant']}")
     say(card)
     say(json.dumps({"kernels": [
         {"name": "strip_spmm", "route": "cuda",
          "source": "adaqp_tpu_torch/csrc/spmm_strip.cu",
          "replaces": "adaqp_tpu/ops/spmm_strip.py:277",
          "launches": launches + k4_strip + ck_strip + parity_l["strip_spmm"]
-         + agg_l["strip_spmm"], "max_abs_err": err,
+         + agg_l["strip_spmm"] + remat_l["strip"], "max_abs_err": err,
          **times[640]},
         {"name": "quant_pack", "route": "cuda",
          "source": "adaqp_tpu_torch/csrc/quant_pack.cu",
          "replaces": "adaqp_tpu/ops/quant_pallas.py:103",
-         "launches": k4_q + ck_q + parity_l["quant_pack"], "max_abs_err": pack_err,
+         "launches": k4_q + ck_q + parity_l["quant_pack"] + remat_l["quant_pack"],
+         "max_abs_err": pack_err,
          **qtimes[640][0]},
         {"name": "unpack_dequant", "route": "cuda",
          "source": "adaqp_tpu_torch/csrc/quant_pack.cu",
          "replaces": "adaqp_tpu/ops/quant_pallas.py:202",
-         "launches": k4_u + ck_u + parity_l["unpack_dequant"], "max_abs_err": quant_err,
+         "launches": k4_u + ck_u + parity_l["unpack_dequant"] + remat_l["unpack_dequant"],
+         "max_abs_err": quant_err,
          **qtimes[640][1]},
         {"name": "block_spmm", "route": "cuda",
          "source": "adaqp_tpu_torch/csrc/spmm_strip.cu",
