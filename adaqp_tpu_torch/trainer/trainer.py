@@ -879,7 +879,9 @@ class Trainer:
         - args: the bytes allocated before the step (parameters, graph and
           layouts; torch's Adam creates its moments within the first step,
           so their bytes fall in temps);
-        - temps: the step's peak above args;
+        - temps: the step's peak above args (a later step can peak higher
+          by what the first one allocates after its peak and keeps: Adam's
+          moments, a cuBLAS workspace of the backward's thread);
         - output: the gradients' bytes.
 
         It comes after the first step, not before: the JAX Trainer reads

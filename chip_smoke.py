@@ -2398,7 +2398,7 @@ def phase_remat(torch, args, agg_graph, k4, ckpt_l):
         finally:
             catcher.close()
         torch.cuda.synchronize()
-        peak = torch.cuda.max_memory_allocated()
+        peak, after = torch.cuda.max_memory_allocated(), torch.cuda.memory_allocated()
         launches = ss.strip_spmm.launches
         tag = "remat" if remat else "plain"
         adam = 2 * sum(p.numel() * p.element_size() for layer in t.params for p in layer.values())
@@ -2412,13 +2412,15 @@ def phase_remat(torch, args, agg_graph, k4, ckpt_l):
             say(f"[remat] {tag} log_hbm: {line}")
         check(len(catcher.lines) == 1 and hbm is not None and hbm["temps_exact"],
               f"{tag}: no log_hbm line with the step's own peak ({catcher.lines})")
-        # the run's peak above args is the first step's, plus Adam's moments,
-        # which torch creates at the end of the first step
-        extra = (peak - before) - hbm["temps"]
+        # the run's peak above args is the first step's plus what that step
+        # allocated after its peak and kept, less the gradients (freed at
+        # each step's start): Adam's moments, and in a fresh process the
+        # backward thread's cuBLAS workspace
+        extra, kept = (peak - before) - hbm["temps"], after - before - hbm["output"]
         say(f"[remat] {tag}: log_hbm args {hbm['args']} (phase {before}), temps {hbm['temps']} "
-            f"(the run's peak above args {peak - before}, {extra} more; Adam's moments "
-            f"{adam}), output {hbm['output']}")
-        check(hbm["args"] == before and 0 <= extra <= adam + 2 ** 20,
+            f"(the run's peak above args {peak - before}, {extra} more; kept after the run "
+            f"besides the gradients {kept}, Adam's moments {adam} of it), output {hbm['output']}")
+        check(hbm["args"] == before and 0 <= extra <= kept + 2 ** 20,
               f"{tag}: the log_hbm line disagrees with the phase's readings")
         check(hbm["output"] == adam // 2, f"{tag}: output {hbm['output']} is not the gradients'")
         check(launches == rec["planned_tile_launches"], f"{tag}: strip launched {launches} "
@@ -3615,6 +3617,9 @@ def main():
     if want("train_agg"):
         agg, agg_graph = run("train_agg", phase_train_agg, torch, args)
         atimes = run("time", phase_time_agg, torch, card, agg, parent_gather)
+        for r in agg.values():  # the timing's layouts: remat reads the card's memory
+            r.pop("layout", None)
+        torch.cuda.empty_cache()
     if want("remat"):
         remat_l = run("remat", phase_remat, torch, args, agg_graph, k4, ckpt_l)
     del agg_graph
