@@ -133,6 +133,28 @@ def test_k1_remat_equals_the_plain_run_with_dropout(tmp_path, monkeypatch):
     assert plain["hbm"] is remat["hbm"] is None  # no analysis on the CPU
 
 
+@pytest.mark.parametrize("peak_before,peak,temps,exact", [
+    (5_000, 9_000, 8_000, True),  # the step set the peak: its own
+    (12_000, 12_000, 11_000, False),  # an earlier peak hides the step's: a bound
+])
+def test_log_hbm_line_reads_the_counters_without_resetting(tmp_path, monkeypatch, caplog,
+                                                           peak_before, peak, temps, exact):
+    # the card's counters, faked: the report reads them and resets nothing
+    t = Trainer(_cfg(tmp_path, num_epochs=1, logger_level="INFO"), device="cpu")
+    for p in t.params[0].values():
+        p.grad = torch.zeros_like(p)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: peak)
+    monkeypatch.setattr(torch.cuda, "reset_peak_memory_stats",
+                        lambda *a: pytest.fail("the report reset the peak counter"))
+    grads = sum(p.numel() * 4 for p in t.params[0].values())
+    got = t._log_step_memory((1_000, peak_before))
+    assert got == {"args": 1_000, "temps": temps, "output": grads, "temps_exact": exact}
+    line = [r.getMessage() for r in caplog.records if "train-step HBM" in r.getMessage()]
+    assert len(line) == 1 and ("at most" in line[0]) == (not exact)
+    assert f"temps {temps}, args 1000, output {grads}" in line[0]
+
+
 def _k2_rank(rank, world, device, tmp):
     """Each run of K2_RUNS with remat off and on (dropout 0.5, assign_cycle
     2: a reassignment at epoch 3); each run's results and the calls it made."""
