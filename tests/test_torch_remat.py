@@ -9,10 +9,11 @@ the layer first drew from), and at K=2 over gloo in AdaQP adaptive on both
 wires (overlapped) and in AdaQP-q (serial). The recompute ships nothing
 again: the wire's kernels run as often as without it, the tile kernel
 twice a layer more, as the Trainer's plans say; the overlapped modes keep
-their exchange in flight across the local aggregation. Against the JAX
-package: both Trainers with ``remat`` give the same losses and
-parameters. ``python -m adaqp_tpu_torch`` takes ``--remat``,
-``--log_hbm`` and ``--static_wire``.
+their exchange in flight across the local aggregation. The two runs of a
+K=2 case read one transport profile, so their MILPs solve with one
+alpha-beta fit. Against the JAX package: both Trainers with ``remat``
+give the same losses and parameters. ``python -m adaqp_tpu_torch`` takes
+``--remat``, ``--log_hbm`` and ``--static_wire``.
 """
 import os
 import pathlib
@@ -106,6 +107,7 @@ def _run(tmp, device, counts, **over):
         "reassigned": reassigned, "counts": dict(counts.n), "events": list(counts.events),
         "planned": (rec["planned_tile_launches"], *rec["planned_quant_launches"]),
         "hbm": rec["hbm"],
+        "cost": None if t.assigner is None else (t.assigner.alpha, t.assigner.beta),
     }
 
 
@@ -155,11 +157,30 @@ def test_log_hbm_line_reads_the_counters_without_resetting(tmp_path, monkeypatch
     assert f"temps {temps}, args 1000, output {grads}" in line[0]
 
 
+def _one_cost_model(mp):
+    """Every Trainer of this process reads the transport profile that the
+    first one took: two adaptive runs compared bit for bit must feed their
+    MILP one alpha-beta fit, and the timings of two profiles differ."""
+    from adaqp_tpu_torch.trainer import trainer as tr
+
+    profile, taken = tr.profile_cost_model, {}
+
+    def once(**kw):
+        key = tuple(sorted(kw.items()))
+        if key not in taken:  # collective: every rank reaches it together
+            taken[key] = profile(**kw)
+        return taken[key]
+
+    mp.setattr(tr, "profile_cost_model", once)
+
+
 def _k2_rank(rank, world, device, tmp):
     """Each run of K2_RUNS with remat off and on (dropout 0.5, assign_cycle
-    2: a reassignment at epoch 3); each run's results and the calls it made."""
+    2: a reassignment at epoch 3), the two reading one cost model; each
+    run's results and the calls it made."""
     mp = pytest.MonkeyPatch()
     counts = _Counts(mp)
+    _one_cost_model(mp)
     out = {}
     try:
         for name, over in K2_RUNS.items():
@@ -183,6 +204,7 @@ def k2(tmp_path_factory):
 def test_k2_remat_equals_the_plain_run(k2, name):
     for rank in k2:
         plain, remat = rank[name, False], rank[name, True]
+        assert all(np.array_equal(x, y) for x, y in zip(plain["cost"], remat["cost"], strict=True))
         _same(plain, remat)
         assert plain["reassigned"] == [3]
         assert plain["traces"][0].abs().sum() > 0 and plain["traces"][1].abs().sum() > 0
