@@ -31,7 +31,7 @@ import torch.utils.checkpoint
 
 from ..common.types import AggregatorType, GNNType
 from ..graph.device import ShardArrays, ShardStatic
-from ..ops.dist_ops import LayerTape, dist_aggregate
+from ..ops.dist_ops import LayerTape, dist_aggregate, fork
 
 Params = List[Dict[str, torch.Tensor]]
 
@@ -129,6 +129,9 @@ def apply_gnn(
         ft = cfg.f_true if (i == 0 and cfg.f_true) else h.shape[1]
 
         def layer_fn(h, tape=None, i=i, layer=layer, ft=ft):
+            h_self = h
+            if "w_self" in layer:  # a third consumer of h (dist_ops.fork)
+                h, h_self = fork(h)
             agg, tr = dist_aggregate(
                 h, sh, cfg, blocks, f_true=ft,
                 wire=None if wires is None else wires[i],
@@ -149,7 +152,7 @@ def apply_gnn(
             else:
                 out = agg @ w("w_neigh") + w("b")
                 if "w_self" in layer:
-                    out = out + h.to(agg.dtype) @ w("w_self")
+                    out = out + h_self.to(agg.dtype) @ w("w_self")
             if i < n_layers - 1:
                 if train and cfg.dropout > 0.0:
                     keep = torch.empty(out.shape, device=out.device).bernoulli_(

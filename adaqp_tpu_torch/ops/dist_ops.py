@@ -110,6 +110,34 @@ class PairSegSpmm(torch.autograd.Function):
         return g_l, g_r, None, None, None, None
 
 
+class _Fork(torch.autograd.Function):
+    """Two aliases of one tensor; their gradients add in one order."""
+
+    @staticmethod
+    def forward(ctx, h):
+        ctx.set_materialize_grads(False)
+        return h.view_as(h), h.view_as(h)
+
+    @staticmethod
+    def backward(ctx, g_agg, g_self):
+        if g_agg is None or g_self is None:
+            return g_self if g_agg is None else g_agg
+        return g_agg + g_self
+
+
+def fork(h: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``h`` for the aggregation and ``h`` for a SAGE layer's self term.
+
+    Autograd adds the gradients of a tensor's consumers in the order their
+    backward nodes run, and the exchange's node is made where the exchange
+    finishes: after the local aggregation in overlapped modes, before it
+    in serial ones. With two consumers the order cannot change the sum; a
+    SAGE layer's self term makes a third, so it takes its own alias, whose
+    gradient joins the aggregation's after the aggregation's two have
+    added: both schedules then give the same bits."""
+    return _Fork.apply(h) if h.requires_grad else (h, h)
+
+
 class LayerTape:
     """What a recomputed layer keeps of its first forward for the recompute
     in the backward pass: the state of the dropout generator ``gen`` (or
@@ -185,6 +213,9 @@ def dist_aggregate(
     ``op_util.py:91-99``), a value with no gradient (None in a recompute).
     """
     ft = h.shape[1] if f_true is None else f_true
+    h_self = None
+    if cfg.model is GNNType.SAGE and cfg.agg_type is not AggregatorType.MEAN:
+        h, h_self = fork(h)
     replay = tape is not None and tape.replaying
     fwd_trace = None if replay else variance_proxy(h.detach()[sh.send_idx], ft)
 
@@ -258,5 +289,5 @@ def dist_aggregate(
         if cfg.agg_type is AggregatorType.MEAN:
             out = agg / sh.deg_in[:l, None]
         else:  # 'gcn' aggregator (reference ops.py:41-46)
-            out = (agg + h) / (sh.deg_in[:l, None] + 1.0)
+            out = (agg + h_self) / (sh.deg_in[:l, None] + 1.0)
     return out, fwd_trace

@@ -34,7 +34,10 @@ def test_import_leaves_jax_out():
         "        'adaqp_tpu_torch.scripts.microbench_expand',\n"
         "        'adaqp_tpu_torch.scripts.probe_r5',\n"
         "        'adaqp_tpu_torch.scripts.accuracy_parity', 'adaqp_tpu_torch.native',\n"
-        "        'adaqp_tpu_torch.utils.checkpoint', 'adaqp_tpu_torch.graph_partition']\n"
+        "        'adaqp_tpu_torch.utils.checkpoint', 'adaqp_tpu_torch.graph_partition',\n"
+        "        'adaqp_tpu_torch.helper.dataset', 'adaqp_tpu_torch.model.gnn',\n"
+        "        'adaqp_tpu_torch.model.loss', 'adaqp_tpu_torch.ops.dist_ops',\n"
+        "        'adaqp_tpu_torch.graph.layout', 'adaqp_tpu_torch.trainer.trainer']\n"
         "assert all(m in sys.modules for m in need), need\n"
         "from adaqp_tpu_torch.comm.exchange import exchange_fp, exchange_quant, padded_start\n"
         "from adaqp_tpu_torch.ops.quant_cuda import quant_rows, dequant_rows\n"
