@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``adaqp_tpu_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py            # banded graphs (Reddit K=1: 65,536 nodes; products: 131,072)
+    python3 chip_smoke.py            # banded graphs (Reddit K=1: 32,768 nodes; products: 131,072)
     python3 chip_smoke.py --full     # K=1 at Reddit's 232,965 nodes / 114,615,892 edges
 
 It builds the port's CUDA kernels from this checkout (one ``nvcc`` per
@@ -14,7 +14,9 @@ adaqp_tpu_torch`` (four ranks sharing the one card over gloo), on the
 ragged wire and, with the breakdown probe on, on the padded dense wire
 (``wire_impl=padded``); then an ogbn-products-width GCN (100 -> 256 -> 256
 -> 47) at K=1 through each aggregation (``spmm_impl`` strip, block,
-compact, segment). It checks that each training ran through the kernels
+compact, segment); and GraphSAGE with the multilabel loss at Yelp's
+widths (``config/yelp.yaml``, 300 -> 256 -> 256 -> 100) on GraphSAINT raw
+files, at K=1 and K=4. It checks that each training ran through the kernels
 (their launch counts), and times every kernel beside its bound, its plain
 version and a library call where one exists. It also drives the probes of
 ``adaqp_tpu_torch.scripts`` (``microbench_dma_gather``, ``microbench_gather``,
@@ -51,7 +53,14 @@ graph, then ``python -m adaqp_tpu_torch.graph_partition``), parity
 ``--epochs_parity`` epochs each), train_pad (K=4 AdaQP on the
 padded wire, with the probe), e2e_agg (K=2 card against CPU for block,
 compact and segment), train_agg (the products GCN through the four
-aggregations), time (after k1, train_k, train_pad and train_agg; after
+aggregations), remat (the products GCN with layer recomputation, and
+train_k's checkpoint resumed with it), sage (K=2 SAGE-mean and SAGE-gcn
+on a multilabel SBM, card against CPU; a Yelp-shaped R-MAT graph of
+``--nodes_sage`` nodes written as GraphSAINT raw files and trained
+through ``RunConfig.from_yaml("yelp")`` at K=1 and at K=4 in AdaQP
+adaptive, launches against the plans; strip_spmm at F=384 and 256 and the
+quant pair at f_true 300 against their plain versions, strip_spmm timed
+at F=384), time (after k1, train_k, train_pad and train_agg; after
 train_pad it first holds quant_rows and dequant_rows against their plain
 versions on lane tables of every shape that run gave them; with
 ``--profile``, also a device-time breakdown of a few training steps of the
@@ -507,7 +516,10 @@ def tile_csr(torch, lay, dtype):
     return coo.coalesce().to_sparse_csr(), dst.numel()
 
 
-def phase_time(torch, trainer, card):
+def phase_time(torch, trainer, card, widths=(640, 256), tag="time"):
+    """strip_spmm on the trainer's forward local layout at each width of
+    ``widths``, bf16: CUDA-event ms beside its bound, the design's
+    shared-memory floor, the plain version and torch.sparse.mm."""
     from adaqp_tpu_torch.ops import spmm_strip as ss
     from adaqp_tpu_torch.ops import spmm_walk as sw
 
@@ -518,11 +530,11 @@ def phase_time(torch, trainer, card):
     rows = {}
     clock = sm_clock_mhz()
     info = sw.walk_kernel_info(torch.bfloat16)
-    say(f"[time] {card} | strip_spmm form: a CTA a (strip, slice of {info['columns']} bf16 columns), "
+    say(f"[{tag}] {card} | strip_spmm form: a CTA a (strip, slice of {info['columns']} bf16 columns), "
         f"{info['registers']} registers a thread, {info['spill_bytes']} spill bytes, shared memory "
         f"{info['dynamic_smem']} B dynamic + {info['static_smem']} B static; SM clock "
         f"{clock[0]:g} MHz now, {clock[1]:g} MHz max (the floor uses the max)")
-    for f in (640, 256):
+    for f in widths:
         h = torch.randn(fl.n_src_pad, f, generator=gen, device=dev).to(torch.bfloat16)
         saved = ss.strip_spmm.launches
         ms = cuda_ms(torch, lambda: ss.strip_spmm(fl, h), reps=10)
@@ -535,11 +547,11 @@ def phase_time(torch, trainer, card):
         del csr
         bound_ms, bound_by, nbytes, flops = walk_bound(fl, f, nnz, h_rows)
         floor_ms, floor_bytes = strip_floor(fl, f, nnz, clock[1])
-        say(f"[time] {card} | fwd_local F={f}: tiles {t}, tile edges {nnz}")
-        say(f"[time] {card} | kernel {ms:.3f} ms; bound {bound_ms:.3f} ms by {bound_by} "
+        say(f"[{tag}] {card} | fwd_local F={f}: tiles {t}, tile edges {nnz}")
+        say(f"[{tag}] {card} | kernel {ms:.3f} ms; bound {bound_ms:.3f} ms by {bound_by} "
             f"({nbytes / 1e9:.3f} GB, {flops / 1e12:.4f} TFLOP bf16); plain {plain_ms:.2f} ms; "
             f"torch.sparse.mm {lib_ms:.3f} ms (bf16 CSR)")
-        say(f"[time] {card} | the design's shared-memory floor {floor_ms:.3f} ms "
+        say(f"[{tag}] {card} | the design's shared-memory floor {floor_ms:.3f} ms "
             f"({floor_bytes / 1e9:.2f} GB at 132 x 128 B a clock; the warps walk "
             f"{fl.walk.cols.numel() / nnz:.2f} column slots an edge)")
         rows[f] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
@@ -547,10 +559,13 @@ def phase_time(torch, trainer, card):
     return rows
 
 
-def phase_quant(torch, seed):
-    """quant_pack and unpack_dequant against their plain versions on the
-    card at the main path's shapes: words, scale, rmin and dequantized rows
-    bit for bit; every round-trip error within one step; no bias."""
+def _hold_contiguous(torch, seed, shapes):
+    """quant_pack and unpack_dequant in their contiguous form against their
+    plain versions on the card, at each (F, f_true) of ``shapes``: bits
+    2/4/8, f32 and bf16 rows, N 0/1/33/25,700 with a constant row; words,
+    scale, rmin and dequantized rows bit for bit, every round-trip error
+    within one step. Returns (max |difference| of quant_pack's outputs,
+    of unpack_dequant's, the cases)."""
     from adaqp_tpu_torch.comm.wire import wire_cols
     from adaqp_tpu_torch.ops import quant_cuda as qc
 
@@ -559,7 +574,7 @@ def phase_quant(torch, seed):
     worst_pack = 0.0  # quant_pack: max |difference| of words, scale and rmin
     cases = 0
     for bits in (2, 4, 8):
-        for f, ft in ((640, 602), (256, 256)):
+        for f, ft in shapes:
             fw = wire_cols(ft, bits)
             for dtype in (torch.float32, torch.bfloat16):
                 for n in (0, 1, 33, 25_700):
@@ -603,6 +618,18 @@ def phase_quant(torch, seed):
                         check(not y[:, ft:].any(), f"{tag}: padding columns not zero")
                         worst_err = max(worst_err, float((y - y0).abs().max()))
                     cases += 1
+    return worst_pack, worst_err, cases
+
+
+def phase_quant(torch, seed):
+    """quant_pack and unpack_dequant against their plain versions on the
+    card at the main path's shapes: words, scale, rmin and dequantized rows
+    bit for bit; every round-trip error within one step; no bias."""
+    from adaqp_tpu_torch.comm.wire import wire_cols
+    from adaqp_tpu_torch.ops import quant_cuda as qc
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    worst_pack, worst_err, cases = _hold_contiguous(torch, seed, ((640, 602), (256, 256)))
     say(f"[quant] {cases} cases (bits 2/4/8, F 640/256, f32/bf16, N 0/1/33/25,700, "
         f"a constant row): kernels equal the plain versions bit for bit (max |difference| "
         f"quant_pack {worst_pack:g}, unpack_dequant {worst_err:g}); round trip within one step")
@@ -630,10 +657,17 @@ def phase_quant(torch, seed):
     return worst_pack, worst_err
 
 
-def _hold_lanes(torch, seed):
+# (forward, F, f_true, dtype name) of the lane kernels' holds: the Reddit
+# GCN's layer 0 and hidden widths, and an odd width
+LANE_CASES = ((True, 640, 602, "bfloat16"), (False, 256, 256, "float32"),
+              (True, 256, 256, "bfloat16"), (False, 333, 301, "float32"))
+
+
+def _hold_lanes(torch, seed, cases=LANE_CASES):
     """The lane kernels (pack_lanes, unpack_lanes) against their plain
     versions on the card, on random K=4 wires of the port's wire lowering
-    (``tests/torch_helpers.py``) with all four widths: each
+    (``tests/torch_helpers.py``) with all four widths, one for each of
+    ``cases``: each
     rank's send buffer and ranges, and each rank's received rows, forward
     (placed through the inverse map) and backward (a row a lane), bit for
     bit; the backward's sums (added into the destinations with atomics)
@@ -651,9 +685,9 @@ def _hold_lanes(torch, seed):
     gen = torch.Generator(device="cuda").manual_seed(seed)
     saved = (qc.quant_pack.launches, qc.unpack_dequant.launches)
     worst_p = worst_u = worst_sum = 0.0
-    cases = []
-    for forward, f, ft, dtype in ((True, 640, 602, torch.bfloat16), (False, 256, 256, torch.float32),
-                                  (True, 256, 256, torch.bfloat16), (False, 333, 301, torch.float32)):
+    held = []
+    for forward, f, ft, dtype in cases:
+        dtype = getattr(torch, dtype)
         out_len = 30_000 if forward else 10_240
         wd = random_wire(rng, 4, ft, (2, 4, 8, 32), True, out_len, 10_240, forward,
                          lanes=(4_000, 8_000))
@@ -688,24 +722,39 @@ def _hold_lanes(torch, seed):
                 check(bool(((total - ref).abs() <= 1e-6 * scale).all()),
                       f"the backward sums differ beyond 1e-6 * sum |terms| (rank {r})")
         lanes = [w.send_lanes.n for w in wires]
-        cases.append(f"{'fwd' if forward else 'bwd'} F={f} f_true={ft} {str(dtype)[6:]} "
+        held.append(f"{'fwd' if forward else 'bwd'} F={f} f_true={ft} {str(dtype)[6:]} "
                      f"lanes {lanes}")
     qc.quant_pack.launches, qc.unpack_dequant.launches = saved
-    say(f"[quant] lane kernels on K=4 wires of 2/4/8/32-bit lanes ({'; '.join(cases)}): "
+    say(f"[quant] lane kernels on K=4 wires of 2/4/8/32-bit lanes ({'; '.join(held)}): "
         f"send buffers, ranges and received rows equal the plain versions bit for bit; "
         f"backward sums within {worst_sum:.2e} of sum |terms| (limit 1e-6)")
     return worst_p, worst_u
 
 
 def _e2e_worker(rank, world, device, configs):
-    """One rank of the K=2 card-vs-CPU check: each config trains in turn."""
+    """One rank of a K=2 card-against-CPU check: each config (overrides of
+    ``sbm.yaml``) trains on the card, then on the CPU in the same rank."""
     from adaqp_tpu_torch.trainer import RunConfig, Trainer
 
     out = []
     for over in configs:
-        t = Trainer(RunConfig.from_yaml("sbm", over), device=device)
-        out.append(t.train()["loss_curve"])
+        out.append([Trainer(RunConfig.from_yaml("sbm", over), device=dev).train()["loss_curve"]
+                    for dev in (device, "cpu")])
     check("jax" not in sys.modules, "a rank imported jax")
+    return out
+
+
+def _e2e_curves(res, tags):
+    """Rank 0's (card, CPU) loss curves of each config of :func:`_e2e_worker`
+    (``tags`` names them), every rank checked to agree."""
+    import numpy as np
+
+    out = {}
+    for i, tag in enumerate(tags):
+        for d, device in enumerate(("card", "CPU")):
+            check(all(np.array_equal(r[i][d], res[0][i][d]) for r in res),
+                  f"{tag} on the {device}: ranks disagree on the loss")
+        out[tag] = tuple(np.asarray(c) for c in res[0][i])
     return out
 
 
@@ -717,29 +766,24 @@ def phase_e2e_k(torch, seed):
 
     from adaqp_tpu_torch.comm.distributed import spawn
 
-    runs = {}
-    for device in ("cuda", "cpu"):
-        configs = [{
-            "num_parts": 2, "mode": mode, "assign_scheme": "uniform", "assign_bits": 8,
-            "num_epochs": 6, "hidden_dim": 32, "dropout_rate": 0.0, "log_steps": 100,
-            "block_min_edges": 1, "logger_level": "WARNING",
-            "synth_kwargs": {"n": 1200, "blocks": 4, "num_feats": 16, "seed": seed},
-            "partition_dir": os.path.join(WORK, f"e2ek_parts_{device}"),
-            "exp_path": os.path.join(WORK, "e2ek_exp"),
-        } for mode in ("Vanilla", "AdaQP")]
-        # a collective that waits 180 s fails the phase instead of hanging
-        res = spawn(_e2e_worker, 2, device, args=(configs,),
-                    workdir=os.path.join(WORK, "launch"), timeout_s=180)
-        for i, mode in enumerate(("Vanilla", "AdaQP")):
-            curves = [np.asarray(r[i]) for r in res]
-            check(np.array_equal(curves[0], curves[1]), f"{device} {mode}: ranks disagree on the loss")
-            runs[(device, mode)] = curves[0]
+    modes = ("Vanilla", "AdaQP")
+    configs = [{
+        "num_parts": 2, "mode": mode, "assign_scheme": "uniform", "assign_bits": 8,
+        "num_epochs": 6, "hidden_dim": 32, "dropout_rate": 0.0, "log_steps": 100,
+        "block_min_edges": 1, "logger_level": "WARNING",
+        "synth_kwargs": {"n": 1200, "blocks": 4, "num_feats": 16, "seed": seed},
+        "partition_dir": os.path.join(WORK, "e2ek_parts"),
+        "exp_path": os.path.join(WORK, "e2ek_exp"),
+    } for mode in modes]
+    # a collective that waits 180 s fails the phase instead of hanging
+    runs = _e2e_curves(spawn(_e2e_worker, 2, "cuda", args=(configs,),
+                             workdir=os.path.join(WORK, "launch"), timeout_s=180), modes)
     # both modes read under 1e-6 on the H100 (1.7e-7 Vanilla, 6.5e-7 AdaQP):
     # the same codes, f32 sums in another order; 1e-5 leaves room for that
     # order and none for a wrong code or parameter word
     tol = 1e-5
-    for mode in ("Vanilla", "AdaQP"):
-        card, cpu = runs[("cuda", mode)], runs[("cpu", mode)]
+    for mode in modes:
+        card, cpu = runs[mode]
         rel = float(np.max(np.abs(card - cpu) / np.abs(cpu)))
         say(f"[e2e_k] K=2 f32 SBM-1200 {mode}: card losses {np.round(card, 5).tolist()}")
         say(f"[e2e_k] {mode}: max relative difference to the CPU run {rel:.2e} (limit {tol:g})")
@@ -1684,25 +1728,20 @@ def phase_e2e_pad(torch, seed):
 
     from adaqp_tpu_torch.comm.distributed import spawn
 
-    runs = {}
-    for device in ("cuda", "cpu"):
-        configs = [{
-            "num_parts": 2, "mode": mode, "assign_scheme": "uniform", "assign_bits": 8,
-            "wire_impl": "padded", "num_epochs": 6, "hidden_dim": 32, "dropout_rate": 0.0,
-            "log_steps": 100, "block_min_edges": 1, "logger_level": "WARNING",
-            "synth_kwargs": {"n": 1200, "blocks": 4, "num_feats": 16, "seed": seed},
-            "partition_dir": os.path.join(WORK, f"e2ek_parts_{device}"),
-            "exp_path": os.path.join(WORK, "e2epad_exp"),
-        } for mode in ("Vanilla", "AdaQP")]
-        res = spawn(_e2e_worker, 2, device, args=(configs,),
-                    workdir=os.path.join(WORK, "launch"), timeout_s=180)
-        for i, mode in enumerate(("Vanilla", "AdaQP")):
-            curves = [np.asarray(r[i]) for r in res]
-            check(np.array_equal(curves[0], curves[1]), f"{device} {mode}: ranks disagree on the loss")
-            runs[(device, mode)] = curves[0]
+    modes = ("Vanilla", "AdaQP")
+    configs = [{
+        "num_parts": 2, "mode": mode, "assign_scheme": "uniform", "assign_bits": 8,
+        "wire_impl": "padded", "num_epochs": 6, "hidden_dim": 32, "dropout_rate": 0.0,
+        "log_steps": 100, "block_min_edges": 1, "logger_level": "WARNING",
+        "synth_kwargs": {"n": 1200, "blocks": 4, "num_feats": 16, "seed": seed},
+        "partition_dir": os.path.join(WORK, "e2ek_parts"),
+        "exp_path": os.path.join(WORK, "e2epad_exp"),
+    } for mode in modes]
+    runs = _e2e_curves(spawn(_e2e_worker, 2, "cuda", args=(configs,),
+                             workdir=os.path.join(WORK, "launch"), timeout_s=180), modes)
     tol = 1e-5  # the e2e_k limit: the same codes, f32 sums in another order
-    for mode in ("Vanilla", "AdaQP"):
-        card, cpu = runs[("cuda", mode)], runs[("cpu", mode)]
+    for mode in modes:
+        card, cpu = runs[mode]
         rel = float(np.max(np.abs(card - cpu) / np.abs(cpu)))
         say(f"[e2e_pad] K=2 f32 SBM-1200 {mode} wire_impl=padded: card losses "
             f"{np.round(card, 5).tolist()}")
@@ -2162,25 +2201,19 @@ def phase_e2e_agg(torch, seed):
     from adaqp_tpu_torch.comm.distributed import spawn
 
     impls = ("block", "compact", "segment")
-    runs = {}
-    for device in ("cuda", "cpu"):
-        configs = [{
-            "num_parts": 2, "mode": "Vanilla", "spmm_impl": impl, "num_epochs": 6,
-            "hidden_dim": 32, "dropout_rate": 0.0, "log_steps": 100, "block_min_edges": 64,
-            "compact_me_ell": 16, "logger_level": "WARNING",
-            "synth_kwargs": {"n": 1200, "blocks": 4, "num_feats": 16, "seed": seed},
-            "partition_dir": os.path.join(WORK, f"e2eagg_parts_{device}"),
-            "exp_path": os.path.join(WORK, "e2eagg_exp"),
-        } for impl in impls]
-        res = spawn(_e2e_worker, 2, device, args=(configs,),
-                    workdir=os.path.join(WORK, "launch"), timeout_s=240)
-        for i, impl in enumerate(impls):
-            curves = [np.asarray(r[i]) for r in res]
-            check(np.array_equal(curves[0], curves[1]), f"{device} {impl}: ranks disagree on the loss")
-            runs[(device, impl)] = curves[0]
+    configs = [{
+        "num_parts": 2, "mode": "Vanilla", "spmm_impl": impl, "num_epochs": 6,
+        "hidden_dim": 32, "dropout_rate": 0.0, "log_steps": 100, "block_min_edges": 64,
+        "compact_me_ell": 16, "logger_level": "WARNING",
+        "synth_kwargs": {"n": 1200, "blocks": 4, "num_feats": 16, "seed": seed},
+        "partition_dir": os.path.join(WORK, "e2eagg_parts"),
+        "exp_path": os.path.join(WORK, "e2eagg_exp"),
+    } for impl in impls]
+    runs = _e2e_curves(spawn(_e2e_worker, 2, "cuda", args=(configs,),
+                             workdir=os.path.join(WORK, "launch"), timeout_s=240), impls)
     tol = 1e-5  # the e2e_k limit: f32 sums in another order, nothing more
     for impl in impls:
-        card, cpu = runs[("cuda", impl)], runs[("cpu", impl)]
+        card, cpu = runs[impl]
         rel = float(np.max(np.abs(card - cpu) / np.abs(cpu)))
         say(f"[e2e_agg] K=2 f32 SBM-1200 Vanilla spmm_impl={impl}: card losses "
             f"{np.round(card, 5).tolist()}")
@@ -2458,6 +2491,313 @@ def phase_remat(torch, args, agg_graph, k4, ckpt_l):
     for i, name in enumerate(("strip", "quant_pack", "unpack_dequant")):
         out[name] += sum(r["launches"][i] for r in res)
     return out
+
+
+# GraphSAINT's Yelp (the source of config/yelp.yaml): nodes, undirected
+# edges (mean degree 2 x 6,977,410 / 716,847 = 19.47), feature width and
+# classes of its multilabel task
+YELP_N, YELP_E, YELP_F, YELP_C = 716_847, 6_977_410, 300, 100
+# R-MAT draws this many edges a node; after symmetrizing and dropping
+# repeats the mean degree comes to about Yelp's (20.0 at 131,072 nodes)
+SAGE_RMAT_DEGREE = 11
+# the Yelp-width runs' epochs, and the K=4 run's cycle: one reassignment, at 6
+SAGE_EPOCHS, SAGE_CYCLE = 8, 5
+# the K=2 card-against-CPU runs: (aggregator, mode)
+SAGE_E2E = (("mean", "Vanilla"), ("mean", "AdaQP"), ("gcn", "Vanilla"))
+
+
+def _yelp_raw(n, out):
+    """A graph of Yelp's shape in GraphSAINT's raw format under ``out``
+    (``adj_full.npz`` without self-loops, ``feats.npy``, ``class_map.json``,
+    ``role.json``): the port's structured R-MAT at ``n`` nodes, 300
+    features and 100 classes, with the feature hint and homophily of
+    ``accuracy_parity --scale``; each node's labels its community and one
+    class drawn at random (as ``sbm_graph``'s multilabel labels).
+    Returns (directed edges without self-loops, seconds)."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    from adaqp_tpu_torch.helper.dataset import rmat_graph
+
+    t0 = time.perf_counter()
+    g = rmat_graph(n=n, avg_degree=SAGE_RMAT_DEGREE, num_feats=YELP_F, num_classes=YELP_C,
+                   seed=SEED, structured=True, hint=2.5, homophily=0.3)
+    labels = np.zeros((n, YELP_C), np.int8)
+    labels[np.arange(n), g.labels] = 1
+    labels[np.arange(n), np.random.default_rng(SEED).integers(0, YELP_C, n)] = 1
+    off = g.src != g.dst
+    adj = sp.csr_matrix((np.ones(int(off.sum()), np.float32), (g.src[off], g.dst[off])),
+                        shape=(n, n))
+    os.makedirs(out, exist_ok=True)
+    sp.save_npz(os.path.join(out, "adj_full.npz"), adj, compressed=False)
+    np.save(os.path.join(out, "feats.npy"), g.feats)
+    with open(os.path.join(out, "class_map.json"), "w") as f:
+        json.dump({str(i): row for i, row in enumerate(labels.tolist())}, f)
+    with open(os.path.join(out, "role.json"), "w") as f:
+        json.dump({role: np.flatnonzero(m).tolist() for role, m in
+                   (("tr", g.train_mask), ("va", g.val_mask), ("te", g.test_mask))}, f)
+    return int(off.sum()), time.perf_counter() - t0
+
+
+def _yelp_cfg(raw, k):
+    """``config/yelp.yaml`` on the raw files ``raw`` at ``k`` partitions."""
+    from adaqp_tpu_torch.trainer import RunConfig
+
+    cfg = RunConfig.from_yaml("yelp", {
+        "raw_dir": raw, "num_parts": k, "num_epochs": SAGE_EPOCHS, "assign_cycle": SAGE_CYCLE,
+        "log_steps": 10 ** 6, "measure_breakdown": False, "seed": SEED,
+        "logger_level": "WARNING", "partition_dir": os.path.join(WORK, "sage_parts"),
+        "exp_path": os.path.join(WORK, "sage_exp"),
+    })
+    check((cfg.model_name, cfg.aggregator_type, cfg.num_layers, cfg.hidden_dim,
+           cfg.dropout_rate, cfg.use_norm, cfg.learning_rate, cfg.agg_dtype, cfg.spmm_impl,
+           cfg.mode, cfg.assign_scheme, cfg.wire_impl) ==
+          ("sage", "mean", 3, 256, 0.5, True, 0.01, "bfloat16", "auto", "AdaQP", "adaptive",
+           "ragged"), "yelp.yaml no longer holds Yelp's SAGE settings")
+    return cfg
+
+
+def _sage_run(torch, t):
+    """Train ``t`` with the launch counters set to 0 just before and read
+    just after: its record, the (strip, quant_pack, unpack_dequant)
+    launches, its reassignment epochs and its peak memory in bytes."""
+    from adaqp_tpu_torch.ops import quant_cuda as qc
+    from adaqp_tpu_torch.ops import spmm_strip as ss
+
+    reassigned, reassign = [], t._reassign
+    t._reassign = lambda epoch: (reassigned.append(epoch), reassign(epoch))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ss.strip_spmm.launches = qc.quant_pack.launches = qc.unpack_dequant.launches = 0
+    rec = t.train()
+    launches = (ss.strip_spmm.launches, qc.quant_pack.launches, qc.unpack_dequant.launches)
+    torch.cuda.synchronize()
+    return rec, launches, reassigned, torch.cuda.max_memory_allocated()
+
+
+def _sage_k_worker(rank, world, device, cfg, go):
+    """One rank of the K=4 Yelp-width run: set up from the raw files, wait
+    for the file ``go``, train, and report what the phase prints and
+    checks."""
+    import torch
+    import torch.distributed as dist
+
+    from adaqp_tpu_torch.trainer import Trainer
+
+    t0 = time.perf_counter()
+    t = Trainer(cfg, device=device)
+    setup_s = time.perf_counter() - t0
+    with open(f"{go}.ready{rank}", "w"):
+        pass
+    while not os.path.exists(go):  # the phase's K=1 run has the card until then
+        time.sleep(0.05)
+    t0 = time.perf_counter()
+    rec, launches, reassigned, peak = _sage_run(torch, t)
+    train_s = time.perf_counter() - t0
+    flat = torch.cat([p.detach().reshape(-1) for layer in t.params for p in layer.values()]).cpu()
+    every = [torch.empty_like(flat) for _ in range(world)]
+    dist.all_gather(every, flat)
+    check(all(torch.equal(x.view(torch.int32), flat.view(torch.int32)) for x in every),
+          f"rank {rank}: parameters differ across ranks")
+    check("jax" not in sys.modules, "a rank imported jax")
+    lay = t.layout
+    return {"setup_s": setup_s, "train_s": train_s, "losses": rec["loss_curve"], "step_ms": rec["per_epoch"] * 1e3,
+            "best": rec["best"], "launches": launches, "reassigned": reassigned, "peak": peak,
+            "planned": (rec["planned_tile_launches"], *rec["planned_quant_launches"]),
+            "profile_s": t.profile_s, "l_max": lay.l_max, "r_pad": lay.plan_fwd.r_pad,
+            "num_local": int(lay.num_local[rank]), "lanes": int(lay.plan_fwd.counts[rank].sum()),
+            "f": (t.static.f_pad, lay.f_true), "checksum": float(flat.double().sum())}
+
+
+def _say_sage(tag, rec, launches, reassigned, peak, planned):
+    import numpy as np
+
+    say(f"[sage] {tag}: losses {[round(float(x), 5) for x in rec['loss_curve']]}; median step "
+        f"{rec['per_epoch'] * 1e3:.2f} ms; peak max_memory_allocated {peak} bytes "
+        f"({peak / 2**30:.3f} GiB); best (epoch, train, val, test micro-F1) {rec['best']}; "
+        f"launches strip / quant_pack / unpack_dequant {launches}, planned {planned}; "
+        f"reassigned at {reassigned}")
+    check(np.isfinite(rec["loss_curve"]).all(), f"{tag}: a loss is not finite")
+    check(tuple(launches) == tuple(planned), f"{tag}: launches {launches} differ from the "
+          f"plans {planned}")
+
+
+def _hold_sage_strip(torch, t):
+    """strip_spmm against its plain version on the Yelp layout's forward
+    and backward local parts: layer 0's rows (the raw features, 300 of 384
+    columns) and random rows at the hidden width 256. Returns the largest
+    |kernel - plain|."""
+    from adaqp_tpu_torch.ops import spmm_strip as ss
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    feats = t.sh.feats
+    saved, worst = ss.strip_spmm.launches, 0.0
+    for name, lay in zip(("fwd_local", "bwd_local"), t.blocks.devices()[:2]):
+        for f in (feats.shape[1], 256):
+            h = torch.randn(lay.n_src_pad, f, generator=gen, device="cuda").to(torch.bfloat16)
+            if f == feats.shape[1]:
+                h.zero_()[:feats.shape[0]] = feats
+            got = ss.strip_spmm(lay, h)
+            want = ss._run_strip_torch(lay, h)
+            err, ratio = compare(torch, got, want, BF16_ATOL, BF16_RTOL)
+            worst = max(worst, err)
+            say(f"[sage] strip_spmm {name} F={f}: max |kernel - plain| {err:.3g}, {ratio:.3f} "
+                f"of the tolerance ({BF16_ATOL} + 2^-7 |plain|)")
+            check(ratio <= 1.0, f"strip_spmm {name} F={f} disagrees with its plain version")
+    ss.strip_spmm.launches = saved
+    return worst
+
+
+def _beside(worker, world, args, timeout_s):
+    """``spawn(worker, world, "cuda", args)`` in a thread of its own: returns
+    the thread and a dict that gets the ranks' results ("res") or what
+    they raised ("exc"), and the seconds ("s")."""
+    import threading
+
+    from adaqp_tpu_torch.comm.distributed import spawn
+
+    out, t0 = {}, time.perf_counter()
+
+    def launch():
+        try:
+            out["res"] = spawn(worker, world, "cuda", args=args,
+                               workdir=os.path.join(WORK, "launch"), timeout_s=timeout_s)
+        except BaseException as exc:  # raised by _joined
+            out["exc"] = exc
+        out["s"] = time.perf_counter() - t0
+
+    thread = threading.Thread(target=launch)
+    thread.start()
+    return thread, out
+
+
+def _joined(thread, out):
+    thread.join()
+    if "exc" in out:
+        raise out["exc"]
+    return out["res"], out["s"]
+
+
+def phase_sage(torch, args, card):
+    """GraphSAGE and the multilabel task on the card. (a) K=2 on a
+    multilabel SBM-1200, f32: SAGE-mean in Vanilla and AdaQP (uniform 8
+    bits) and SAGE-gcn in Vanilla, each on the card and on the CPU in the
+    same two ranks; the losses within 1e-5 relative. (b) Yelp's published
+    configuration (``config/yelp.yaml``: SAGE-mean 300 -> 256 -> 256 -> 100,
+    bf16 aggregation) on a graph of Yelp's shape written as GraphSAINT raw
+    files and loaded by ``load_yelp``, through ``RunConfig.from_yaml``: at
+    K=1, then at K=4 (four ranks over gloo on the card, AdaQP adaptive on the
+    ragged wire, a reassignment at epoch 6); each run's launches equal to
+    the Trainer's plans. Between them, the kernels at the SAGE shapes
+    against their plain versions (strip_spmm at F=384 and 256, the quant
+    pair at f_true 300 within 384, bit for bit) and strip_spmm timed at
+    F=384. (a) runs while this process writes the raw files and sets up
+    the K=1 run, and the K=4 ranks set up beside the K=1 run and train only
+    after it: each timed run has the card to itself. Returns the launches
+    of (b) and the holds' errors."""
+    import numpy as np
+
+    from adaqp_tpu_torch.trainer import Trainer
+
+    configs = [{
+        "num_parts": 2, "model_name": "sage", "aggregator_type": agg, "mode": mode,
+        "assign_scheme": "uniform", "assign_bits": 8, "num_epochs": 4, "hidden_dim": 32,
+        "dropout_rate": 0.0, "log_steps": 100, "block_min_edges": 1, "logger_level": "WARNING",
+        "synth_kwargs": {"n": 1200, "blocks": 4, "num_feats": 16, "seed": SEED,
+                         "multilabel": True},
+        "partition_dir": os.path.join(WORK, "sage_e2e_parts"),
+        "exp_path": os.path.join(WORK, "sage_e2e_exp"),
+    } for agg, mode in SAGE_E2E]
+    n = args.nodes_sage
+    raw = os.path.join(WORK, f"yelp_raw_{n}")
+    go = os.path.join(WORK, "sage_k4_go")
+    if os.path.exists(go):
+        os.remove(go)
+    e2e, k4_job = _beside(_e2e_worker, 2, (configs,), 180), None
+    try:
+        edges, write_s = _yelp_raw(n, raw)
+        k4_job = _beside(_sage_k_worker, 4, (_yelp_cfg(raw, 4), go), 600)
+        t0 = time.perf_counter()
+        t = Trainer(_yelp_cfg(raw, 1))
+        setup_s = time.perf_counter() - t0
+
+        # (a) the card against the CPU
+        res, e2e_s = _joined(*e2e)
+        curves = _e2e_curves(res, SAGE_E2E)
+        for agg, mode in SAGE_E2E:
+            card_l, cpu_l = curves[agg, mode]
+            rel = float(np.max(np.abs(card_l - cpu_l) / np.abs(cpu_l)))
+            say(f"[sage] K=2 f32 multilabel SBM-1200 SAGE-{agg} {mode}: card losses "
+                f"{np.round(card_l, 5).tolist()}; max relative difference to the CPU run "
+                f"{rel:.2e} (limit 1e-5)")
+            check(np.isfinite(card_l).all() and rel <= 1e-5,
+                  f"SAGE-{agg} {mode}: card and CPU K=2 runs disagree")
+        say(f"[sage] card against CPU: {e2e_s:.1f} s")
+
+        # (b) Yelp's configuration on GraphSAINT raw files, K=1
+        degree = edges / n
+        say(f"[sage] Yelp-shaped raw files: {n} nodes (GraphSAINT's Yelp {YELP_N}), {edges} "
+            f"directed edges without self-loops, mean degree {degree:.2f} (Yelp "
+            f"{2 * YELP_E / YELP_N:.2f}), {YELP_F} features, {YELP_C} classes: {write_s:.1f} s")
+        check(abs(degree / (2 * YELP_E / YELP_N) - 1) <= 0.1,
+              "the mean degree left Yelp's by 10%")
+        check((t.graph.name, t.graph.multilabel, t.static.f_pad, t.layout.f_true,
+               t.static.num_classes) == ("yelp", True, 384, YELP_F, YELP_C),
+              "the K=1 run is not on the Yelp-format graph at Yelp's widths")
+        # the K=4 ranks' set-up touches the card too: the K=1 run waits for it
+        while k4_job[0].is_alive() and not all(os.path.exists(f"{go}.ready{r}")
+                                                for r in range(4)):
+            time.sleep(0.05)
+        rec, k1, reassigned, peak = _sage_run(torch, t)
+        say(f"[sage] K=1: load_yelp + layouts + upload {setup_s:.1f} s (beside the K=4 "
+            f"ranks' set-up); fwd_local {t.blocks.counts[0][0]} dense tiles, "
+            f"{t.blocks.counts[0][1]} ELL edges")
+        _say_sage("K=1", rec, k1, reassigned, peak,
+                  (rec["planned_tile_launches"], *rec["planned_quant_launches"]))
+        check(k1[0] > 0 and rec["loss_curve"][-1] < rec["loss_curve"][0],
+              "K=1: no strip launch, or the loss did not fall")
+        if args.profile:
+            phase_profile(torch, t, tag="sage")
+        strip_err = _hold_sage_strip(torch, t)
+        time384 = phase_time(torch, t, card, widths=(384,), tag="sage")[384]
+        del t
+        torch.cuda.empty_cache()
+        pack_err, unpack_err, cases = _hold_contiguous(torch, SEED, ((384, 300), (256, 256)))
+        lane_pack, lane_unpack = _hold_lanes(torch, SEED, ((True, 384, 300, "bfloat16"),
+                                                           (False, 256, 256, "float32")))
+        say(f"[sage] quant_pack / unpack_dequant at f_true 300 within 384 and at 256: {cases} "
+            f"contiguous cases and the lane form on K=4 wires bit for bit (max |difference| "
+            f"{max(pack_err, lane_pack):g} / {max(unpack_err, lane_unpack):g})")
+    finally:
+        with open(go, "w"):  # the K=4 ranks train now, and every rank ends
+            pass
+        for job in (e2e, k4_job):
+            if job is not None:
+                job[0].join()
+
+    # (b) K=4
+    res, _ = _joined(*k4_job)
+    r0 = res[0]
+    say(f"[sage] K=4 over gloo on one card: l_max {r0['l_max']}, r_pad {r0['r_pad']}, layer 0 "
+        f"F {r0['f'][0]} (f_true {r0['f'][1]}); {SAGE_EPOCHS} epochs {r0['train_s']:.1f} s")
+    k4 = [0, 0, 0]
+    for rank, r in enumerate(res):
+        say(f"[sage] K=4 rank {rank}: {r['num_local']} nodes, {r['lanes']} send lanes, set-up "
+            f"{r['setup_s']:.1f} s (profiling {r['profile_s']:.1f} s of it)")
+        _say_sage(f"K=4 rank {rank}", {"loss_curve": r["losses"], "per_epoch": r["step_ms"] / 1e3,
+                                       "best": r["best"]},
+                  r["launches"], r["reassigned"], r["peak"], r["planned"])
+        check(np.array_equal(np.asarray(r["losses"]), np.asarray(r0["losses"])),
+              f"K=4 rank {rank}: ranks disagree on the loss")
+        check(r["reassigned"] == [SAGE_CYCLE + 1], f"K=4 rank {rank}: reassigned at "
+              f"{r['reassigned']}, not at {SAGE_CYCLE + 1}")
+        check(r["launches"][1] > 0 and r["launches"][2] > 0, f"K=4 rank {rank}: no quant launch")
+        k4 = [a + b for a, b in zip(k4, r["launches"])]
+    check(r0["losses"][-1] < r0["losses"][0], "K=4: the loss did not fall")
+    say(f"[sage] K=4: parameters bit-identical across ranks (sum {r0['checksum']!r})")
+    return {"strip": k1[0] + k4[0], "quant_pack": k4[1], "unpack_dequant": k4[2],
+            "k1": k1, "k4": k4, "strip_err": strip_err, "time384": time384,
+            "pack_err": max(pack_err, lane_pack), "unpack_err": max(unpack_err, lane_unpack)}
 
 
 def _layout_coo(torch, lay):
@@ -3487,7 +3827,7 @@ def main():
     p.add_argument("--full", action="store_true",
                    help="K=1 and the expand probe on the full Reddit-size graph (232,965 "
                         "nodes, 114.6M edges)")
-    p.add_argument("--nodes", type=int, default=65_536,
+    p.add_argument("--nodes", type=int, default=32_768,
                    help="nodes of the K=1 graph (edges keep Reddit's mean degree)")
     p.add_argument("--epochs", type=int, default=10)
     p.add_argument("--nodes_k", type=int, default=32_768, help="nodes of the K=4 graph")
@@ -3504,10 +3844,12 @@ def main():
     p.add_argument("--nodes_remat", type=int, default=None,
                    help="nodes of the products-degree graph of remat (default: --nodes_agg, "
                         "on train_agg's graph and layout when it ran)")
+    p.add_argument("--nodes_sage", type=int, default=131_072,
+                   help="nodes of sage's Yelp-shaped graph (GraphSAINT's Yelp: 716,847)")
     p.add_argument("--only", type=str, default=None,
                    help="comma-separated phases to run (agg, pad, quant, gather, expand, r5, "
                         "gpu_tests, e2e, e2e_k, e2e_pad, k1, train_k, ckpt, partition, parity, "
-                        "train_pad, e2e_agg, train_agg, remat; ckpt and remat run train_k "
+                        "train_pad, e2e_agg, train_agg, remat, sage; ckpt and remat run train_k "
                         "first); build always "
                         "runs, and the result lines print only for a full run")
     p.add_argument("--parent_rows", type=str, default=None,
@@ -3524,7 +3866,7 @@ def main():
                         "transpose_u32.cu on the same inputs")
     p.add_argument("--profile", action="store_true",
                    help="also trace a few K=1 training steps with torch.profiler (the "
-                        "Reddit run and each train_agg run)")
+                        "Reddit run, each train_agg run and sage's K=1 run)")
     args = p.parse_args()
     if args.parent_rows:
         args.parent_rows = os.path.abspath(args.parent_rows)
@@ -3623,6 +3965,8 @@ def main():
     if want("remat"):
         remat_l = run("remat", phase_remat, torch, args, agg_graph, k4, ckpt_l)
     del agg_graph
+    if want("sage"):
+        sage = run("sage", phase_sage, torch, args, card)
     if only is not None:
         say("[done] partial run (--only): no result lines")
         return
@@ -3635,29 +3979,32 @@ def main():
     pad_d = sum(r["pad_launches"][1] for r in kpad)
     say(f"[result] strip_spmm launches: K=1 train {launches}, K=4 AdaQP train {k4_strip} "
         f"(all ranks), its resumed run {ck_strip}, accuracy parity {parity_l['strip_spmm']}, "
-        f"products train {agg_l['strip_spmm']}, remat {remat_l['strip']}; quant_pack / "
-        f"unpack_dequant: K=4 AdaQP train {k4_q} / {k4_u}, resumed {ck_q} / {ck_u}, accuracy "
-        f"parity {parity_l['quant_pack']} / {parity_l['unpack_dequant']}, remat "
-        f"{remat_l['quant_pack']} / {remat_l['unpack_dequant']}")
+        f"products train {agg_l['strip_spmm']}, remat {remat_l['strip']}, SAGE K=1 "
+        f"{sage['k1'][0]}, SAGE K=4 {sage['k4'][0]}; quant_pack / unpack_dequant: K=4 AdaQP "
+        f"train {k4_q} / {k4_u}, resumed {ck_q} / {ck_u}, accuracy parity "
+        f"{parity_l['quant_pack']} / {parity_l['unpack_dequant']}, remat "
+        f"{remat_l['quant_pack']} / {remat_l['unpack_dequant']}, SAGE K=4 {sage['k4'][1]} / "
+        f"{sage['k4'][2]}")
     say(card)
     say(json.dumps({"kernels": [
         {"name": "strip_spmm", "route": "cuda",
          "source": "adaqp_tpu_torch/csrc/spmm_strip.cu",
          "replaces": "adaqp_tpu/ops/spmm_strip.py:277",
          "launches": launches + k4_strip + ck_strip + parity_l["strip_spmm"]
-         + agg_l["strip_spmm"] + remat_l["strip"], "max_abs_err": err,
+         + agg_l["strip_spmm"] + remat_l["strip"] + sage["strip"],
+         "max_abs_err": max(err, sage["strip_err"]),
          **times[640]},
         {"name": "quant_pack", "route": "cuda",
          "source": "adaqp_tpu_torch/csrc/quant_pack.cu",
          "replaces": "adaqp_tpu/ops/quant_pallas.py:103",
-         "launches": k4_q + ck_q + parity_l["quant_pack"] + remat_l["quant_pack"],
-         "max_abs_err": pack_err,
+         "launches": k4_q + ck_q + parity_l["quant_pack"] + remat_l["quant_pack"]
+         + sage["quant_pack"], "max_abs_err": max(pack_err, sage["pack_err"]),
          **qtimes[640][0]},
         {"name": "unpack_dequant", "route": "cuda",
          "source": "adaqp_tpu_torch/csrc/quant_pack.cu",
          "replaces": "adaqp_tpu/ops/quant_pallas.py:202",
-         "launches": k4_u + ck_u + parity_l["unpack_dequant"] + remat_l["unpack_dequant"],
-         "max_abs_err": quant_err,
+         "launches": k4_u + ck_u + parity_l["unpack_dequant"] + remat_l["unpack_dequant"]
+         + sage["unpack_dequant"], "max_abs_err": max(quant_err, sage["unpack_err"]),
          **qtimes[640][1]},
         {"name": "block_spmm", "route": "cuda",
          "source": "adaqp_tpu_torch/csrc/spmm_strip.cu",
