@@ -14,9 +14,10 @@ split zero except one:
 
 Every rank takes part in every probe and times it on the host clock (after
 a device synchronisation when the buffers are on a card); the times are
-then all-reduced with MAX, so all ranks hold the same ``[K, K, S]`` curves
-and fit the same model. :func:`fit_cost_model` is the JAX package's,
-unchanged.
+then all-reduced with MAX on the group's device (a card under NCCL, which
+carries no CPU tensor; the CPU under gloo), so all ranks hold the same
+``[K, K, S]`` curves and fit the same model. :func:`fit_cost_model` is the
+JAX package's, unchanged.
 """
 from __future__ import annotations
 
@@ -75,9 +76,11 @@ def profile_cost_model(
     mode: str = "auto",
     device=None,
 ) -> Tuple[np.ndarray, np.ndarray]:
-    """Probe the transport; returns ``(sizes_mb [S], times_ms [K, K, S])``,
-    the same on every rank (the diagonal stays 0). Collective: every rank
-    of the default process group must call it."""
+    """Probe the transport with buffers on ``device``; returns ``(sizes_mb
+    [S], times_ms [K, K, S])``, the same on every rank (the diagonal stays
+    0). The times are all-reduced on ``device`` under NCCL and on the CPU
+    under gloo. Collective: every rank of the default process group must
+    call it."""
     k = dist.get_world_size() if dist.is_initialized() else 1
     if mode == "auto":
         mode = "pair" if k <= 8 else "offset"
@@ -97,9 +100,10 @@ def profile_cost_model(
             t = _time_a2a(pairs, sz, reps, device)
             for s, r in pairs:
                 times[s, r, si] = t
-    agreed = torch.as_tensor(times, dtype=torch.float64)
+    on = device if dist.get_backend() == "nccl" else torch.device("cpu")
+    agreed = torch.as_tensor(times, dtype=torch.float64, device=on)
     dist.all_reduce(agreed, op=dist.ReduceOp.MAX)
-    return sizes / 1e6, agreed.numpy()
+    return sizes / 1e6, agreed.cpu().numpy()
 
 
 def fit_cost_model(

@@ -52,7 +52,10 @@ writes its frame into the send buffer; each bucket's all-to-all ships its
 own slice; once they have landed, one launch of the ``dequant_rows``
 kernel (``dequant_frames``) stores every lane's row at its halo slot, or
 adds it into its owner's row, and drops the sentinel lanes. The f32
-exchange keeps its per-bucket gather, all-to-all and placement.
+exchange keeps its per-bucket gather, all-to-all and placement. Spans, as
+on the ragged wire: ``adaqp.communication.start`` around starting the
+all-to-alls, ``adaqp.communication.wait`` around the waits, and
+``adaqp.quantization`` around the kernels (``ops/quant_cuda.py``).
 
 :func:`quant_start` (:func:`padded_start` for the f32 exchange) quantizes
 and starts the all-to-alls without waiting; :func:`padded_finish` waits
@@ -75,6 +78,7 @@ import torch
 import torch.distributed as dist
 
 from ..ops.quant_cuda import Frames, dequant_frames, make_frames, quant_frames, stream_key
+from ..utils.timer import span
 
 FP_BITS = 32  # a bucket of raw f32 lanes
 
@@ -109,9 +113,14 @@ def padded_all_to_all(x: torch.Tensor, async_op: bool = False,
     """Chunk ``j`` of ``x`` [K, ...] to rank ``j``; chunk ``j`` of the
     result (``out``, or a new tensor like ``x``) from rank ``j``. Returns
     ``(out, work)``; with ``async_op`` the caller waits on ``work`` before
-    reading ``out``."""
+    reading ``out``. Each call adds the bytes it sends to
+    ``padded_all_to_all.bytes``."""
     out = torch.empty_like(x) if out is None else out
+    padded_all_to_all.bytes += x.numel() * x.element_size()
     return out, dist.all_to_all_single(out, x.contiguous(), async_op=async_op)
+
+
+padded_all_to_all.bytes = 0
 
 
 def uniform_buckets(send_idx: torch.Tensor, recv_slot: torch.Tensor, bits: int):
@@ -147,9 +156,16 @@ def _ship_frames(buf: torch.Tensor, fr: Frames) -> Tuple[torch.Tensor, List[dist
     """Each bucket's slice of a send buffer to its peers, without waiting:
     the receive buffer and the all-to-alls in flight."""
     recv = torch.empty_like(buf)
-    works = [padded_all_to_all(s, True, r)[1]
-             for s, r in zip(fr.views(buf), fr.views(recv)) if s.numel()]
+    with span("adaqp.communication.start"):
+        works = [padded_all_to_all(s, True, r)[1]
+                 for s, r in zip(fr.views(buf), fr.views(recv)) if s.numel()]
     return recv, works
+
+
+def _wait(works: List[dist.Work]) -> None:
+    with span("adaqp.communication.wait"):
+        for w in works:
+            w.wait()
 
 
 @dataclasses.dataclass
@@ -165,14 +181,16 @@ class _Shipped:
 def _ship(rows: torch.Tensor, dest: torch.Tensor, async_op: bool) -> _Shipped:
     """Start one f32 bucket's all-to-all of its lane rows [K, cap, F]."""
     buf = rows.float().contiguous()
-    out, work = padded_all_to_all(buf, async_op)
+    with span("adaqp.communication.start"):
+        out, work = padded_all_to_all(buf, async_op)
     return _Shipped(dest.reshape(-1), out, work, buf)
 
 
 def _land(s: _Shipped, f: int) -> torch.Tensor:
     """Wait for a shipped f32 bucket: its received rows, f32 [K * cap, f]."""
-    if s.work is not None:
-        s.work.wait()
+    with span("adaqp.communication.wait"):
+        if s.work is not None:
+            s.work.wait()
     return s.out.reshape(-1, f)
 
 
@@ -225,8 +243,7 @@ class QuantPending:
 
     def finish(self) -> torch.Tensor:
         """Remote rows f32 [r_pad, F]; slots no lane fills stay zero."""
-        for w in self.works:
-            w.wait()
+        _wait(self.works)
         remote = torch.zeros((self.r_pad, self.f), dtype=torch.float32,
                              device=self.recvbuf.device)
         return dequant_frames(self.recvbuf, self.wire.fwd, remote)
@@ -237,8 +254,7 @@ class QuantPending:
         keys = [stream_key(key, i) for i in range(len(fr.bits))]
         send, rng = quant_frames(g, fr, keys, with_range=want_trace)
         recv, works = _ship_frames(send, fr)
-        for w in works:
-            w.wait()
+        _wait(works)
         ct = torch.zeros((l, self.f), dtype=torch.float32, device=g.device)
         return (dequant_frames(recv, fr, ct, add=True),
                 range_proxy(rng, fr.f_true) if want_trace else None)

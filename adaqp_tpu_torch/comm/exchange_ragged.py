@@ -25,7 +25,10 @@ direction of one layer runs in three steps:
    ``index_add_``).
 
 On the CPU the same two functions run the kernels' plain versions
-(``_pack_lanes_torch``, ``_unpack_lanes_torch``).
+(``_pack_lanes_torch``, ``_unpack_lanes_torch``). Spans: starting the
+all-to-all is ``adaqp.communication.start``, the wait for it
+``adaqp.communication.wait`` (both directions); the kernels run inside
+``adaqp.quantization`` (``ops/quant_cuda.py``).
 
 The parameter word. Scale and rmin travel as bf16, packed into one word
 (``ops/quant.py::param_words``); the receiver dequantizes with the bf16
@@ -49,6 +52,7 @@ import torch
 import torch.distributed as dist
 
 from ..ops.quant_cuda import pack_lanes, stream_key, unpack_lanes
+from ..utils.timer import span
 from .exchange import range_proxy
 from .ragged import ragged_all_to_all
 from .wire import LocalWire
@@ -94,15 +98,17 @@ class Pending:
     f_pad: int
 
     def finish(self, scatter_add: bool) -> torch.Tensor:
-        if self.work is not None:
-            self.work.wait()
+        with span("adaqp.communication.wait"):
+            if self.work is not None:
+                self.work.wait()
         return unpack_dir(self.wire, self.recvbuf, scatter_add, self.f_true, self.f_pad)
 
 
 def _start(w: LocalWire, src: torch.Tensor, key: int, f_true: int,
            async_op: bool, trace: bool = False):
     sendbuf, tr = pack_dir(w, src, key, f_true, trace)
-    recvbuf, work = ragged_all_to_all(sendbuf, w.send_splits, w.recv_splits, async_op)
+    with span("adaqp.communication.start"):
+        recvbuf, work = ragged_all_to_all(sendbuf, w.send_splits, w.recv_splits, async_op)
     return Pending(w, sendbuf, recvbuf, work, f_true, src.shape[1]), tr
 
 

@@ -7,7 +7,8 @@ int32 word buffer is cut into ``send_splits[r]`` words for rank ``r``, and
 the receiver's buffer holds ``recv_splits[s]`` words from each ``s`` back
 to back. Gloo and NCCL both carry uneven splits, so the JAX package's dense
 emulation for its CPU meshes has no counterpart here. Split sizes are host
-``int`` lists, built once per plan.
+``int`` lists, built once per plan. ``ragged_all_to_all.bytes`` counts the
+bytes every call sends from this rank, a host integer (no device sync).
 """
 from __future__ import annotations
 
@@ -38,4 +39,8 @@ def ragged_all_to_all(
         recvbuf, sendbuf, output_split_sizes=list(recv_splits),
         input_split_sizes=list(send_splits), async_op=async_op,
     )
+    ragged_all_to_all.bytes += sendbuf.numel() * sendbuf.element_size()
     return recvbuf, work
+
+
+ragged_all_to_all.bytes = 0

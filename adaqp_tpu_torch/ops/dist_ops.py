@@ -42,6 +42,12 @@ compact), in the aggregation dtype; with no ``blocks`` (``spmm_impl=
 segment``) it is a segment sum over the shard's edge lists
 (:class:`PairSegSpmm`) in the dtype of its inputs, as in the JAX package.
 
+Spans (``utils/timer.py::span``, the reference's ``Timer`` buckets): the
+call is ``adaqp.aggregate``; inside it ``adaqp.central`` is the local
+layout's sum, which overlaps the exchange, and ``adaqp.marginal`` the halo
+layout's sum plus the scaling. The tile functions carry their part's name
+into their backward.
+
 Aggregation math (reference ``ops.py:17-67``, global degrees clamped >= 1):
 
 - GCN      : out = D_in^-1/2 * A^T * (D_out^-1/2 * h)
@@ -60,6 +66,7 @@ from ..comm.exchange import (FP_BITS, padded_finish, padded_start, quant_start, 
 from ..comm.exchange_ragged import exchange_finish, exchange_start
 from ..common.types import AggregatorType, GNNType
 from ..graph.device import ShardArrays, ShardStatic, agg_torch_dtype
+from ..utils.timer import span
 from .spmm import segment_spmm, spmm_csr
 from .spmm_block import BlockDevice, spmm_block
 from .spmm_compact import CompactDevice, spmm_compact
@@ -103,10 +110,11 @@ class PairSegSpmm(torch.autograd.Function):
         bl_s, bl_d, bh_s, bh_d = ctx.edges[4:]
         (l_max, r_pad), (dl, dr) = ctx.dims, ctx.dtypes
         g_l = g_r = None
-        if ctx.needs_input_grad[0]:
-            g_l = _seg(bl_s, bl_d, g, l_max, ctx.chunk).to(dl)
-        if ctx.needs_input_grad[1]:
-            g_r = _seg(bh_s, bh_d, g, r_pad, ctx.chunk).to(dr)
+        with span("adaqp.marginal"):
+            if ctx.needs_input_grad[0]:
+                g_l = _seg(bl_s, bl_d, g, l_max, ctx.chunk).to(dl)
+            if ctx.needs_input_grad[1]:
+                g_r = _seg(bh_s, bh_d, g, r_pad, ctx.chunk).to(dr)
         return g_l, g_r, None, None, None, None
 
 
@@ -212,6 +220,11 @@ def dist_aggregate(
     per-sent-lane variance proxy (reference ``@trace_input``,
     ``op_util.py:91-99``), a value with no gradient (None in a recompute).
     """
+    with span("adaqp.aggregate"):
+        return _aggregate(h, sh, cfg, blocks, f_true, wire, keys, sink, padded, tape)
+
+
+def _aggregate(h, sh, cfg, blocks, f_true, wire, keys, sink, padded, tape):
     ft = h.shape[1] if f_true is None else f_true
     h_self = None
     if cfg.model is GNNType.SAGE and cfg.agg_type is not AggregatorType.MEAN:
@@ -266,28 +279,30 @@ def dist_aggregate(
         # the local part first: in overlapped modes it runs while the
         # exchange is in flight; the kernel emits dt (f32 accumulation inside)
         def local_part(hl):
-            return kernel(fl, hl.to(dt), bl)
+            return kernel(fl, hl.to(dt), bl, "adaqp.central")
 
         def pair(local, hr):
-            return local + kernel(fh, hr.to(dt), bh)
+            return local + kernel(fh, hr.to(dt), bh, "adaqp.marginal")
 
-    if cfg.model is GNNType.GCN:
-        local = local_part(h * torch.rsqrt(sh.deg_out[:l])[:, None])
-    elif cfg.model is GNNType.SAGE:
-        local = local_part(h)
-    else:
-        raise ValueError(f"unknown model {cfg.model}")
+    with span("adaqp.central"):
+        if cfg.model is GNNType.GCN:
+            local = local_part(h * torch.rsqrt(sh.deg_out[:l])[:, None])
+        elif cfg.model is GNNType.SAGE:
+            local = local_part(h)
+        else:
+            raise ValueError(f"unknown model {cfg.model}")
     if pending is not None:
         remote = finish()
     if tape is not None and not replay and cfg.k > 1:
         tape.keep(remote)
-    if cfg.model is GNNType.GCN:
-        hs_remote = remote * torch.rsqrt(sh.deg_out[l:])[:, None]
-        out = pair(local, hs_remote) * torch.rsqrt(sh.deg_in[:l])[:, None]
-    else:
-        agg = pair(local, remote)
-        if cfg.agg_type is AggregatorType.MEAN:
-            out = agg / sh.deg_in[:l, None]
-        else:  # 'gcn' aggregator (reference ops.py:41-46)
-            out = (agg + h_self) / (sh.deg_in[:l, None] + 1.0)
+    with span("adaqp.marginal"):
+        if cfg.model is GNNType.GCN:
+            hs_remote = remote * torch.rsqrt(sh.deg_out[l:])[:, None]
+            out = pair(local, hs_remote) * torch.rsqrt(sh.deg_in[:l])[:, None]
+        else:
+            agg = pair(local, remote)
+            if cfg.agg_type is AggregatorType.MEAN:
+                out = agg / sh.deg_in[:l, None]
+            else:  # 'gcn' aggregator (reference ops.py:41-46)
+                out = (agg + h_self) / (sh.deg_in[:l, None] + 1.0)
     return out, fwd_trace

@@ -38,7 +38,9 @@ placement, driven by the same tables. All four kernels are CUDA C++ for
 ``sm_90a``, built with ``nvcc`` at first use and loaded with ``ctypes``.
 Each wrapper launches its kernel on a CUDA tensor (and adds one to its
 ``launches`` count), runs the plain PyTorch version on a CPU tensor, and
-raises on anything else; nothing falls back from one to the other.
+raises on anything else; nothing falls back from one to the other. The
+wire's four (``pack_lanes``, ``unpack_lanes``, ``quant_frames``,
+``dequant_frames``) run inside the span ``adaqp.quantization``.
 
 The random numbers. The TPU kernel draws from the chip's hardware
 generator, which nothing can reproduce. Here the uniform of element
@@ -68,6 +70,7 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from ..utils.cuda_build import raise_on as _raise_on
+from ..utils.timer import span
 from .quant import (bytes_per_row, dequantize_rows, dequantize_words, pack_rows, pack_words,
                     pad_features, param_words, quantize_rows, row_minmax, split_param_words,
                     to_width, true_columns, unpack_rows)
@@ -655,10 +658,11 @@ def quant_frames(x: torch.Tensor, fr: Frames, keys: Sequence[int], with_range: b
     CUDA ``x``: one launch of the ``quant_rows`` kernel (one more
     ``quant_rows.launches``; none without lanes). CPU ``x``: the plain
     version."""
-    if x.device.type == "cuda":
-        return _quant_frames_cuda(x, fr, keys, with_range)
-    if x.device.type == "cpu":
-        return _quant_frames_torch(x, fr, keys, with_range)
+    with span("adaqp.quantization"):
+        if x.device.type == "cuda":
+            return _quant_frames_cuda(x, fr, keys, with_range)
+        if x.device.type == "cpu":
+            return _quant_frames_torch(x, fr, keys, with_range)
     raise ValueError(f"no quant_frames for device {x.device}")
 
 
@@ -674,10 +678,11 @@ def dequant_frames(buf: torch.Tensor, fr: Frames, out: torch.Tensor, add: bool =
     CUDA ``buf``: one launch of the ``dequant_rows`` kernel (one more
     ``dequant_rows.launches``; none without lanes). CPU ``buf``: the plain
     version."""
-    if buf.device.type == "cuda":
-        return _dequant_frames_cuda(buf, fr, out, add)
-    if buf.device.type == "cpu":
-        return _dequant_frames_torch(buf, fr, out, add)
+    with span("adaqp.quantization"):
+        if buf.device.type == "cuda":
+            return _dequant_frames_cuda(buf, fr, out, add)
+        if buf.device.type == "cpu":
+            return _dequant_frames_torch(buf, fr, out, add)
     raise ValueError(f"no dequant_frames for device {buf.device}")
 
 
@@ -734,10 +739,11 @@ def pack_lanes(x: torch.Tensor, lanes: Lanes, bits: Sequence[int], wpr: Sequence
     CUDA ``x``: one launch of the ``quant_pack`` kernel (one more
     ``quant_pack.launches``; none without lanes). CPU ``x``: the plain
     version."""
-    if x.device.type == "cuda":
-        return _pack_lanes_cuda(x, lanes, bits, wpr, keys, f_true, n_words, with_range)
-    if x.device.type == "cpu":
-        return _pack_lanes_torch(x, lanes, bits, wpr, keys, f_true, n_words, with_range)
+    with span("adaqp.quantization"):
+        if x.device.type == "cuda":
+            return _pack_lanes_cuda(x, lanes, bits, wpr, keys, f_true, n_words, with_range)
+        if x.device.type == "cpu":
+            return _pack_lanes_torch(x, lanes, bits, wpr, keys, f_true, n_words, with_range)
     raise ValueError(f"no pack_lanes for device {x.device}")
 
 
@@ -755,10 +761,11 @@ def unpack_lanes(buf: torch.Tensor, lanes: Lanes, bits: Sequence[int], wpr: Sequ
     CUDA ``buf``: one launch of the ``unpack_dequant`` kernel (one more
     ``unpack_dequant.launches``; none without lanes). CPU ``buf``: the
     plain version."""
-    if buf.device.type == "cuda":
-        return _unpack_lanes_cuda(buf, lanes, bits, wpr, f_true, f_pad, inv, add_into)
-    if buf.device.type == "cpu":
-        return _unpack_lanes_torch(buf, lanes, bits, wpr, f_true, f_pad, inv, add_into)
+    with span("adaqp.quantization"):
+        if buf.device.type == "cuda":
+            return _unpack_lanes_cuda(buf, lanes, bits, wpr, f_true, f_pad, inv, add_into)
+        if buf.device.type == "cpu":
+            return _unpack_lanes_torch(buf, lanes, bits, wpr, f_true, f_pad, inv, add_into)
     raise ValueError(f"no unpack_lanes for device {buf.device}")
 
 

@@ -32,6 +32,7 @@ de-duplicated edge lists (all four reference datasets are simple graphs).
 """
 from __future__ import annotations
 
+import contextlib
 import os
 from dataclasses import dataclass
 from typing import Callable, Optional
@@ -40,6 +41,7 @@ import numpy as np
 import torch
 
 from ..common.backend import DeviceLike, resolve_device
+from ..utils.timer import span
 from .spmm_fast import EllDevice, EllLayout, _run_ell, ell_from_csr
 from .spmm_walk import BD, BS, WORDS, StripWalk, WalkedLayout, run_walk, strip_walk
 
@@ -318,11 +320,13 @@ def block_spmm(layout: BlockDevice, h: torch.Tensor) -> torch.Tensor:
     """Kernel wrapper: the tile part of ``A^T h`` in ``h.dtype``.
 
     CUDA ``h``: the hand-written kernel (each launch adds one to
-    ``block_spmm.launches``). CPU ``h``: the plain PyTorch version."""
-    if h.device.type == "cuda":
-        return _run_block_cuda(layout, h)
-    if h.device.type == "cpu":
-        return _run_block_torch(layout, h)
+    ``block_spmm.launches``). CPU ``h``: the plain PyTorch version. Both
+    inside the span ``adaqp.tile``."""
+    with span("adaqp.tile"):
+        if h.device.type == "cuda":
+            return _run_block_cuda(layout, h)
+        if h.device.type == "cpu":
+            return _run_block_torch(layout, h)
     raise ValueError(f"no block SpMM for device {h.device}")
 
 
@@ -332,10 +336,11 @@ block_spmm.launches = 0
 def with_straggler(out: torch.Tensor, straggler: Optional[EllDevice],
                    h: torch.Tensor) -> torch.Tensor:
     """``out`` plus the ELL straggler's sums, accumulated in f32 and added
-    in ``h.dtype``."""
+    in ``h.dtype``: the ELL tail, inside the span ``adaqp.ell``."""
     if straggler is None:
         return out
-    return out + _run_ell(straggler, h, acc_dtype=torch.float32).to(h.dtype)
+    with span("adaqp.ell"):
+        return out + _run_ell(straggler, h, acc_dtype=torch.float32).to(h.dtype)
 
 
 def run_block(layout: BlockDevice, h: torch.Tensor) -> torch.Tensor:
@@ -347,20 +352,25 @@ class ReverseSpmm(torch.autograd.Function):
     """``run(layout_fwd, h)``, whose backward runs ``run(reverse, g)`` (the
     reference aggregating gradients on its prebuilt ``bwd_graph``,
     ``AdaQP/model/ops.py:83-95``) and returns the gradient in ``h``'s
-    dtype."""
+    dtype. ``part``: the span the forward runs in (``adaqp.central`` or
+    ``adaqp.marginal``), which the backward opens too; None opens none."""
 
     @staticmethod
-    def forward(ctx, h: torch.Tensor, run: Callable, layout_fwd, reverse):
-        ctx.run, ctx.reverse, ctx.h_dtype = run, reverse, h.dtype
+    def forward(ctx, h: torch.Tensor, run: Callable, layout_fwd, reverse,
+                part: Optional[str] = None):
+        ctx.run, ctx.reverse, ctx.h_dtype, ctx.part = run, reverse, h.dtype, part
         return run(layout_fwd, h)
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
-        gh = ctx.run(ctx.reverse, g.to(ctx.h_dtype).contiguous())
-        return gh.to(ctx.h_dtype), None, None, None
+        with span(ctx.part) if ctx.part else contextlib.nullcontext():
+            gh = ctx.run(ctx.reverse, g.to(ctx.h_dtype).contiguous())
+        return gh.to(ctx.h_dtype), None, None, None, None
 
 
-def spmm_block(layout_fwd: BlockDevice, h: torch.Tensor, reverse: BlockDevice) -> torch.Tensor:
+def spmm_block(layout_fwd: BlockDevice, h: torch.Tensor, reverse: BlockDevice,
+               part: Optional[str] = None) -> torch.Tensor:
     """A^T h with bitmask tiles; the backward runs the reverse layout
-    (argument order of the JAX package's ``spmm_block``)."""
-    return ReverseSpmm.apply(h, run_block, layout_fwd, reverse)
+    (argument order of the JAX package's ``spmm_block``) inside the span
+    ``part`` (:class:`ReverseSpmm`)."""
+    return ReverseSpmm.apply(h, run_block, layout_fwd, reverse, part)

@@ -51,6 +51,7 @@ import torch
 
 from ..common.backend import DeviceLike, resolve_device
 from ..utils.cuda_build import raise_on
+from ..utils.timer import span
 from .spmm_block import (
     _PLAIN_TILES, ReverseSpmm, _dedup, expand_masks, range_pointers, with_straggler,
 )
@@ -431,11 +432,13 @@ def compact_spmm(layout: CompactDevice, h: torch.Tensor) -> torch.Tensor:
     """Kernel wrapper: the item part of ``A^T h`` in ``h.dtype``.
 
     CUDA ``h``: the hand-written kernel (each launch adds one to
-    ``compact_spmm.launches``). CPU ``h``: the plain PyTorch version."""
-    if h.device.type == "cuda":
-        return _run_compact_cuda(layout, h)
-    if h.device.type == "cpu":
-        return _run_compact_torch(layout, h)
+    ``compact_spmm.launches``). CPU ``h``: the plain PyTorch version. Both
+    inside the span ``adaqp.tile``."""
+    with span("adaqp.tile"):
+        if h.device.type == "cuda":
+            return _run_compact_cuda(layout, h)
+        if h.device.type == "cpu":
+            return _run_compact_torch(layout, h)
     raise ValueError(f"no compact SpMM for device {h.device}")
 
 
@@ -552,7 +555,8 @@ def run_compact(layout: CompactDevice, h: torch.Tensor) -> torch.Tensor:
 
 
 def spmm_compact(layout_fwd: CompactDevice, h: torch.Tensor,
-                 reverse: CompactDevice) -> torch.Tensor:
+                 reverse: CompactDevice, part: Optional[str] = None) -> torch.Tensor:
     """A^T h with compact-column items; the backward runs the reverse
-    layout (argument order of the JAX package's ``spmm_compact``)."""
-    return ReverseSpmm.apply(h, run_compact, layout_fwd, reverse)
+    layout (argument order of the JAX package's ``spmm_compact``) inside the
+    span ``part`` (``ReverseSpmm``)."""
+    return ReverseSpmm.apply(h, run_compact, layout_fwd, reverse, part)

@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from ..common.backend import DeviceLike, resolve_device
+from ..utils.timer import span
 from .spmm_block import ReverseSpmm, _dedup, block_pointers, run_tiles_torch, with_straggler
 from .spmm_fast import EllDevice, EllLayout, ell_from_csr
 from .spmm_walk import BD, BS, STRIP, WORDS, StripWalk, WalkedLayout, run_walk, strip_walk
@@ -226,11 +227,13 @@ def strip_spmm(layout: StripDevice, h: torch.Tensor) -> torch.Tensor:
     """Kernel wrapper: the dense-tile part of ``A^T h`` in ``h.dtype``.
 
     CUDA ``h``: the hand-written kernel (each launch adds one to
-    ``strip_spmm.launches``). CPU ``h``: the plain PyTorch version."""
-    if h.device.type == "cuda":
-        return _run_strip_cuda(layout, h)
-    if h.device.type == "cpu":
-        return _run_strip_torch(layout, h)
+    ``strip_spmm.launches``). CPU ``h``: the plain PyTorch version. Both
+    inside the span ``adaqp.tile``."""
+    with span("adaqp.tile"):
+        if h.device.type == "cuda":
+            return _run_strip_cuda(layout, h)
+        if h.device.type == "cpu":
+            return _run_strip_torch(layout, h)
     raise ValueError(f"no strip SpMM for device {h.device}")
 
 
@@ -243,8 +246,9 @@ def run_strip(layout: StripDevice, h: torch.Tensor) -> torch.Tensor:
     return with_straggler(strip_spmm(layout, h), layout.straggler, h)
 
 
-def spmm_strip(layout_fwd: StripDevice, h: torch.Tensor, reverse: StripDevice) -> torch.Tensor:
+def spmm_strip(layout_fwd: StripDevice, h: torch.Tensor, reverse: StripDevice,
+               part: Optional[str] = None) -> torch.Tensor:
     """A^T h with strip bitmask tiles; the backward runs the reverse layout
     through the same kernel (argument order of the JAX package's
-    ``spmm_strip``)."""
-    return ReverseSpmm.apply(h, run_strip, layout_fwd, reverse)
+    ``spmm_strip``) inside the span ``part`` (``ReverseSpmm``)."""
+    return ReverseSpmm.apply(h, run_strip, layout_fwd, reverse, part)

@@ -51,6 +51,12 @@ adaqp_tpu_torch`` start them):
 - the memory report (``log_hbm``): one line after the first training step
   with the bytes allocated before it, the step's peak above them and the
   gradients' bytes (:meth:`Trainer._log_step_memory`).
+- measurement: the step opens the spans ``adaqp.forward``,
+  ``adaqp.backward`` and ``adaqp.optimizer``, a reassignment
+  ``adaqp.assign.solve`` and ``adaqp.assign.lower`` (``utils/timer.py::span``,
+  free without a profiler); host clocks of the constructor's phases
+  (``setup_phases_s``) and of each reassignment's two parts
+  (``assign_solve_s``, ``assign_lower_s``; ``assign_s`` is their sum).
 
 Random streams, all derived from ``seed`` with
 ``ops/quant_cuda.py::stream_key``, so that a run is reproducible and a
@@ -101,7 +107,7 @@ from ..ops.dist_ops import _seg, pick_block_kernel
 from ..ops.quant import bytes_per_row, pad_features
 from ..ops.quant_cuda import (dequant_frames, make_frames, quant_frames, quant_pack, stream_key,
                               unpack_dequant)
-from ..utils import Recorder, Timer
+from ..utils import Recorder, Timer, span
 from .config import RunConfig
 
 logger = logging.getLogger("adaqp_tpu_torch")
@@ -208,6 +214,10 @@ class Trainer:
         self.model_type = GNNType.GCN if cfg.model_name == "gcn" else GNNType.SAGE
         self.timer = Timer()
         t0 = time.perf_counter()
+        # host clocks of the constructor's phases: layout (partition, layout
+        # and tile layouts, read or built), device (the copies to the card),
+        # assign (the bootstrap and its lowering); the profile is profile_s
+        self.setup_phases_s: Dict[str, float] = {}
 
         # ---- data + partition + layout: rank 0 builds, the others load ----
         self.graph = graph if graph is not None else load_dataset(
@@ -215,12 +225,15 @@ class Trainer:
         )
         if self.rank != 0:
             dist.barrier()
+        tp = time.perf_counter()
         shards = self._host_setup()
+        self.setup_phases_s["layout"] = time.perf_counter() - tp
         if self.world > 1 and self.rank == 0:
             dist.barrier()
         self.k = self.layout.k
         if self.k != self.world:
             raise ValueError(f"the layout has {self.k} partitions for {self.world} ranks")
+        tp = time.perf_counter()
         sh = shard_arrays_from_layout(
             self.layout, rank=self.rank, edges=cfg.spmm_impl == "segment")
         if cfg.agg_dtype == "bfloat16":
@@ -229,6 +242,7 @@ class Trainer:
             sh = dataclasses.replace(sh, feats=sh.feats.to(torch.bfloat16))
         self.sh = sh.to(self.device)
         self.blocks = None if shards is None else shards.select(self.rank).to(self.device)
+        self.setup_phases_s["device"] = time.perf_counter() - tp
         self.static = static_from_layout(
             self.layout,
             model=self.model_type,
@@ -282,7 +296,10 @@ class Trainer:
         self.assignment: Optional[Assignment] = None
         self.assigner: Optional[Assigner] = None
         self.profile_s = 0.0
-        self.assign_s: List[float] = []
+        # each reassignment's two parts: the traces' gathering, rank 0's
+        # MILP and the broadcast (solve); the lowering
+        self.assign_solve_s: List[float] = []
+        self.assign_lower_s: List[float] = []
         if self._has_assigner():
             acfg = AssignerConfig(
                 group_size=cfg.group_size,
@@ -317,6 +334,7 @@ class Trainer:
                     float(nz.max()) if nz.size else 0.0,
                     float(np.asarray(cost_model[1]).mean()),
                 )
+            tp = time.perf_counter()
             self.assigner = Assigner(plan, cfg.num_layers, acfg, cost_model)
             # bootstrap: uniform assign_bits (reference trainer.py:63-66)
             if saved is not None:
@@ -328,6 +346,8 @@ class Trainer:
             else:
                 self.assignment = self.assigner.bootstrap()
             self._lower_assignment()
+            self.setup_phases_s["assign"] = time.perf_counter() - tp
+        self.setup_phases_s.setdefault("assign", 0.0)
         self._reset_traces()
         self.recorder = Recorder(cfg.num_epochs)
         # epochs already trained: training goes on from the next one
@@ -587,20 +607,23 @@ class Trainer:
         keys = [(stream_key(cfg.seed, epoch, self.rank, i, 1),
                  stream_key(cfg.seed, epoch, self.rank, i, 2))
                 for i in range(st.num_layers)]
-        logits, traces = apply_gnn(
-            self.params, self.sh, st, True, self.blocks, self.dropout_gen,
-            wires=self.wire_q if self.mode.quantized else self.wire_fp,
-            keys=keys, sinks=sinks,
-            padded=self.padded if self.mode.quantized else None,
-        )
-        s = self.sh
-        loss = masked_loss_sum(logits, s.labels, s.train_mask, st.multilabel)
-        loss = loss / self.train_count
-        loss.backward()
+        with span("adaqp.forward"):
+            logits, traces = apply_gnn(
+                self.params, self.sh, st, True, self.blocks, self.dropout_gen,
+                wires=self.wire_q if self.mode.quantized else self.wire_fp,
+                keys=keys, sinks=sinks,
+                padded=self.padded if self.mode.quantized else None,
+            )
+            s = self.sh
+            loss = masked_loss_sum(logits, s.labels, s.train_mask, st.multilabel)
+            loss = loss / self.train_count
+        with span("adaqp.backward"):
+            loss.backward()
         loss = loss.detach()
-        if self.world > 1:
-            loss = self._sync_grads(loss)
-        self.opt.step()
+        with span("adaqp.optimizer"):
+            if self.world > 1:
+                loss = self._sync_grads(loss)
+            self.opt.step()
         if sinks is not None:
             self.trace_fwd += traces
             for i in range(1, st.num_layers):
@@ -636,28 +659,36 @@ class Trainer:
         return [c / n for c, n in zip(correct, counts)]
 
     # ------------------------------------------------------------------
+    @property
+    def assign_s(self) -> List[float]:
+        """Each reassignment's seconds: its solve plus its lowering."""
+        return [a + b for a, b in zip(self.assign_solve_s, self.assign_lower_s)]
+
     def _reassign(self, epoch: int):
         """Periodic bit-width reassignment (reference
         ``runtime_util.py:86-93``)."""
         t0 = time.perf_counter()
         plan, L = self.layout.plan_fwd, self.cfg.num_layers
-        if self.scheme is Scheme.RANDOM:
-            # numpy from a shared seed: every rank draws the same widths
-            self.assignment = random_assignment(plan, L, self.cfg.seed + epoch)
-        else:
-            tf = self._all_gather(self.trace_fwd).transpose(0, 1)  # [L, K, K, S]
-            tb = self._all_gather(self.trace_bwd).transpose(0, 1)  # [L, K, R]
-            asg = None
-            if self.rank == 0:
-                asg = self.assigner.assign(
-                    tf.cpu().numpy(), tb.cpu().numpy(), layer_dims=self.layer_dims
-                )
-            self.assignment = self._broadcast_assignment(asg)
-            self._reset_traces()
+        with span("adaqp.assign.solve"):
+            if self.scheme is Scheme.RANDOM:
+                # numpy from a shared seed: every rank draws the same widths
+                self.assignment = random_assignment(plan, L, self.cfg.seed + epoch)
+            else:
+                tf = self._all_gather(self.trace_fwd).transpose(0, 1)  # [L, K, K, S]
+                tb = self._all_gather(self.trace_bwd).transpose(0, 1)  # [L, K, R]
+                asg = None
+                if self.rank == 0:
+                    asg = self.assigner.assign(
+                        tf.cpu().numpy(), tb.cpu().numpy(), layer_dims=self.layer_dims
+                    )
+                self.assignment = self._broadcast_assignment(asg)
+                self._reset_traces()
         t_assign = time.perf_counter() - t0
-        self._lower_assignment()
+        with span("adaqp.assign.lower"):
+            self._lower_assignment()
         dt = time.perf_counter() - t0
-        self.assign_s.append(dt)
+        self.assign_solve_s.append(t_assign)
+        self.assign_lower_s.append(dt - t_assign)
         self.timer.add("assignment_overhead", dt)
         logger.info(
             "epoch %d: reassignment done in %.2fs (solve %.2fs, lower %.2fs)",

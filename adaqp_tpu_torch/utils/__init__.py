@@ -1,2 +1,2 @@
-from .timer import Timer  # noqa: F401
+from .timer import Timer, span  # noqa: F401
 from .recorder import Recorder  # noqa: F401

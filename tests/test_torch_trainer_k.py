@@ -10,7 +10,10 @@ only torch and the port. The JAX side runs ``spmm_impl="block"``, which
 pads like the port's strip path (2048 rows, 128 feature lanes). The same
 launch then trains Vanilla with ``spmm_impl`` block, compact and segment,
 each from the JAX Trainer's initial parameters for that impl (its own
-first-weight shape), against the JAX Trainer with the same impl.
+first-weight shape), against the JAX Trainer with the same impl. After
+AdaQP uniform has trained, each rank runs one more step under
+``torch.profiler``: the exchange's spans, and the ragged wire's byte
+counter against the wires in force.
 """
 import sys
 
@@ -40,10 +43,30 @@ def _cfg(cls, tmp, tag, **over):
     })
 
 
+def _traced_step(t):
+    """One more training step of ``t`` under the profiler: the bytes the
+    ragged wire sent, 4 (an int32 word) times the send splits of the wires
+    in force (each layer's forward, and its backward but layer 0's), and the
+    ``adaqp.*`` spans as (name, start, end)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from adaqp_tpu_torch.comm.ragged import ragged_all_to_all
+
+    sent = ragged_all_to_all.bytes
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        t._train_step(EPOCHS + 1)
+    sent = ragged_all_to_all.bytes - sent
+    planned = 4 * sum(sum(w.send_splits) for pair in t.wire_q for w in pair if w is not None)
+    spans = [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.name.startswith("adaqp.")]
+    return sent, planned, spans
+
+
 def _rank_train(rank, world, device, tmp, inits):
     """Every run of RUNS in turn on this rank, then a Vanilla run of each of
     IMPLS; returns each run's losses, parameters, reassignment epochs and
-    planned quant launches."""
+    planned quant launches, and under ``"traced"`` AdaQP uniform's
+    :func:`_traced_step`."""
     from adaqp_tpu_torch.trainer import RunConfig, Trainer
 
     out = {}
@@ -60,6 +83,8 @@ def _rank_train(rank, world, device, tmp, inits):
         params = np.concatenate([p.detach().reshape(-1).numpy()
                                  for layer in t.params for p in layer.values()])
         out[name] = (rec["loss_curve"], params, n, rec["planned_quant_launches"])
+        if name == "AdaQP uniform":
+            out["traced"] = _traced_step(t)
     assert "jax" not in sys.modules and "adaqp_tpu" not in sys.modules
     return out
 
@@ -138,6 +163,22 @@ def test_overlap_equals_serial(runs, overlapped, serial):
         np.testing.assert_array_equal(res[r][overlapped][0], res[r][serial][0])
         np.testing.assert_array_equal(res[r][overlapped][1].view(np.int32),
                                       res[r][serial][1].view(np.int32))
+
+
+def test_exchange_spans_and_wire_bytes(runs):
+    res = runs[3]
+    for r in range(2):
+        sent, planned, spans = res[r]["traced"]
+        assert sent == planned > 0
+        inside = lambda sp, outer: any(o[0] == outer and o[1] <= sp[1] and sp[2] <= o[2]
+                                       for o in spans)
+        for part in ("adaqp.communication.start", "adaqp.communication.wait",
+                     "adaqp.quantization"):
+            mine = [sp for sp in spans if sp[0] == part]
+            # both directions: three layers forward inside the aggregation,
+            # two backward (layer 0 has none)
+            assert sum(inside(sp, "adaqp.aggregate") for sp in mine) >= 3, part
+            assert sum(inside(sp, "adaqp.backward") for sp in mine) >= 2, part
 
 
 def test_time_csv_has_a_row_per_rank(runs):
